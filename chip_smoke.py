@@ -1,0 +1,327 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``deepqmc_tpu_torch``) on one GPU.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each with a start and an end line and its own time budget:
+
+1. device: the card's name and power limit (``nvidia-smi``), torch and CUDA;
+2. build: the CUDA kernels from ``deepqmc_tpu_torch/csrc`` into an empty
+   ``deepqmc_tpu_torch/_build/`` (``nvcc``, one process per source);
+3. kernels: each kernel against its plain PyTorch version on the same inputs
+   on the card, at B = 256 and at the main path's B = 2048, with the stated
+   tolerances; the kernel's and the plain version's times (median of 20 runs,
+   CUDA events, after a warm-up);
+4. main path: the H2O PsiFormer at full width (16 determinants, embedding
+   256, 4 layers, 4 heads of 64; seeded random weights), 2048 walkers,
+   3 evaluation steps through ``deepqmc_tpu_torch.evaluate`` (10 Metropolis
+   moves, the forward-Laplacian local energy, statistics and EWM each); the
+   kernels' launch counters must grow during it.  Then the local energy of 64
+   of the walkers from the kernel path (float32, card) against the plain path
+   (float64, CPU).
+
+It prints a ``{"kernels": [...]}`` line, and as its last line
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
+line; a watchdog ends a run that hangs.  Without CUDA, or without the
+package beside it, it exits non-zero at once.
+"""
+
+import faulthandler
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+WATCHDOG_S = 1100  # the whole run, build included; the run's limit is 1200 s
+PHASE_BUDGET_S = {'device': 60, 'build': 240, 'kernels': 240, 'main_path': 480}
+
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
+# float32 flop/s outside the tensor cores.  The bound of a kernel is the larger
+# of its bytes over the first and its flops over the second.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
+# Tolerances of the kernels against their plain versions, both float32 on the
+# card: the two sum in other orders (K = 30 directions, dh = 64 products), so
+# they agree to float32 rounding times the size of the sums, not bitwise.
+KERNEL_RTOL = 1e-4  # max |kernel - plain| / max(1, max |plain|), per output
+# Local energy on 64 walkers: the kernel path (float32, card) against the plain
+# path in float64 (CPU).  Near a node of psi the forward Laplacian's float32
+# rounding is amplified by the inverse of the Slater matrices, so the bar is the
+# plain path's own float32 error on the same walkers (CPU): the kernel path's
+# worst error, relative to max(1, |E_loc|), may be at most ELOC_FACTOR times
+# that plus ELOC_FLOOR.
+ELOC_FACTOR, ELOC_FLOOR = 10.0, 1e-4
+
+
+_T0 = time.monotonic()
+
+
+class Phase:
+    """Prints start/end lines; re-arms the watchdog with the phase's budget."""
+
+    def __init__(self, name):
+        self.name, self.budget = name, PHASE_BUDGET_S[name]
+
+    def __enter__(self):
+        left = WATCHDOG_S - (time.monotonic() - _T0)
+        faulthandler.dump_traceback_later(max(1.0, min(self.budget, left)), exit=True)
+        print(f'[{self.name}] start', flush=True)
+        self.t0 = time.monotonic()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        dt = time.monotonic() - self.t0
+        faulthandler.dump_traceback_later(max(1.0, WATCHDOG_S - (time.monotonic() - _T0)), exit=True)
+        status = 'failed' if exc_type else 'end'
+        print(f'[{self.name}] {status} after {dt:.2f} s', flush=True)
+        if exc_type is None and dt > self.budget:
+            raise SystemExit(f'phase {self.name} overran its budget of {self.budget} s')
+        return False
+
+
+def cuda_median_ms(fn, runs=20, warmup=3):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def max_errors(out, ref):
+    err = (out - ref).abs().max().item()
+    scale = max(1.0, ref.abs().max().item())
+    return err, err / scale
+
+
+def attention_inputs(gen, B, K=30, n=10, H=4, dh=64):
+    import torch
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device='cuda', dtype=torch.float32)
+
+    prim = [draw(B, n, H, dh) for _ in range(3)]
+    jacs = [draw(B, K, n, H, dh) for _ in range(3)]
+    laps = [draw(B, n, H, dh) for _ in range(3)]
+    return (*prim, *jacs, *laps)
+
+
+def slogdet_inputs(gen, B, K=30, D=16, nu=5, nd=5):
+    import torch
+
+    n = nu + nd
+    # well-conditioned determinants, so m = A^-1 J stays of the size of J
+    a = torch.eye(n, device='cuda') + 0.3 / n**0.5 * torch.randn(B, D, n, n, generator=gen,
+                                                                 device='cuda')
+    inv = torch.linalg.inv(a).contiguous()
+    ju = torch.randn(B, K, nu, D * n, generator=gen, device='cuda')
+    jd = torch.randn(B, K, nd, D * n, generator=gen, device='cuda')
+    return inv, ju, jd
+
+
+def attention_bound_ms(B, K=30, n=10, H=4, dh=64):
+    f = 4
+    nbytes = f * B * H * n * dh * (6 + 2) + f * B * K * n * H * dh * (3 + 1)
+    flops = B * H * (12 * K * n * n * dh + 12 * n * n * dh + 20 * K * n * n)
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S), nbytes, flops
+
+
+def slogdet_bound_ms(B, K=30, D=16, n=10):
+    f = 4
+    nbytes = f * (B * D * n * n + B * K * n * D * n + B * K * D + B * D)
+    flops = B * D * K * (2 * n * n * n + 3 * n * n)
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S), nbytes, flops
+
+
+def main() -> int:
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    if not torch.cuda.is_available():
+        print('chip_smoke: CUDA is not available; this script needs a GPU', file=sys.stderr)
+        return 1
+    try:
+        import deepqmc_tpu_torch as dq
+        from deepqmc_tpu_torch.ops import _cuda
+        from deepqmc_tpu_torch.ops.fl_attention import mha_core_fl, mha_core_fl_plain
+        from deepqmc_tpu_torch.ops.fl_slogdet import slogdet_traces, slogdet_traces_plain
+    except ImportError as e:
+        print(f'chip_smoke: the package deepqmc_tpu_torch is missing ({e}); run from the '
+              'repository root', file=sys.stderr)
+        return 1
+
+    with Phase('device'):
+        smi = subprocess.run(
+            ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+            capture_output=True, text=True, timeout=30, check=True,
+        ).stdout.strip().splitlines()[0]
+        print(smi, flush=True)
+        print(f'torch {torch.__version__} cuda {torch.version.cuda} '
+              f'device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}',
+              flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    with Phase('build'):
+        shutil.rmtree(_cuda.BUILD_DIR, ignore_errors=True)
+        t0 = time.monotonic()
+        lib_path = _cuda.build(verbose=True)
+        build_s = time.monotonic() - t0
+        _cuda.library()
+        print(f'built {lib_path.name} in {build_s:.2f} s', flush=True)
+
+    kernels = []
+    with Phase('kernels'):
+        gen = torch.Generator('cuda').manual_seed(0)
+        cases = [
+            ('fl_attention', mha_core_fl, mha_core_fl_plain, attention_inputs,
+             ('t', 'J_t', 'L_t'), attention_bound_ms,
+             'deepqmc_tpu_torch/csrc/fl_attention.cu',
+             'deepqmc_tpu/ops/fl_attention.py:481'),
+            ('fl_slogdet_traces', slogdet_traces, slogdet_traces_plain, slogdet_inputs,
+             ('jout', 'trq'), slogdet_bound_ms,
+             'deepqmc_tpu_torch/csrc/fl_slogdet.cu',
+             'deepqmc_tpu/ops/fl_slogdet.py:566'),
+        ]
+        for name, kernel, plain, inputs, outs, bound, source, replaces in cases:
+            worst = 0.0
+            for B in (256, 2048):
+                args = inputs(gen, B)
+                got = kernel(*args)
+                torch.cuda.synchronize()
+                ref = plain(*args)
+                for label, o, r in zip(outs, got, ref):
+                    err, rel = max_errors(o, r)
+                    ok = rel <= KERNEL_RTOL and math.isfinite(err)
+                    print(f'{name} B={B} {label}: max abs err {err:.3e}, rel {rel:.3e} '
+                          f'(tol {KERNEL_RTOL:.0e}) {"ok" if ok else "FAIL"}', flush=True)
+                    if not ok:
+                        raise SystemExit(f'{name} disagrees with its plain version on {label}')
+                    worst = max(worst, err)
+            ms = cuda_median_ms(lambda: kernel(*args))
+            plain_ms = cuda_median_ms(lambda: plain(*args))
+            bound_ms, nbytes, flops = bound(2048)
+            bound_by = 'bytes' if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S else 'operations'
+            print(f'{name} B=2048: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+                  f'{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e9:.3f} GB, '
+                  f'{flops / 1e9:.2f} GFLOP)', flush=True)
+            kernels.append(dict(
+                name=name, route='cuda', source=source, replaces=replaces, launches=0,
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None,
+            ))
+            del args, got, ref
+        # other shapes than the main path's: odd n, several rounds of directions
+        # and of output tiles per block (paths H2O does not take)
+        for name, kernel, plain, make, kw in (
+            ('fl_attention', mha_core_fl, mha_core_fl_plain, attention_inputs,
+             dict(K=21, n=7, H=2, dh=12)),
+            ('fl_attention', mha_core_fl, mha_core_fl_plain, attention_inputs,
+             dict(K=48, n=16, H=2, dh=64)),
+            ('fl_slogdet_traces', slogdet_traces, slogdet_traces_plain, slogdet_inputs,
+             dict(K=21, D=3, nu=4, nd=3)),
+            ('fl_slogdet_traces', slogdet_traces, slogdet_traces_plain, slogdet_inputs,
+             dict(K=48, D=4, nu=8, nd=8)),
+        ):
+            args = make(gen, 5, **kw)
+            for o, r in zip(kernel(*args), plain(*args)):
+                err, rel = max_errors(o, r)
+                print(f'{name} {kw}: max abs err {err:.3e}, rel {rel:.3e}', flush=True)
+                if not rel <= KERNEL_RTOL:
+                    raise SystemExit(f'{name} disagrees with its plain version at {kw}')
+        print(f'launches in this phase (checks and timing): fl_attention '
+              f'{mha_core_fl.launches}, fl_slogdet_traces {slogdet_traces.launches}', flush=True)
+        torch.cuda.empty_cache()
+
+    with Phase('main_path'):
+        hamil = dq.MolecularHamiltonian(mol=dq.Molecule.from_name('H2O'))
+        wf = dq.psiformer_ansatz(hamil, seed=0)  # full width: the preset's defaults
+        counters = (mha_core_fl, slogdet_traces)
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        step_s, last = [], None
+        t0 = time.monotonic()
+        for step, state, E_loc, stats in dq.evaluate(hamil, wf, n_walkers=2048, steps=3,
+                                                    decorr=10, seed=0):
+            torch.cuda.synchronize()
+            step_s.append(time.monotonic() - t0)
+            print(f'step {step}: E_loc mean {stats["local_energy/mean"].item():.6f} std '
+                  f'{stats["local_energy/std"].item():.6f} acceptance '
+                  f'{stats["sampling/acceptance"].item():.4f} ewm '
+                  f'{stats["energy/ewm"].item():.6f} time {step_s[-1]:.3f} s', flush=True)
+            if not torch.isfinite(E_loc).all() or E_loc.shape != (2048,):
+                raise SystemExit(f'step {step}: E_loc not finite or of shape {tuple(E_loc.shape)}')
+            last = state
+            t0 = time.monotonic()
+        launches = [c.launches for c in counters]
+        print(f'median step time {sorted(step_s)[1]:.3f} s; launches during the main path: '
+              f'fl_attention {launches[0]}, fl_slogdet_traces {launches[1]}', flush=True)
+        for k, n in zip(kernels, launches):
+            k['launches'] = n
+            if n == 0:
+                raise SystemExit(f'{k["name"]} was never launched on the main path')
+
+        R = torch.as_tensor(hamil.mol.coords, dtype=torch.float32, device='cuda')
+        print(f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB', flush=True)
+        with torch.inference_mode():
+            pc = dq.PhysicalConfiguration(R, last['r'], torch.zeros(2048, dtype=torch.long,
+                                                                    device='cuda'))
+            eloc_ms = cuda_median_ms(lambda: hamil.local_energy(wf, pc), runs=3, warmup=1)
+        print(f'local energy alone (2048 walkers): {eloc_ms:.1f} ms; the rest of a step '
+              f'(10 Metropolis moves, statistics, EWM): {1e3 * sorted(step_s)[1] - eloc_ms:.1f} ms',
+              flush=True)
+
+        weights = {k: v.cpu() for k, v in wf.state_dict().items()}
+        plain_wfs = {}
+        for name, dtype in (('plain_f64', torch.float64), ('plain_f32', torch.float32)):
+            plain_wfs[name] = dq.psiformer_ansatz(hamil, seed=0).to(dtype)
+            plain_wfs[name].load_state_dict({k: v.to(dtype) for k, v in weights.items()})
+        r64 = last['r'][:64]
+        mol_idx = torch.zeros(64, dtype=torch.long)
+        e_path = {}
+        with torch.inference_mode():
+            e_path['kernel'], _ = hamil.local_energy(
+                wf, dq.PhysicalConfiguration(R, r64, mol_idx.cuda()))
+            for name, wf_cpu in plain_wfs.items():
+                dtype = next(wf_cpu.parameters()).dtype
+                e_path[name], _ = hamil.local_energy(wf_cpu, dq.PhysicalConfiguration(
+                    R.cpu().to(dtype), r64.cpu().to(dtype), mol_idx))
+        ref = e_path['plain_f64']
+        scale = ref.abs().clamp(min=1.0)
+        rel = {k: ((e_path[k].double().cpu() - ref).abs() / scale).max().item()
+               for k in ('kernel', 'plain_f32')}
+        tol = ELOC_FACTOR * rel['plain_f32'] + ELOC_FLOOR
+        print(f'E_loc on 64 walkers against the plain path in f64 (CPU): kernel path '
+              f'(f32, card) max rel err {rel["kernel"]:.3e}; plain path (f32, CPU) max rel '
+              f'err {rel["plain_f32"]:.3e}; tol {tol:.3e}', flush=True)
+        if not rel['kernel'] <= tol:
+            raise SystemExit('kernel-path local energy disagrees with the plain path')
+
+    print(json.dumps({'kernels': kernels}), flush=True)
+    print(f'{smi} | whole run {time.monotonic() - _T0:.1f} s', flush=True)
+    faulthandler.cancel_dump_traceback_later()
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,14 @@
+"""deepqmc_tpu_torch: the PyTorch/CUDA port of deepqmc_tpu.
+
+This slice runs the evaluation step of the PsiFormer ansatz (Metropolis
+sampling, the forward-Laplacian local energy, energy statistics and EWM) with
+hand-written CUDA kernels for the forward-Laplacian attention core and the
+flat log-determinant traces.  It imports torch, numpy and the standard
+library only.
+"""
+
+from .fit import eval_step, evaluate  # noqa: F401
+from .hamil import MolecularHamiltonian  # noqa: F401
+from .molecule import Molecule  # noqa: F401
+from .presets import psiformer_ansatz  # noqa: F401
+from .types import PhysicalConfiguration, Psi  # noqa: F401

@@ -1,0 +1,375 @@
+"""Forward Laplacian: explicit (value, Jacobian, Laplacian) propagation.
+
+Counterpart of ``deepqmc_tpu/fwdlap.py``.  The JAX package traces ``log psi``
+to a jaxpr and interprets it; here every module is written once against the
+small op set of this file, and each op accepts either a plain tensor or an
+:class:`FL` triple.  Given the electron coordinates as an :class:`FL` whose
+Jacobian is the identity, the same module code yields
+
+    (v,  J[k, ...] = d v / d x_k,  L[...] = sum_k d^2 v / d x_k^2)
+
+for every intermediate, with ``x`` the flattened 3N coordinates (K = 3N).
+
+Layout: the primal ``x`` is ``[B, *s]`` (walker-major), the Jacobian is
+batch-major ``[B, K, *s]`` and the Laplacian is ``[B, *s]``.  Ops address
+feature axes with negative dimensions only, so one call acts alike on all
+three channels.  A plain tensor mixed into an op is a constant: with fewer
+dimensions than the primal it broadcasts over the trailing axes; with as many
+it is aligned with the primal, walker axis included.
+
+The whole evaluation runs under ``torch.inference_mode()``: no autograd graph
+is built over the ``[B, K, ...]`` Jacobians.
+"""
+
+from collections.abc import Sequence
+
+import torch
+
+__all__ = ['FL', 'is_fl']
+
+
+def is_fl(v) -> bool:
+    return isinstance(v, FL)
+
+
+def _neg(dim: int) -> int:
+    if dim >= 0:
+        raise ValueError(f'FL ops address feature axes from the end, got dim={dim}')
+    return dim
+
+
+def _for_jac(c, xdim: int):
+    """A constant aligned with a primal of ``xdim`` dims, reshaped for the jac."""
+    if not torch.is_tensor(c) or c.dim() < xdim:
+        return c
+    if c.dim() > xdim:
+        raise ValueError('constant has more dims than the FL primal')
+    return c.unsqueeze(1)
+
+
+class FL:
+    """A value with its Jacobian ``[B, K, *s]`` and Laplacian ``[B, *s]``."""
+
+    __slots__ = ('x', 'jac', 'lap')
+
+    def __init__(self, x: torch.Tensor, jac: torch.Tensor, lap: torch.Tensor):
+        self.x, self.jac, self.lap = x, jac, lap
+
+    @classmethod
+    def seed(cls, x: torch.Tensor) -> 'FL':
+        """The input ``[B, *s]``: identity Jacobian over its K = prod(s) entries."""
+        B, shape = x.shape[0], x.shape[1:]
+        K = x[0].numel()
+        eye = torch.eye(K, dtype=x.dtype, device=x.device).reshape(K, *shape)
+        return cls(x, eye.expand(B, K, *shape), torch.zeros_like(x))
+
+    # --- metadata -------------------------------------------------------------
+
+    @property
+    def shape(self):
+        return self.x.shape
+
+    def dim(self) -> int:
+        return self.x.dim()
+
+    @property
+    def ndim(self) -> int:
+        return self.x.dim()
+
+    @property
+    def dtype(self):
+        return self.x.dtype
+
+    def _full(self, shape):
+        """The triple broadcast to the primal ``shape`` (views, no copies)."""
+        B, K = self.jac.shape[:2]
+        return FL(
+            self.x.expand(shape),
+            self.jac.expand(B, K, *shape[1:]),
+            self.lap.expand(shape),
+        )
+
+    # --- arithmetic -----------------------------------------------------------
+
+    def __add__(self, other):
+        return add(self, other)
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return add(self, neg(other))
+
+    def __neg__(self):
+        return neg(self)
+
+    def __mul__(self, other):
+        return mul(self, other)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return div(self, other)
+
+    def __rtruediv__(self, other):
+        return div(other, self)
+
+    def __pow__(self, p):
+        return pow(self, p)
+
+    def __matmul__(self, w: torch.Tensor):
+        """Right product with a constant matrix (a dense layer's weight)."""
+        if is_fl(w) or w.dim() != 2:
+            raise ValueError('FL @ w takes a constant 2-D w')
+        return FL(self.x @ w, self.jac @ w, self.lap @ w)
+
+    # --- structure ------------------------------------------------------------
+
+    def __getitem__(self, idx):
+        if not isinstance(idx, tuple):
+            idx = (idx,)
+        if idx[0] is not Ellipsis:
+            raise IndexError('FL indexing must start with ... (feature axes only)')
+        return FL(self.x[idx], self.jac[idx], self.lap[idx])
+
+    def sum(self, dim: int, keepdim: bool = False) -> 'FL':
+        dim = _neg(dim)
+        return FL(
+            self.x.sum(dim, keepdim), self.jac.sum(dim, keepdim), self.lap.sum(dim, keepdim)
+        )
+
+    def squeeze(self, dim: int) -> 'FL':
+        dim = _neg(dim)
+        return FL(self.x.squeeze(dim), self.jac.squeeze(dim), self.lap.squeeze(dim))
+
+    def flatten(self, start_dim: int, end_dim: int = -1) -> 'FL':
+        s, e = _neg(start_dim), _neg(end_dim)
+        return FL(self.x.flatten(s, e), self.jac.flatten(s, e), self.lap.flatten(s, e))
+
+    def unflatten(self, dim: int, sizes: Sequence[int]) -> 'FL':
+        dim = _neg(dim)
+        return FL(
+            self.x.unflatten(dim, sizes),
+            self.jac.unflatten(dim, sizes),
+            self.lap.unflatten(dim, sizes),
+        )
+
+
+# --- elementwise and binary rules -------------------------------------------
+
+
+def neg(v):
+    return FL(-v.x, -v.jac, -v.lap) if is_fl(v) else -v
+
+
+def add(a, b):
+    if not is_fl(a) and not is_fl(b):
+        return a + b
+    if not is_fl(a):
+        a, b = b, a
+    if not is_fl(b):
+        y = a.x + b
+        full = a._full(y.shape)
+        return FL(y, full.jac, full.lap)
+    _same_rank(a, b)
+    y = a.x + b.x
+    B, K = a.jac.shape[:2]
+    return FL(y, (a.jac + b.jac).expand(B, K, *y.shape[1:]), (a.lap + b.lap).expand(y.shape))
+
+
+def mul(a, b):
+    if not is_fl(a) and not is_fl(b):
+        return a * b
+    if not is_fl(a):
+        a, b = b, a
+    if not is_fl(b):
+        return FL(a.x * b, a.jac * _for_jac(b, a.ndim), a.lap * b)
+    _same_rank(a, b)
+    return FL(
+        a.x * b.x,
+        a.jac * b.x.unsqueeze(1) + a.x.unsqueeze(1) * b.jac,
+        a.lap * b.x + a.x * b.lap + 2 * (a.jac * b.jac).sum(1),
+    )
+
+
+def div(a, b):
+    if not is_fl(a) and not is_fl(b):
+        return a / b
+    if not is_fl(b):
+        return mul(a, 1 / b)
+    y = (a.x if is_fl(a) else a) / b.x
+    inv = 1 / b.x
+    jb = b.jac
+    yk, invk = y.unsqueeze(1), inv.unsqueeze(1)
+    jac = -yk * jb * invk
+    lap = -y * b.lap * inv + 2 * y * inv**2 * (jb * jb).sum(1)
+    if is_fl(a):
+        _same_rank(a, b)
+        jac = jac + a.jac * invk
+        lap = lap + a.lap * inv - 2 * inv**2 * (a.jac * jb).sum(1)
+    return FL(y, jac, lap)
+
+
+def _same_rank(a: FL, b: FL):
+    if a.ndim != b.ndim:
+        raise ValueError(f'FL operands of different rank: {a.shape} vs {b.shape}')
+
+
+def _elementwise(v: FL, y, d1, d2) -> FL:
+    """Chain rule for y = f(x) elementwise, given f' and f'' at x."""
+    return FL(y, d1.unsqueeze(1) * v.jac, d1 * v.lap + d2 * (v.jac * v.jac).sum(1))
+
+
+def exp(v):
+    if not is_fl(v):
+        return torch.exp(v)
+    y = torch.exp(v.x)
+    return _elementwise(v, y, y, y)
+
+
+def tanh(v):
+    if not is_fl(v):
+        return torch.tanh(v)
+    y = torch.tanh(v.x)
+    d1 = 1 - y * y
+    return _elementwise(v, y, d1, -2 * y * d1)
+
+
+def log(v):
+    if not is_fl(v):
+        return torch.log(v)
+    inv = 1 / v.x
+    return _elementwise(v, torch.log(v.x), inv, -inv * inv)
+
+
+def log1p(v):
+    if not is_fl(v):
+        return torch.log1p(v)
+    inv = 1 / (1 + v.x)
+    return _elementwise(v, torch.log1p(v.x), inv, -inv * inv)
+
+
+def sqrt(v):
+    if not is_fl(v):
+        return torch.sqrt(v)
+    y = torch.sqrt(v.x)
+    return _elementwise(v, y, 0.5 / y, -0.25 / (y * v.x))
+
+
+def abs(v):  # noqa: A001 - mirrors torch.abs
+    if not is_fl(v):
+        return torch.abs(v)
+    s = torch.sign(v.x)
+    return FL(torch.abs(v.x), s.unsqueeze(1) * v.jac, s * v.lap)
+
+
+def pow(v, p: float):  # noqa: A001 - mirrors torch.pow
+    """``v ** p`` for a constant scalar exponent."""
+    if not is_fl(v):
+        return v**p
+    return _elementwise(v, v.x**p, p * v.x ** (p - 1), p * (p - 1) * v.x ** (p - 2))
+
+
+def cat(values: Sequence, dim: int):
+    """Concatenate along a feature axis; lower-rank constants are broadcast over
+    the walker axis and, next to FL values, get zero derivatives."""
+    dim = _neg(dim)
+    ref = max(values, key=lambda v: v.dim())
+    B = ref.shape[0]
+
+    def batched(v):
+        if v.dim() == ref.dim():
+            return v
+        if v.dim() != ref.dim() - 1:
+            raise ValueError("cat: a constant may lack the walker axis only")
+        return v.expand(B, *v.shape)
+
+    fls = [v for v in values if is_fl(v)]
+    if not fls:
+        return torch.cat([batched(v) for v in values], dim)
+    K = fls[0].jac.shape[1]
+
+    def full(v):
+        if is_fl(v):
+            return v
+        x = batched(v)
+        zeros = x.new_zeros(())
+        return FL(x, zeros.expand(B, K, *x.shape[1:]), zeros.expand(x.shape))
+
+    parts = [full(v) for v in values]
+    return FL(
+        torch.cat([p.x for p in parts], dim),
+        torch.cat([p.jac for p in parts], dim),
+        torch.cat([p.lap for p in parts], dim),
+    )
+
+
+def primal(v) -> torch.Tensor:
+    """The value channel of an FL, or the tensor itself."""
+    return v.x if is_fl(v) else v
+
+
+# --- fused rules (kernel-backed) ---------------------------------------------
+
+
+def mha_core(q2, k2, v2, num_heads: int):
+    """softmax(q k^T / sqrt(dh)) v on head-flat ``[B, n, H*dh]`` operands.
+
+    Counterpart of ``nn/modules.py`` ``_mha_core_flat`` and of the
+    attention-core rule ``fwdlap._mha_core_flat_rule``: on FL operands the
+    whole core goes through :func:`ops.fl_attention.mha_core_fl` (the CUDA
+    kernel on the card).  The head split is a view of the flat layout.
+    """
+    if not any(is_fl(v) for v in (q2, k2, v2)):
+        q, k, v = (t.unflatten(-1, (num_heads, -1)) for t in (q2, k2, v2))
+        logits = torch.einsum('bihd,bjhd->bhij', q, k) / q.shape[-1] ** 0.5
+        att = torch.einsum('bhij,bjhd->bihd', torch.softmax(logits, -1), v)
+        return att.flatten(-2)
+    from .ops.fl_attention import mha_core_fl
+
+    if not all(is_fl(v) for v in (q2, k2, v2)):
+        raise ValueError('mha_core: q, k and v must all be FL or all be tensors')
+
+    def heads(t):
+        return t.unflatten(-1, (num_heads, -1))
+
+    qkv = (q2, k2, v2)
+    t, jt, lt = mha_core_fl(
+        *(heads(v.x) for v in qkv), *(heads(v.jac) for v in qkv), *(heads(v.lap) for v in qkv)
+    )
+    return FL(t.flatten(-2), jt.flatten(-2), lt.flatten(-2))
+
+
+def slogdet_flat_rows(up, down, n_det: int):
+    """Per-determinant (sign, log|det|) of the row concatenation [up; down].
+
+    Counterpart of ``_determinant_mix``'s row concatenation followed by
+    ``slogdet_flat`` and of the rule ``fwdlap._slogdet_flat_rule`` on
+    ``FLRowBlocks``: the primal and Laplacian are concatenated, the Jacobian
+    stays in its two row blocks, which the kernel reads in place.
+    """
+    from .ops.fl_slogdet import slogdet_fl_flat_split
+    from .ops.slogdet import slogdet_flat
+
+    if not is_fl(up) and not is_fl(down):
+        return slogdet_flat(torch.cat([up, down], dim=-2), n_det)
+    if not (is_fl(up) and is_fl(down)):
+        raise ValueError('slogdet_flat_rows: both row blocks must be FL')
+    sign, logdet, jout, lout = slogdet_fl_flat_split(
+        torch.cat([up.x, down.x], dim=-2),
+        up.jac.contiguous(),
+        down.jac.contiguous(),
+        torch.cat([up.lap, down.lap], dim=-2),
+        n_det,
+    )
+    return sign, FL(logdet, jout, lout)
+
+
+def forward_laplacian(f):
+    """LaplacianFactory: ``f`` maps electrons ``[B, n, 3]`` to ``log psi`` ``[B]``;
+    returns ``r -> (lap f(r) [B], grad f(r) [B, 3n])`` in one forward pass."""
+
+    def lap(r: torch.Tensor):
+        out = f(FL.seed(r))
+        return out.lap, out.jac
+
+    return lap

@@ -1,0 +1,9 @@
+"""The port's kernels, each beside its plain PyTorch version."""
+
+from .fl_attention import mha_core_fl, mha_core_fl_plain  # noqa: F401
+from .fl_slogdet import (  # noqa: F401
+    slogdet_fl_flat_split,
+    slogdet_traces,
+    slogdet_traces_plain,
+)
+from .slogdet import slogdet_flat, unflatten_dets  # noqa: F401

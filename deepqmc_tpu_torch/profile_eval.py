@@ -1,0 +1,63 @@
+"""Where an evaluation step's time goes on the card.
+
+    python -m deepqmc_tpu_torch.profile_eval
+
+Builds the H2O PsiFormer at full width with seeded weights, equilibrates
+2048 walkers with one evaluation step, then profiles one step's two halves
+separately with ``torch.profiler``: the 10 Metropolis moves (plain forwards)
+and the forward-Laplacian local energy.  For each half it prints the wall
+time (CUDA-synchronised), the summed device time of its kernels, the device's
+idle share (1 - device time / wall time) and the kernels that take the most
+device time.  Needs a GPU.
+"""
+
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from . import Molecule, MolecularHamiltonian, evaluate, psiformer_ansatz
+from .sampling import DecorrSampler, MetropolisSampler
+
+__all__ = ['main']
+
+
+def _profiled(label, fn, top=12):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t0)
+    events = [e for e in prof.key_averages() if e.device_type.name == 'CUDA']
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f'{label}: wall {wall_ms:.1f} ms, device {device_ms:.1f} ms, '
+          f'idle share {1 - device_ms / wall_ms:.3f}, {sum(e.count for e in events)} kernel '
+          f'launches', flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f'  {e.self_device_time_total / 1e3:8.2f} ms  {e.count:5d}x  {e.key[:110]}',
+              flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print('profile_eval: needs a GPU', file=sys.stderr)
+        return 1
+    print(torch.cuda.get_device_name(0), flush=True)
+    hamil = MolecularHamiltonian(mol=Molecule.from_name('H2O'))
+    wf = psiformer_ansatz(hamil, seed=0)
+    *_, (_, state, _, _) = evaluate(hamil, wf, n_walkers=2048, steps=1, seed=0)
+    R = torch.as_tensor(hamil.mol.coords, dtype=torch.float32, device='cuda')
+    sampler = DecorrSampler(length=10).wrap(MetropolisSampler(hamil, wf))
+    gen = torch.Generator('cuda').manual_seed(2)
+    with torch.inference_mode():
+        _, pc, _ = sampler.sample(gen, state, R)
+        hamil.local_energy(wf, pc)  # warm-up of this shape
+        _profiled('sampling (10 Metropolis moves)', lambda: sampler.sample(gen, state, R))
+        _profiled('local energy (forward Laplacian)', lambda: hamil.local_energy(wf, pc))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,97 @@
+"""Rules the port keeps: no JAX, no JAX package and no YAML on its path; entry
+points run on CUDA unless told otherwise; small source files; and the main
+path hands its kernels operands their input checks accept."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import deepqmc_tpu_torch as dqt
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / 'deepqmc_tpu_torch'
+FORBIDDEN = {'jax', 'jaxlib', 'deepqmc_tpu', 'yaml'}
+PORT_FILES = sorted(PKG.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {alias.name.split('.')[0] for alias in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split('.')[0])
+    return roots
+
+
+@pytest.mark.parametrize('path', PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_yaml_imports(path):
+    assert not _imported_roots(path) & FORBIDDEN
+
+
+def test_imports_with_jax_and_yaml_blocked():
+    modules = sorted(
+        '.'.join(p.relative_to(ROOT).with_suffix('').parts).removesuffix('.__init__')
+        for p in PKG.rglob('*.py')
+    )
+    code = (
+        'import sys\n'
+        'for name in ("jax", "jaxlib", "yaml", "deepqmc_tpu", "scipy"):\n'
+        '    sys.modules[name] = None\n'
+        f'import importlib\nfor m in {modules!r}:\n    importlib.import_module(m)\n'
+    )
+    proc = subprocess.run(
+        [sys.executable, '-c', code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_evaluate_needs_cuda_unless_told():
+    if torch.cuda.is_available():
+        pytest.skip('CUDA is present: the default device is valid here')
+    hamil = dqt.MolecularHamiltonian(mol=dqt.Molecule.from_name('H2'))
+    wf = dqt.psiformer_ansatz(hamil, n_determinants=1, embedding_dim=8, n_interactions=1,
+                              num_heads=2)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        next(dqt.evaluate(hamil, wf, n_walkers=4, steps=1))
+
+
+def test_source_files_are_small():
+    for path in PKG.rglob('*'):
+        if path.is_file() and '_build' not in path.parts and '__pycache__' not in path.parts:
+            assert path.stat().st_size < 100_000, path
+
+
+def test_main_path_operands_pass_the_kernel_checks(monkeypatch):
+    """A float32 evaluation on the CPU through wrappers that run each kernel's
+    input checks before its plain version: the operands the main path builds
+    are the ones the CUDA kernels take."""
+    from deepqmc_tpu_torch.ops import fl_attention, fl_slogdet
+
+    seen = []
+
+    def attention(*args):
+        fl_attention.validate(*args)
+        seen.append('fl_attention')
+        return fl_attention.mha_core_fl_plain(*args)
+
+    def traces(*args):
+        fl_slogdet.validate(*args)
+        seen.append('fl_slogdet')
+        return fl_slogdet.slogdet_traces_plain(*args)
+
+    monkeypatch.setattr(fl_attention, 'mha_core_fl', attention)
+    monkeypatch.setattr(fl_slogdet, 'slogdet_traces', traces)
+    hamil = dqt.MolecularHamiltonian(mol=dqt.Molecule.from_name('H2O'))
+    wf = dqt.psiformer_ansatz(hamil, n_determinants=2, embedding_dim=32, n_interactions=2,
+                              num_heads=2)
+    out = list(dqt.evaluate(hamil, wf, n_walkers=8, steps=2, decorr=2, device='cpu'))
+    assert seen == (['fl_attention'] * 2 + ['fl_slogdet']) * 2
+    for _, state, E_loc, stats in out:
+        assert E_loc.dtype == torch.float32 and torch.isfinite(E_loc).all()
+        assert state['r'].shape == (8, 10, 3)
+        assert set(stats) >= {'local_energy/mean', 'energy/ewm', 'sampling/acceptance'}

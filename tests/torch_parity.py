@@ -1,0 +1,75 @@
+"""Shared inputs for the port's parity tests (tests/test_torch_*.py).
+
+Builds the small PsiFormer (2 determinants, embedding 32, 2 layers, 2 heads,
+as ``__graft_entry__._flagship(small=True)``) in both packages with the same
+parameters: JAX's ``init`` perturbed by seeded numpy noise (so the envelope
+and cusp parameters are not all ones), converted with
+``deepqmc_tpu_torch.convert``.  Walkers come from the JAX ``init_sample`` or,
+for LiH, from the pinned self-golden walker.
+"""
+
+from pathlib import Path
+
+import jax
+import numpy as np
+import torch
+
+SMALL = {'n_determinants': 2, 'embedding_dim': 32, 'n_interactions': 2, 'num_heads': 2}
+SELFGOLDENS = Path(__file__).parent / 'test_reference_parity' / 'selfgoldens.npz'
+
+
+def jax_model(mol_name: str, seed: int = 0):
+    """(JAX hamiltonian, ansatz, perturbed params as numpy)."""
+    import deepqmc_tpu as dqj
+    from deepqmc_tpu.presets import ansatz_preset
+    from deepqmc_tpu.wf import instantiate_ansatz
+
+    hamil = dqj.MolecularHamiltonian(mol=dqj.Molecule.from_name(mol_name))
+    ansatz = instantiate_ansatz(hamil, ansatz_preset('psiformer', **SMALL))
+    pc = hamil.init_sample(jax.random.PRNGKey(seed), hamil.mol.coords, 1)[0]
+    params = jax.jit(ansatz.init)(jax.random.PRNGKey(seed + 1), pc)
+    rng = np.random.default_rng(seed)
+    params = {
+        path: {k: np.asarray(v) + 0.1 * rng.normal(size=np.shape(v)) for k, v in bundle.items()}
+        for path, bundle in params.items()
+    }
+    return hamil, ansatz, params
+
+
+def torch_model(mol_name: str, params, **hamil_kwargs):
+    """(port hamiltonian, wave function in float64 holding ``params``)."""
+    import deepqmc_tpu_torch as dqt
+    from deepqmc_tpu_torch.convert import state_dict_from_jax
+
+    hamil = dqt.MolecularHamiltonian(mol=dqt.Molecule.from_name(mol_name), **hamil_kwargs)
+    wf = dqt.psiformer_ansatz(hamil, **SMALL).to(torch.float64)
+    wf.load_state_dict(state_dict_from_jax(params, wf))
+    return hamil, wf
+
+
+def walkers(hamil_jax, source: str, n: int = 3, seed: int = 0) -> np.ndarray:
+    """Electron positions [n, n_elec, 3] from ``init_sample`` or the self-goldens."""
+    if source == 'init_sample':
+        pcs = hamil_jax.init_sample(jax.random.PRNGKey(seed), hamil_jax.mol.coords, n)
+        return np.asarray(pcs.r)
+    # the pinned LiH walker: edges_ne[I, i] = r_i - R_I
+    edges_ne = np.load(SELFGOLDENS)['edges_ne']
+    r = edges_ne[0] + np.asarray(hamil_jax.mol.coords)[0]
+    return r[None]
+
+
+def jax_phys_conf(hamil_jax, r: np.ndarray):
+    import jax.numpy as jnp
+
+    from deepqmc_tpu.types import PhysicalConfiguration
+
+    n = len(r)
+    R = jnp.tile(jnp.asarray(hamil_jax.mol.coords)[None], (n, 1, 1))
+    return PhysicalConfiguration(R, jnp.asarray(r), jnp.zeros(n, dtype=jnp.int32))
+
+
+def torch_phys_conf(hamil_torch, r: np.ndarray):
+    from deepqmc_tpu_torch.types import PhysicalConfiguration
+
+    R = torch.as_tensor(hamil_torch.mol.coords, dtype=torch.float64)
+    return PhysicalConfiguration(R, torch.tensor(r), torch.zeros(len(r), dtype=torch.long))
