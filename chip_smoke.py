@@ -17,12 +17,19 @@ Phases, each with a start and an end line and its own time budget:
 4. main path: the H2O PsiFormer at full width (16 determinants, embedding
    256, 4 layers, 4 heads of 64; seeded random weights), 2048 walkers,
    3 evaluation steps through ``deepqmc_tpu_torch.evaluate`` (10 Metropolis
-   moves, the forward-Laplacian local energy, statistics and EWM each); the
-   kernels' launch counters must grow during it.  Then the local energy of 64
-   of the walkers from the kernel path (float32, card) against the plain path
-   (float64, CPU).
+   moves, the forward-Laplacian local energy, statistics and EWM each), with
+   the per-op forward Laplacian; the launch counters of the attention and
+   slogdet kernels must grow during it.  Then the local energy of 64 of the
+   walkers from the kernel path (float32, card) against the plain path
+   (float64, CPU);
+5. block path: the same model and run with ``block_kernel=True``, where each
+   layer's forward Laplacian is one launch of the fused block kernel: 4
+   launches of it and none of the attention kernel per local energy; its
+   local energy on 64 walkers against the float64 plain path (CPU) and
+   against the per-op path on the card.
 
-It prints a ``{"kernels": [...]}`` line, and as its last line
+Each path's launch counts are read from a run that starts with every count
+at 0.  It prints a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line; a watchdog ends a run that hangs.  Without CUDA, or without the
 package beside it, it exits non-zero at once.
@@ -38,7 +45,9 @@ import sys
 import time
 
 WATCHDOG_S = 1100  # the whole run, build included; the run's limit is 1200 s
-PHASE_BUDGET_S = {'device': 60, 'build': 240, 'kernels': 240, 'main_path': 480}
+PHASE_BUDGET_S = {
+    'device': 60, 'build': 240, 'kernels': 300, 'main_path': 300, 'block_path': 180,
+}
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # float32 flop/s outside the tensor cores.  The bound of a kernel is the larger
@@ -57,6 +66,10 @@ KERNEL_RTOL = 1e-4  # max |kernel - plain| / max(1, max |plain|), per output
 # worst error, relative to max(1, |E_loc|), may be at most ELOC_FACTOR times
 # that plus ELOC_FLOOR.
 ELOC_FACTOR, ELOC_FLOOR = 10.0, 1e-4
+# The block path and the per-op path on the card are two float32 computations,
+# each held within the tolerance above of the float64 plain path on the same
+# walkers, so they may be twice that apart.
+BLOCK_VS_PER_OP_FACTOR = 2.0
 
 
 _T0 = time.monotonic()
@@ -147,6 +160,58 @@ def slogdet_bound_ms(B, K=30, D=16, n=10):
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S), nbytes, flops
 
 
+def block_layer(d=256, H=4, seed=0):
+    """One PsiFormer layer on the card with the preset's initialisation."""
+    import torch
+
+    from deepqmc_tpu_torch.gnn.update_features import NodeAttentionElectronUpdateFeature
+
+    gen = torch.Generator().manual_seed(seed)
+    return NodeAttentionElectronUpdateFeature(d, num_heads=H, gen=gen).cuda()
+
+
+def block_inputs(gen, B, K=30, n=10, d=256, H=4):
+    import torch
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device='cuda', dtype=torch.float32)
+
+    return (draw(B, n, d), draw(B, K, n, d), draw(B, n, d),
+            *(w.detach() for w in block_layer(d, H).block_weights()), H)
+
+
+def block_bound_ms(B, K=30, n=10, d=256, H=4):
+    f = 4
+    nbytes = f * (4 * B * n * d + 2 * B * K * n * d + 6 * d * d + 2 * d)
+    dh = d // H
+    flops = B * (12 * (K + 2) * n * d * d
+                 + H * (12 * K * n * n * dh + 12 * n * n * dh + 20 * K * n * n))
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S), nbytes, flops
+
+
+def eloc_rel_errors(hamil, wf, r64, R, plain_wfs):
+    """E_loc of ``wf`` (card) and of the float32 plain path (CPU) on the walkers
+    ``r64``, each relative to the float64 plain path (CPU); with the values."""
+    import torch
+
+    import deepqmc_tpu_torch as dq
+
+    mol_idx = torch.zeros(len(r64), dtype=torch.long)
+    e_path = {}
+    with torch.inference_mode():
+        e_path['card'], _ = hamil.local_energy(
+            wf, dq.PhysicalConfiguration(R, r64, mol_idx.cuda()))
+        for name, wf_cpu in plain_wfs.items():
+            dtype = next(wf_cpu.parameters()).dtype
+            e_path[name], _ = hamil.local_energy(wf_cpu, dq.PhysicalConfiguration(
+                R.cpu().to(dtype), r64.cpu().to(dtype), mol_idx))
+    ref = e_path['plain_f64']
+    scale = ref.abs().clamp(min=1.0)
+    rel = {k: ((e_path[k].double().cpu() - ref).abs() / scale).max().item()
+           for k in ('card', 'plain_f32')}
+    return rel, e_path['card'], scale
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -158,7 +223,9 @@ def main() -> int:
     try:
         import deepqmc_tpu_torch as dq
         from deepqmc_tpu_torch.ops import _cuda
+        from deepqmc_tpu_torch import fwdlap
         from deepqmc_tpu_torch.ops.fl_attention import mha_core_fl, mha_core_fl_plain
+        from deepqmc_tpu_torch.ops.fl_block import psiformer_block_fl, psiformer_block_fl_plain
         from deepqmc_tpu_torch.ops.fl_slogdet import slogdet_traces, slogdet_traces_plain
     except ImportError as e:
         print(f'chip_smoke: the package deepqmc_tpu_torch is missing ({e}); run from the '
@@ -197,6 +264,10 @@ def main() -> int:
              ('jout', 'trq'), slogdet_bound_ms,
              'deepqmc_tpu_torch/csrc/fl_slogdet.cu',
              'deepqmc_tpu/ops/fl_slogdet.py:566'),
+            ('fl_block', psiformer_block_fl, psiformer_block_fl_plain, block_inputs,
+             ('y', 'J_y', 'L_y'), block_bound_ms,
+             'deepqmc_tpu_torch/csrc/fl_block.cu',
+             'deepqmc_tpu/ops/fl_block.py:403'),
         ]
         for name, kernel, plain, inputs, outs, bound, source, replaces in cases:
             worst = 0.0
@@ -225,7 +296,17 @@ def main() -> int:
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None,
             ))
+            if name == 'fl_block':  # the same layer through the per-op rules (kernel 1)
+                layer = block_layer()
+                h = fwdlap.FL(*args[:3])
+                with torch.inference_mode():
+                    per_op_ms = cuda_median_ms(lambda: layer(h))
+                kernels[-1]['per_op_ms'] = per_op_ms
+                print(f'{name} B=2048: per-op path of the same layer {per_op_ms:.4f} ms',
+                      flush=True)
+                del layer, h
             del args, got, ref
+            torch.cuda.empty_cache()
         # other shapes than the main path's: odd n, several rounds of directions
         # and of output tiles per block (paths H2O does not take)
         for name, kernel, plain, make, kw in (
@@ -237,6 +318,17 @@ def main() -> int:
              dict(K=21, D=3, nu=4, nd=3)),
             ('fl_slogdet_traces', slogdet_traces, slogdet_traces_plain, slogdet_inputs,
              dict(K=48, D=4, nu=8, nd=8)),
+            # odd n with K not a multiple of the 4-direction chunk; a width that is
+            # not a multiple of 8 (one head); the small test width; n = 32 with a
+            # 2-direction chunk
+            ('fl_block', psiformer_block_fl, psiformer_block_fl_plain, block_inputs,
+             dict(K=21, n=7, d=64, H=2)),
+            ('fl_block', psiformer_block_fl, psiformer_block_fl_plain, block_inputs,
+             dict(K=5, n=3, d=12, H=1)),
+            ('fl_block', psiformer_block_fl, psiformer_block_fl_plain, block_inputs,
+             dict(K=30, n=10, d=32, H=2)),
+            ('fl_block', psiformer_block_fl, psiformer_block_fl_plain, block_inputs,
+             dict(K=2, n=32, d=64, H=4)),
         ):
             args = make(gen, 5, **kw)
             for o, r in zip(kernel(*args), plain(*args)):
@@ -245,16 +337,25 @@ def main() -> int:
                 if not rel <= KERNEL_RTOL:
                     raise SystemExit(f'{name} disagrees with its plain version at {kw}')
         print(f'launches in this phase (checks and timing): fl_attention '
-              f'{mha_core_fl.launches}, fl_slogdet_traces {slogdet_traces.launches}', flush=True)
+              f'{mha_core_fl.launches}, fl_slogdet_traces {slogdet_traces.launches}, '
+              f'fl_block {psiformer_block_fl.launches}', flush=True)
         torch.cuda.empty_cache()
 
-    with Phase('main_path'):
-        hamil = dq.MolecularHamiltonian(mol=dq.Molecule.from_name('H2O'))
-        wf = dq.psiformer_ansatz(hamil, seed=0)  # full width: the preset's defaults
-        counters = (mha_core_fl, slogdet_traces)
-        torch.cuda.reset_peak_memory_stats()
-        for c in counters:
+    counters = {'fl_attention': mha_core_fl, 'fl_slogdet_traces': slogdet_traces,
+                'fl_block': psiformer_block_fl}
+    by_name = {k['name']: k for k in kernels}
+
+    def counts():
+        return {name: c.launches for name, c in counters.items()}
+
+    def zero_counts():
+        for c in counters.values():
             c.launches = 0
+
+    def run_path(wf):
+        """3 evaluation steps of 2048 walkers from zeroed counts; (step times,
+        last sampler state, launches during the run)."""
+        zero_counts()
         step_s, last = [], None
         t0 = time.monotonic()
         for step, state, E_loc, stats in dq.evaluate(hamil, wf, n_walkers=2048, steps=3,
@@ -269,49 +370,84 @@ def main() -> int:
                 raise SystemExit(f'step {step}: E_loc not finite or of shape {tuple(E_loc.shape)}')
             last = state
             t0 = time.monotonic()
-        launches = [c.launches for c in counters]
-        print(f'median step time {sorted(step_s)[1]:.3f} s; launches during the main path: '
-              f'fl_attention {launches[0]}, fl_slogdet_traces {launches[1]}', flush=True)
-        for k, n in zip(kernels, launches):
-            k['launches'] = n
-            if n == 0:
-                raise SystemExit(f'{k["name"]} was never launched on the main path')
+        return step_s, last, counts()
 
-        R = torch.as_tensor(hamil.mol.coords, dtype=torch.float32, device='cuda')
-        print(f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB', flush=True)
+    def local_energy_ms(wf, last, label, step_s):
         with torch.inference_mode():
             pc = dq.PhysicalConfiguration(R, last['r'], torch.zeros(2048, dtype=torch.long,
                                                                     device='cuda'))
             eloc_ms = cuda_median_ms(lambda: hamil.local_energy(wf, pc), runs=3, warmup=1)
-        print(f'local energy alone (2048 walkers): {eloc_ms:.1f} ms; the rest of a step '
-              f'(10 Metropolis moves, statistics, EWM): {1e3 * sorted(step_s)[1] - eloc_ms:.1f} ms',
-              flush=True)
+        print(f'{label}: median step time {sorted(step_s)[1]:.3f} s; local energy alone '
+              f'(2048 walkers) {eloc_ms:.1f} ms; the rest of a step (10 Metropolis moves, '
+              f'statistics, EWM) {1e3 * sorted(step_s)[1] - eloc_ms:.1f} ms', flush=True)
+        return pc
+
+    with Phase('main_path'):
+        hamil = dq.MolecularHamiltonian(mol=dq.Molecule.from_name('H2O'))
+        R = torch.as_tensor(hamil.mol.coords, dtype=torch.float32, device='cuda')
+        wf = dq.psiformer_ansatz(hamil, seed=0)  # full width: the preset's defaults
+        torch.cuda.reset_peak_memory_stats()
+        step_s, last, launches = run_path(wf)
+        print(f'launches during the main path: {launches}', flush=True)
+        for name in ('fl_attention', 'fl_slogdet_traces'):
+            by_name[name]['launches'] = launches[name]
+            if launches[name] == 0:
+                raise SystemExit(f'{name} was never launched on the main path')
+        if launches['fl_block']:
+            raise SystemExit('the per-op main path launched the block kernel')
+        print(f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB', flush=True)
+        local_energy_ms(wf, last, 'per-op path', step_s)
 
         weights = {k: v.cpu() for k, v in wf.state_dict().items()}
         plain_wfs = {}
         for name, dtype in (('plain_f64', torch.float64), ('plain_f32', torch.float32)):
             plain_wfs[name] = dq.psiformer_ansatz(hamil, seed=0).to(dtype)
             plain_wfs[name].load_state_dict({k: v.to(dtype) for k, v in weights.items()})
-        r64 = last['r'][:64]
-        mol_idx = torch.zeros(64, dtype=torch.long)
-        e_path = {}
-        with torch.inference_mode():
-            e_path['kernel'], _ = hamil.local_energy(
-                wf, dq.PhysicalConfiguration(R, r64, mol_idx.cuda()))
-            for name, wf_cpu in plain_wfs.items():
-                dtype = next(wf_cpu.parameters()).dtype
-                e_path[name], _ = hamil.local_energy(wf_cpu, dq.PhysicalConfiguration(
-                    R.cpu().to(dtype), r64.cpu().to(dtype), mol_idx))
-        ref = e_path['plain_f64']
-        scale = ref.abs().clamp(min=1.0)
-        rel = {k: ((e_path[k].double().cpu() - ref).abs() / scale).max().item()
-               for k in ('kernel', 'plain_f32')}
+        rel, _, _ = eloc_rel_errors(hamil, wf, last['r'][:64], R, plain_wfs)
         tol = ELOC_FACTOR * rel['plain_f32'] + ELOC_FLOOR
         print(f'E_loc on 64 walkers against the plain path in f64 (CPU): kernel path '
-              f'(f32, card) max rel err {rel["kernel"]:.3e}; plain path (f32, CPU) max rel '
+              f'(f32, card) max rel err {rel["card"]:.3e}; plain path (f32, CPU) max rel '
               f'err {rel["plain_f32"]:.3e}; tol {tol:.3e}', flush=True)
-        if not rel['kernel'] <= tol:
+        if not rel['card'] <= tol:
             raise SystemExit('kernel-path local energy disagrees with the plain path')
+
+    with Phase('block_path'):
+        wf_block = dq.psiformer_ansatz(hamil, seed=0, block_kernel=True).cuda()
+        wf_block.load_state_dict(wf.state_dict())
+        torch.cuda.reset_peak_memory_stats()
+        step_s, last, launches = run_path(wf_block)
+        print(f'launches during the block path: {launches}', flush=True)
+        by_name['fl_block']['launches'] = launches['fl_block']
+        if launches['fl_block'] != 4 * 3 or launches['fl_attention']:
+            raise SystemExit('the block path did not run 4 fused layers (and no attention '
+                             'kernel) per local energy')
+        print(f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB', flush=True)
+        pc = local_energy_ms(wf_block, last, 'block path', step_s)
+        zero_counts()
+        with torch.inference_mode():
+            hamil.local_energy(wf_block, pc)
+        one = counts()
+        print(f'launches in one local energy on the block path: {one}', flush=True)
+        if one['fl_block'] != 4 or one['fl_attention'] != 0:
+            raise SystemExit('one local energy on the block path is not 4 block launches')
+
+        r64 = last['r'][:64]
+        rel, e_block, scale = eloc_rel_errors(hamil, wf_block, r64, R, plain_wfs)
+        tol = ELOC_FACTOR * rel['plain_f32'] + ELOC_FLOOR
+        print(f'E_loc on 64 walkers against the plain path in f64 (CPU): block path '
+              f'(f32, card) max rel err {rel["card"]:.3e}; plain path (f32, CPU) max rel '
+              f'err {rel["plain_f32"]:.3e}; tol {tol:.3e}', flush=True)
+        if not rel['card'] <= tol:
+            raise SystemExit('block-path local energy disagrees with the plain path')
+        with torch.inference_mode():
+            e_per_op, _ = hamil.local_energy(wf, dq.PhysicalConfiguration(
+                R, r64, torch.zeros(64, dtype=torch.long, device='cuda')))
+        diff = ((e_block - e_per_op).abs().double().cpu() / scale).max().item()
+        print(f'E_loc on the same 64 walkers, block path against per-op path (both f32, '
+              f'card): max rel diff {diff:.3e}; tol {BLOCK_VS_PER_OP_FACTOR * tol:.3e}',
+              flush=True)
+        if not diff <= BLOCK_VS_PER_OP_FACTOR * tol:
+            raise SystemExit('block-path local energy disagrees with the per-op path')
 
     print(json.dumps({'kernels': kernels}), flush=True)
     print(f'{smi} | whole run {time.monotonic() - _T0:.1f} s', flush=True)

@@ -311,20 +311,22 @@ def primal(v) -> torch.Tensor:
 # --- fused rules (kernel-backed) ---------------------------------------------
 
 
-def mha_core(q2, k2, v2, num_heads: int):
+def mha_core(q2, k2, v2, num_heads: int, core=None):
     """softmax(q k^T / sqrt(dh)) v on head-flat ``[B, n, H*dh]`` operands.
 
     Counterpart of ``nn/modules.py`` ``_mha_core_flat`` and of the
     attention-core rule ``fwdlap._mha_core_flat_rule``: on FL operands the
-    whole core goes through :func:`ops.fl_attention.mha_core_fl` (the CUDA
-    kernel on the card).  The head split is a view of the flat layout.
+    whole core goes through ``core`` on per-head operands, by default
+    :func:`ops.fl_attention.mha_core_fl` (the CUDA kernel on the card).  The
+    head split is a view of the flat layout.
     """
     if not any(is_fl(v) for v in (q2, k2, v2)):
         q, k, v = (t.unflatten(-1, (num_heads, -1)) for t in (q2, k2, v2))
         logits = torch.einsum('bihd,bjhd->bhij', q, k) / q.shape[-1] ** 0.5
         att = torch.einsum('bhij,bjhd->bihd', torch.softmax(logits, -1), v)
         return att.flatten(-2)
-    from .ops.fl_attention import mha_core_fl
+    if core is None:
+        from .ops.fl_attention import mha_core_fl as core
 
     if not all(is_fl(v) for v in (q2, k2, v2)):
         raise ValueError('mha_core: q, k and v must all be FL or all be tensors')
@@ -333,7 +335,7 @@ def mha_core(q2, k2, v2, num_heads: int):
         return t.unflatten(-1, (num_heads, -1))
 
     qkv = (q2, k2, v2)
-    t, jt, lt = mha_core_fl(
+    t, jt, lt = core(
         *(heads(v.x) for v in qkv), *(heads(v.jac) for v in qkv), *(heads(v.lap) for v in qkv)
     )
     return FL(t.flatten(-2), jt.flatten(-2), lt.flatten(-2))

@@ -35,10 +35,10 @@ class ElectronGNNLayer(nn.Module):
     'concatenate' rule (one message) through the identity net ``g``, replaces
     the electron embeddings (no residual)."""
 
-    def __init__(self, ilayer, embedding_dim, *, num_heads, gen):
+    def __init__(self, ilayer, embedding_dim, *, num_heads, gen, block_kernel=False):
         super().__init__('electron_gnnlayer' if ilayer == 0 else f'electron_gnnlayer_{ilayer}')
         self.update = NodeAttentionElectronUpdateFeature(
-            embedding_dim, num_heads=num_heads, gen=gen
+            embedding_dim, num_heads=num_heads, gen=gen, block_kernel=block_kernel
         )
         self.g = nn.Identity()
 
@@ -47,16 +47,19 @@ class ElectronGNNLayer(nn.Module):
 
 
 class ElectronGNN(nn.Module):
-    """Embedding followed by ``n_interactions`` attention layers."""
+    """Embedding followed by ``n_interactions`` attention layers; with
+    ``block_kernel`` each layer's forward Laplacian is one fused block."""
 
-    def __init__(self, hamil, embedding_dim, *, n_interactions, num_heads, ne_features, gen):
+    def __init__(self, hamil, embedding_dim, *, n_interactions, num_heads, ne_features, gen,
+                 block_kernel=False):
         super().__init__('electron_gnn')
         self.embedding_dim = embedding_dim
         self.electron_embedding = ElectronEmbedding(
             hamil.n_nuc, hamil.n_up, hamil.n_down, embedding_dim, ne_features=ne_features, gen=gen
         )
         self.layers = torch.nn.ModuleList(
-            ElectronGNNLayer(i, embedding_dim, num_heads=num_heads, gen=gen)
+            ElectronGNNLayer(i, embedding_dim, num_heads=num_heads, gen=gen,
+                             block_kernel=block_kernel)
             for i in range(n_interactions)
         )
 

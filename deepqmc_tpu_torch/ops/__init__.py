@@ -1,6 +1,7 @@
 """The port's kernels, each beside its plain PyTorch version."""
 
 from .fl_attention import mha_core_fl, mha_core_fl_plain  # noqa: F401
+from .fl_block import psiformer_block_fl, psiformer_block_fl_plain  # noqa: F401
 from .fl_slogdet import (  # noqa: F401
     slogdet_fl_flat_split,
     slogdet_traces,

@@ -26,7 +26,7 @@ __all__ = ['build', 'library', 'check', 'stream']
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / '_build'
-SOURCES = ('fl_attention.cu', 'fl_slogdet.cu')
+SOURCES = ('fl_attention.cu', 'fl_slogdet.cu', 'fl_block.cu')
 FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-Xcompiler', '-fPIC',
@@ -39,6 +39,8 @@ _SIGNATURES = {
     'fl_attention_smem_bytes': ([_I] * 4, _L),
     'fl_slogdet_traces_launch': ([_P] * 5 + [_I] * 5 + [_P], _I),
     'fl_slogdet_smem_bytes': ([_I], _L),
+    'fl_block_launch': ([_P] * 14 + [_I] * 6 + [_P], _I),
+    'fl_block_smem_bytes': ([_I] * 4, _L),
 }
 
 _lib = None

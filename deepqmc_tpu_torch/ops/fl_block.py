@@ -1,0 +1,107 @@
+"""Forward Laplacian of a whole PsiFormer layer (counterpart of
+``deepqmc_tpu/ops/fl_block.py`` ``block_fl_call`` for the one block the
+PsiFormer fuses, ``gnn/update_features.py``'s ``_psiformer_block``).
+
+Per walker, on the FL triple of ``h`` it computes the FL triple of
+
+    att = h + mha_core(h Wq, h Wk, h Wv) Wo
+    y   = att + tanh(tanh(att W1 + b1) W2 + b2)
+
+with ``Wq``, ``Wk``, ``Wv`` ``[d, H*dh]`` (no bias, ``H*dh = d``), ``Wo``,
+``W1``, ``W2`` ``[d, d]`` and ``b1``, ``b2`` ``[d]``, weights in the JAX
+layout ``[in, out]``.  :func:`psiformer_block_fl` runs the plain PyTorch
+version :func:`psiformer_block_fl_plain` on a CPU tensor and the hand-written
+kernel ``csrc/fl_block.cu`` on a CUDA tensor, or raises.
+
+Shapes: ``x`` and ``L`` ``[B, n, d]``, ``J`` ``[B, K, n, d]`` (batch-major),
+with K the number of Laplacian directions.
+"""
+
+import torch
+
+from .. import fwdlap as fl
+from . import _cuda
+from .fl_attention import mha_core_fl_plain
+
+__all__ = ['psiformer_block_fl', 'psiformer_block_fl_plain', 'validate']
+
+MAX_N = 32  # tokens the kernel takes
+MAX_KC = 4  # directions per chunk the kernel is built for
+
+
+def psiformer_block_fl_plain(x, J, L, wq, wk, wv, wo, w1, b1, w2, b2, num_heads: int):
+    """Plain PyTorch version of the kernel: the port's FL rules composed with
+    :func:`~.fl_attention.mha_core_fl_plain`.  The CPU path and the kernel's oracle."""
+    h = fl.FL(x, J, L)
+    att = h + fl.mha_core(h @ wq, h @ wk, h @ wv, num_heads, core=mha_core_fl_plain) @ wo
+    y = att + fl.tanh(fl.tanh(att @ w1 + b1) @ w2 + b2)
+    return y.x, y.jac, y.lap
+
+
+def validate(x, J, L, wq, wk, wv, wo, w1, b1, w2, b2, num_heads: int):
+    """Raise unless the operands are what the kernel takes: float32 on one
+    device, contiguous and 16-byte aligned, x and L [B, n, d], J [B, K, n, d],
+    the weights [d, d] and the biases [d], with n <= 32, d = H * dh and
+    dh % 4 == 0 (float4 rows within a head)."""
+    B, n, d = x.shape
+    K = J.shape[1]
+    if n > MAX_N:
+        raise ValueError(f'fl_block: needs n <= {MAX_N}, got n={n}')
+    if d % num_heads or (d // num_heads) % 4:
+        raise ValueError(
+            f'fl_block: needs d = H * dh with dh % 4 == 0, got d={d}, H={num_heads}'
+        )
+    named = (
+        ('x', x, (B, n, d)), ('J', J, (B, K, n, d)), ('L', L, (B, n, d)),
+        *((nm, w, (d, d)) for nm, w in zip(('wq', 'wk', 'wv', 'wo', 'w1', 'w2'),
+                                           (wq, wk, wv, wo, w1, w2))),
+        ('b1', b1, (d,)), ('b2', b2, (d,)),
+    )
+    for name, t, shape in named:
+        if t.device != x.device or t.dtype != torch.float32:
+            raise TypeError(f'fl_block: {name} must be float32 on {x.device}')
+        if tuple(t.shape) != shape:
+            raise ValueError(f'fl_block: {name} has shape {tuple(t.shape)}, want {shape}')
+        if not t.is_contiguous():
+            raise ValueError(f'fl_block: {name} must be contiguous')
+        if t.data_ptr() % 16:
+            raise ValueError(f'fl_block: {name} must be 16-byte aligned')
+
+
+def _pick_kc(K: int, n: int, d: int, H: int) -> int:
+    """Directions per chunk: the most that fit in shared memory, at most 4."""
+    lib, limit = _cuda.library(), _cuda.smem_limit()
+    for kc in range(min(K, MAX_KC), 0, -1):
+        if lib.fl_block_smem_bytes(n, d, H, kc) <= limit:
+            return kc
+    raise ValueError(
+        f'fl_block: n={n}, d={d}, H={H} exceed the {limit} B of shared memory a block can '
+        'use (the primal [n, d] tiles, the K-sums and one direction must fit)'
+    )
+
+
+def _launch(x, J, L, wq, wk, wv, wo, w1, b1, w2, b2, num_heads):
+    validate(x, J, L, wq, wk, wv, wo, w1, b1, w2, b2, num_heads)
+    B, n, d = x.shape
+    K = J.shape[1]
+    kc = _pick_kc(K, n, d, num_heads)
+    y, Ly, Jy = torch.empty_like(x), torch.empty_like(L), torch.empty_like(J)
+    lib = _cuda.library()
+    with torch.cuda.device(x.device):
+        code = lib.fl_block_launch(
+            *(t.data_ptr() for t in (x, J, L, wq, wk, wv, wo, w1, b1, w2, b2, y, Jy, Ly)),
+            B, K, n, d, num_heads, kc, _cuda.stream(),
+        )
+    _cuda.check(code, 'fl_block')
+    psiformer_block_fl.launches += 1
+    return y, Jy, Ly
+
+
+def psiformer_block_fl(x, J, L, wq, wk, wv, wo, w1, b1, w2, b2, num_heads: int):
+    """(y, J_y, L_y) of the PsiFormer layer: the CUDA kernel on the card, else plain."""
+    if x.is_cuda:
+        return _launch(x, J, L, wq, wk, wv, wo, w1, b1, w2, b2, num_heads)
+    return psiformer_block_fl_plain(x, J, L, wq, wk, wv, wo, w1, b1, w2, b2, num_heads)
+
+
+psiformer_block_fl.launches = 0

@@ -27,10 +27,19 @@ def psiformer_ansatz(
     num_heads: int = 4,
     seed: int = 0,
     gen: Optional[torch.Generator] = None,
+    block_kernel: bool = False,
 ) -> NeuralNetworkWaveFunction:
     """The PsiFormer (``presets.psiformer_ansatz``, full determinants) with
     parameters drawn from a seeded generator, in float32 on the CPU; move it
-    with ``.to(device, dtype)``."""
+    with ``.to(device, dtype)``.
+
+    ``block_kernel`` mirrors the JAX package's ``DEEPQMC_TPU_BLOCK_KERNEL``
+    switch (``fwdlap._use_block_kernel``): each attention layer's forward
+    Laplacian becomes one fused block (:func:`ops.fl_block.psiformer_block_fl`,
+    one kernel launch per layer on the card) instead of the per-op rules.  It
+    also covers ``DEEPQMC_TPU_GNN_STACK_BLOCK``, which computes the same
+    function, as one launch per layer.  The parameters do not depend on it.
+    """
     gen = gen or torch.Generator().manual_seed(seed)
     n = hamil.n_up + hamil.n_down
     ne_features = CombinedEdgeFeature(features=[
@@ -39,7 +48,7 @@ def psiformer_ansatz(
     ])
     gnn = ElectronGNN(
         hamil, embedding_dim, n_interactions=n_interactions, num_heads=num_heads,
-        ne_features=ne_features, gen=gen,
+        ne_features=ne_features, gen=gen, block_kernel=block_kernel,
     )
     return NeuralNetworkWaveFunction(
         hamil,

@@ -1,8 +1,10 @@
 """Where an evaluation step's time goes on the card.
 
-    python -m deepqmc_tpu_torch.profile_eval
+    python -m deepqmc_tpu_torch.profile_eval [--block-kernel]
 
-Builds the H2O PsiFormer at full width with seeded weights, equilibrates
+Builds the H2O PsiFormer at full width with seeded weights (with
+``--block-kernel``, each layer's forward Laplacian is one launch of the fused
+block kernel instead of the per-op rules), equilibrates
 2048 walkers with one evaluation step, then profiles one step's two halves
 separately with ``torch.profiler``: the 10 Metropolis moves (plain forwards)
 and the forward-Laplacian local energy.  For each half it prints the wall
@@ -11,6 +13,7 @@ idle share (1 - device time / wall time) and the kernels that take the most
 device time.  Needs a GPU.
 """
 
+import argparse
 import sys
 import time
 
@@ -40,13 +43,17 @@ def _profiled(label, fn, top=12):
               flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--block-kernel', action='store_true',
+                        help="one fused kernel launch per layer's forward Laplacian")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print('profile_eval: needs a GPU', file=sys.stderr)
         return 1
     print(torch.cuda.get_device_name(0), flush=True)
     hamil = MolecularHamiltonian(mol=Molecule.from_name('H2O'))
-    wf = psiformer_ansatz(hamil, seed=0)
+    wf = psiformer_ansatz(hamil, seed=0, block_kernel=args.block_kernel)
     *_, (_, state, _, _) = evaluate(hamil, wf, n_walkers=2048, steps=1, seed=0)
     R = torch.as_tensor(hamil.mol.coords, dtype=torch.float32, device='cuda')
     sampler = DecorrSampler(length=10).wrap(MetropolisSampler(hamil, wf))

@@ -36,13 +36,13 @@ def jax_model(mol_name: str, seed: int = 0):
     return hamil, ansatz, params
 
 
-def torch_model(mol_name: str, params, **hamil_kwargs):
+def torch_model(mol_name: str, params, block_kernel: bool = False, **hamil_kwargs):
     """(port hamiltonian, wave function in float64 holding ``params``)."""
     import deepqmc_tpu_torch as dqt
     from deepqmc_tpu_torch.convert import state_dict_from_jax
 
     hamil = dqt.MolecularHamiltonian(mol=dqt.Molecule.from_name(mol_name), **hamil_kwargs)
-    wf = dqt.psiformer_ansatz(hamil, **SMALL).to(torch.float64)
+    wf = dqt.psiformer_ansatz(hamil, **SMALL, block_kernel=block_kernel).to(torch.float64)
     wf.load_state_dict(state_dict_from_jax(params, wf))
     return hamil, wf
 
