@@ -13,7 +13,9 @@ Phases, each with a start and an end line and its own time budget:
 3. kernels: each kernel against its plain PyTorch version on the same inputs
    on the card, at B = 256 and at the main path's B = 2048, with the stated
    tolerances; the kernel's and the plain version's times (median of 20 runs,
-   CUDA events, after a warm-up);
+   CUDA events, after a warm-up); then at other shapes, among them the three
+   slogdet kernels at n = 5 (rows split 3/2), n = 2 with no down rows, n = 42
+   and n = 64;
 4. main path: the H2O PsiFormer at full width (16 determinants, embedding
    256, 4 layers, 4 heads of 64; seeded random weights), 2048 walkers,
    3 evaluation steps through ``deepqmc_tpu_torch.evaluate`` (10 Metropolis
@@ -26,7 +28,15 @@ Phases, each with a start and an end line and its own time budget:
    layer's forward Laplacian is one launch of the fused block kernel: 4
    launches of it and none of the attention kernel per local energy; its
    local energy on 64 walkers against the float64 plain path (CPU) and
-   against the per-op path on the card.
+   against the per-op path on the card;
+6. square path: the main path's model and its last 2048 walkers; the Slater
+   matrices' forward-Laplacian triple (``_spin_orbitals``) goes through four
+   dispatches of the log-determinant: flat row blocks and flat whole
+   (``fwdlap.slogdet_flat_rows``, ``slogdet_flat``: the flat kernel, once
+   each), square row blocks (``slogdet_rows``: the square split kernel) and
+   square whole (``slogdet``: the square kernel).  Signs must be equal, and
+   log|det|, J and L within the local energy's tolerance rule of float64
+   (below), of the plain version in float32 on the card and of each other.
 
 Each path's launch counts are read from a run that starts with every count
 at 0.  It prints a ``{"kernels": [...]}`` line, and as its last line
@@ -47,6 +57,7 @@ import time
 WATCHDOG_S = 1100  # the whole run, build included; the run's limit is 1200 s
 PHASE_BUDGET_S = {
     'device': 60, 'build': 240, 'kernels': 300, 'main_path': 300, 'block_path': 180,
+    'square_path': 120,
 }
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
@@ -68,7 +79,10 @@ KERNEL_RTOL = 1e-4  # max |kernel - plain| / max(1, max |plain|), per output
 ELOC_FACTOR, ELOC_FLOOR = 10.0, 1e-4
 # The block path and the per-op path on the card are two float32 computations,
 # each held within the tolerance above of the float64 plain path on the same
-# walkers, so they may be twice that apart.
+# walkers, so they may be twice that apart.  The square path holds the four
+# log-determinant dispatches to the same rule, per determinant, for log|det|,
+# J and L: L grows near a node of a determinant, where its float32 rounding is
+# amplified as E_loc's is.
 BLOCK_VS_PER_OP_FACTOR = 2.0
 
 
@@ -133,17 +147,39 @@ def attention_inputs(gen, B, K=30, n=10, H=4, dh=64):
     return (*prim, *jacs, *laps)
 
 
+def inverse_input(gen, B, D, n):
+    import torch
+
+    # well-conditioned determinants, so m = A^-1 J stays of the size of J
+    a = torch.eye(n, device='cuda') + 0.3 / n**0.5 * torch.randn(B, D, n, n, generator=gen,
+                                                                 device='cuda')
+    return torch.linalg.inv(a).contiguous()
+
+
 def slogdet_inputs(gen, B, K=30, D=16, nu=5, nd=5):
     import torch
 
     n = nu + nd
-    # well-conditioned determinants, so m = A^-1 J stays of the size of J
-    a = torch.eye(n, device='cuda') + 0.3 / n**0.5 * torch.randn(B, D, n, n, generator=gen,
-                                                                 device='cuda')
-    inv = torch.linalg.inv(a).contiguous()
+    inv = inverse_input(gen, B, D, n)
     ju = torch.randn(B, K, nu, D * n, generator=gen, device='cuda')
     jd = torch.randn(B, K, nd, D * n, generator=gen, device='cuda')
     return inv, ju, jd
+
+
+def square_inputs(gen, B, K=30, D=16, nu=5, nd=5):
+    """inv, ja [B, K, D, n, n] and la of the square kernel (n = nu + nd)."""
+    import torch
+
+    n = nu + nd
+    inv = inverse_input(gen, B, D, n)
+    ja = torch.randn(B, K, D, n, n, generator=gen, device='cuda')
+    return inv, ja, torch.randn(B, D, n, n, generator=gen, device='cuda')
+
+
+def square_split_inputs(gen, B, K=30, D=16, nu=5, nd=5):
+    """inv, ju [B, K, D, nu, n], jd [B, K, D, nd, n] and la of the square split kernel."""
+    inv, ja, la = square_inputs(gen, B, K, D, nu, nd)
+    return inv, ja[..., :nu, :].contiguous(), ja[..., nu:, :].contiguous(), la
 
 
 def attention_bound_ms(B, K=30, n=10, H=4, dh=64):
@@ -153,11 +189,17 @@ def attention_bound_ms(B, K=30, n=10, H=4, dh=64):
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S), nbytes, flops
 
 
-def slogdet_bound_ms(B, K=30, D=16, n=10):
+def slogdet_bound_ms(B, K=30, D=16, n=10, with_l=False):
+    """The slogdet kernels' bound; ``with_l`` for the square ones, which also
+    read L and form tr(A^-1 L)."""
     f = 4
-    nbytes = f * (B * D * n * n + B * K * n * D * n + B * K * D + B * D)
-    flops = B * D * K * (2 * n * n * n + 3 * n * n)
+    nbytes = f * ((2 if with_l else 1) * B * D * n * n + B * K * n * D * n + B * K * D + B * D)
+    flops = B * D * K * (2 * n * n * n + 3 * n * n) + (2 * B * D * n * n if with_l else 0)
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S), nbytes, flops
+
+
+def square_bound_ms(B):
+    return slogdet_bound_ms(B, with_l=True)
 
 
 def block_layer(d=256, H=4, seed=0):
@@ -226,7 +268,15 @@ def main() -> int:
         from deepqmc_tpu_torch import fwdlap
         from deepqmc_tpu_torch.ops.fl_attention import mha_core_fl, mha_core_fl_plain
         from deepqmc_tpu_torch.ops.fl_block import psiformer_block_fl, psiformer_block_fl_plain
-        from deepqmc_tpu_torch.ops.fl_slogdet import slogdet_traces, slogdet_traces_plain
+        from deepqmc_tpu_torch.ops.fl_slogdet import (
+            slogdet_traces,
+            slogdet_traces_plain,
+            square_split_traces,
+            square_split_traces_plain,
+            square_traces,
+            square_traces_plain,
+        )
+        from deepqmc_tpu_torch.ops.slogdet import unflatten_dets
     except ImportError as e:
         print(f'chip_smoke: the package deepqmc_tpu_torch is missing ({e}); run from the '
               'repository root', file=sys.stderr)
@@ -264,6 +314,14 @@ def main() -> int:
              ('jout', 'trq'), slogdet_bound_ms,
              'deepqmc_tpu_torch/csrc/fl_slogdet.cu',
              'deepqmc_tpu/ops/fl_slogdet.py:566'),
+            ('fl_slogdet_square', square_traces, square_traces_plain, square_inputs,
+             ('jout', 'lout'), square_bound_ms,
+             'deepqmc_tpu_torch/csrc/fl_slogdet.cu',
+             'deepqmc_tpu/ops/fl_slogdet.py:133'),
+            ('fl_slogdet_square_split', square_split_traces, square_split_traces_plain,
+             square_split_inputs, ('jout', 'lout'), square_bound_ms,
+             'deepqmc_tpu_torch/csrc/fl_slogdet.cu',
+             'deepqmc_tpu/ops/fl_slogdet.py:236'),
             ('fl_block', psiformer_block_fl, psiformer_block_fl_plain, block_inputs,
              ('y', 'J_y', 'L_y'), block_bound_ms,
              'deepqmc_tpu_torch/csrc/fl_block.cu',
@@ -308,16 +366,45 @@ def main() -> int:
             del args, got, ref
             torch.cuda.empty_cache()
         # other shapes than the main path's: odd n, several rounds of directions
-        # and of output tiles per block (paths H2O does not take)
+        # and of output tiles per block (paths H2O does not take); the slogdet
+        # kernels at n = 5 split 3/2 (JAX's split), n = 2 with no down rows
+        # (triplet H2), n = 42 (benzene) and n = 64 (their largest instance)
+        slogdet_kernels = (
+            ('fl_slogdet_traces', slogdet_traces, slogdet_traces_plain, slogdet_inputs),
+            ('fl_slogdet_square', square_traces, square_traces_plain, square_inputs),
+            ('fl_slogdet_square_split', square_split_traces, square_split_traces_plain,
+             square_split_inputs),
+        )
+        slogdet_shapes = (
+            (5, dict(K=21, D=3, nu=4, nd=3)),
+            (5, dict(K=48, D=4, nu=8, nd=8)),
+            (5, dict(K=15, D=3, nu=3, nd=2)),
+            (5, dict(K=6, D=4, nu=2, nd=0)),
+            (256, dict(K=126, D=16, nu=21, nd=21)),
+            (64, dict(K=192, D=4, nu=32, nd=32)),
+        )
+        for B, kw in slogdet_shapes:
+            for name, kernel, plain, make in slogdet_kernels:
+                args = make(gen, B, **kw)
+                for o, r in zip(kernel(*args), plain(*args)):
+                    err, rel = max_errors(o, r)
+                    print(f'{name} B={B} {kw}: max abs err {err:.3e}, rel {rel:.3e}', flush=True)
+                    if not rel <= KERNEL_RTOL:
+                        raise SystemExit(f'{name} disagrees with its plain version at B={B} {kw}')
+                if B > 5:
+                    ms = cuda_median_ms(lambda: kernel(*args), runs=5, warmup=1)
+                    bound_ms, nbytes, flops = slogdet_bound_ms(
+                        B, kw['K'], kw['D'], kw['nu'] + kw['nd'],
+                        with_l=name != 'fl_slogdet_traces')
+                    print(f'{name} B={B} {kw}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms '
+                          f'({nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP)', flush=True)
+                del args
+                torch.cuda.empty_cache()
         for name, kernel, plain, make, kw in (
             ('fl_attention', mha_core_fl, mha_core_fl_plain, attention_inputs,
              dict(K=21, n=7, H=2, dh=12)),
             ('fl_attention', mha_core_fl, mha_core_fl_plain, attention_inputs,
              dict(K=48, n=16, H=2, dh=64)),
-            ('fl_slogdet_traces', slogdet_traces, slogdet_traces_plain, slogdet_inputs,
-             dict(K=21, D=3, nu=4, nd=3)),
-            ('fl_slogdet_traces', slogdet_traces, slogdet_traces_plain, slogdet_inputs,
-             dict(K=48, D=4, nu=8, nd=8)),
             # odd n with K not a multiple of the 4-direction chunk; a width that is
             # not a multiple of 8 (one head); the small test width; n = 32 with a
             # 2-direction chunk
@@ -336,13 +423,14 @@ def main() -> int:
                 print(f'{name} {kw}: max abs err {err:.3e}, rel {rel:.3e}', flush=True)
                 if not rel <= KERNEL_RTOL:
                     raise SystemExit(f'{name} disagrees with its plain version at {kw}')
-        print(f'launches in this phase (checks and timing): fl_attention '
-              f'{mha_core_fl.launches}, fl_slogdet_traces {slogdet_traces.launches}, '
-              f'fl_block {psiformer_block_fl.launches}', flush=True)
+        counters = {'fl_attention': mha_core_fl, 'fl_slogdet_traces': slogdet_traces,
+                    'fl_slogdet_square': square_traces,
+                    'fl_slogdet_square_split': square_split_traces,
+                    'fl_block': psiformer_block_fl}
+        print('launches in this phase (checks and timing): '
+              + ', '.join(f'{k} {c.launches}' for k, c in counters.items()), flush=True)
         torch.cuda.empty_cache()
 
-    counters = {'fl_attention': mha_core_fl, 'fl_slogdet_traces': slogdet_traces,
-                'fl_block': psiformer_block_fl}
     by_name = {k['name']: k for k in kernels}
 
     def counts():
@@ -395,6 +483,7 @@ def main() -> int:
                 raise SystemExit(f'{name} was never launched on the main path')
         if launches['fl_block']:
             raise SystemExit('the per-op main path launched the block kernel')
+        main_last = last
         print(f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB', flush=True)
         local_energy_ms(wf, last, 'per-op path', step_s)
 
@@ -448,6 +537,80 @@ def main() -> int:
               flush=True)
         if not diff <= BLOCK_VS_PER_OP_FACTOR * tol:
             raise SystemExit('block-path local energy disagrees with the per-op path')
+
+    with Phase('square_path'):
+        D = wf.n_det
+        with torch.inference_mode():
+            pc = dq.PhysicalConfiguration(R, fwdlap.FL.seed(main_last['r']),
+                                          torch.zeros(2048, dtype=torch.long, device='cuda'))
+            up, down = wf._spin_orbitals(pc)  # flat [B, n_spin, D*n], J [B, K, n_spin, D*n]
+
+            def square(v):  # flat -> square row blocks [B, D, n_spin, n], J [B, K, D, n_spin, n]
+                return fwdlap.FL(*(unflatten_dets(t, D) for t in (v.x, v.jac, v.lap)))
+
+            sq_up, sq_down = square(up), square(down)
+            torch.cuda.synchronize()
+            zero_counts()
+            paths = {
+                'flat rows (fl_slogdet_traces)': fwdlap.slogdet_flat_rows(up, down, D),
+                'flat whole (fl_slogdet_traces)': fwdlap.slogdet_flat(
+                    fwdlap.cat([up, down], -2), D),
+                'square rows (fl_slogdet_square_split)': fwdlap.slogdet_rows(sq_up, sq_down),
+                'square whole (fl_slogdet_square)': fwdlap.slogdet(
+                    fwdlap.cat([sq_up, sq_down], -2)),
+            }
+            torch.cuda.synchronize()
+            launches = counts()
+            print(f'launches during the square path: {launches}', flush=True)
+            want = {'fl_attention': 0, 'fl_slogdet_traces': 2, 'fl_slogdet_square': 1,
+                    'fl_slogdet_square_split': 1, 'fl_block': 0}
+            if launches != want:
+                raise SystemExit(f'the square path launched {launches}, want {want}')
+            for name in ('fl_slogdet_square', 'fl_slogdet_square_split'):
+                by_name[name]['launches'] = launches[name]
+
+            a, ja, la = (torch.cat(t, -2) for t in ((sq_up.x, sq_down.x),
+                                                     (sq_up.jac, sq_down.jac),
+                                                     (sq_up.lap, sq_down.lap)))
+
+            def plain(dtype):
+                a_, ja_, la_ = (t.to(dtype) for t in (a, ja, la))
+                sign, logdet = torch.linalg.slogdet(a_)
+                return (sign, logdet, *square_traces_plain(torch.linalg.inv(a_), ja_, la_))
+
+            ref64, ref32 = plain(torch.float64), plain(torch.float32)
+            del a, ja, la
+
+        def rel_err(x, ref):  # per determinant, relative to max(1, |ref|)
+            ref = ref.double()
+            return ((x.double() - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+
+        labels = ('log|det|', 'J', 'L')
+        tol = [ELOC_FACTOR * rel_err(r32, r64) + ELOC_FLOOR
+               for r32, r64 in zip(ref32[1:], ref64[1:])]
+        print('square path, plain version (f32, card) against f64: '
+              + ', '.join(f'{lb} {rel_err(r32, r64):.3e}'
+                          for lb, r32, r64 in zip(labels, ref32[1:], ref64[1:]))
+              + '; tol ' + ', '.join(f'{lb} {t:.3e}' for lb, t in zip(labels, tol)), flush=True)
+        first = None
+        for name, (sign, out) in paths.items():
+            got = (out.x, out.jac, out.lap)
+            errs = [rel_err(g, r) for g, r in zip(got, ref64[1:])]
+            to_plain = [rel_err(g, r) for g, r in zip(got, ref32[1:])]
+            to_first = [rel_err(g, r) for g, r in zip(got, first or got)]
+            first = first or got
+            print(f'square path, {name}: against f64 '
+                  + ', '.join(f'{lb} {e:.3e}' for lb, e in zip(labels, errs))
+                  + '; against the plain f32 version '
+                  + ', '.join(f'{lb} {e:.3e}' for lb, e in zip(labels, to_plain))
+                  + '; against the first dispatch '
+                  + ', '.join(f'{lb} {e:.3e}' for lb, e in zip(labels, to_first)), flush=True)
+            if not torch.equal(sign, ref32[0]):
+                raise SystemExit(f'square path: {name} disagrees on signs')
+            for lb, e, p, f, t in zip(labels, errs, to_plain, to_first, tol):
+                if not (e <= t and p <= BLOCK_VS_PER_OP_FACTOR * t
+                        and f <= BLOCK_VS_PER_OP_FACTOR * t):
+                    raise SystemExit(f'square path: {name} disagrees on {lb}')
 
     print(json.dumps({'kernels': kernels}), flush=True)
     print(f'{smi} | whole run {time.monotonic() - _T0:.1f} s', flush=True)

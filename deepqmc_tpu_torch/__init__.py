@@ -1,10 +1,10 @@
 """deepqmc_tpu_torch: the PyTorch/CUDA port of deepqmc_tpu.
 
-This slice runs the evaluation step of the PsiFormer ansatz (Metropolis
-sampling, the forward-Laplacian local energy, energy statistics and EWM) with
-hand-written CUDA kernels for the forward-Laplacian attention core and the
-flat log-determinant traces.  It imports torch, numpy and the standard
-library only.
+It runs the evaluation step of the PsiFormer ansatz (Metropolis sampling,
+the forward-Laplacian local energy, energy statistics and EWM) with
+hand-written CUDA kernels for the forward-Laplacian attention core, the fused
+PsiFormer layer and the log-determinant traces (flat and square layouts).  It
+imports torch, numpy and the standard library only.
 """
 
 from .fit import eval_step, evaluate  # noqa: F401

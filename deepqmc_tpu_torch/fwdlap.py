@@ -366,6 +366,84 @@ def slogdet_flat_rows(up, down, n_det: int):
     return sign, FL(logdet, jout, lout)
 
 
+def slogdet_flat(v, n_det: int):
+    """Per-determinant (sign, log|det|) of a flat orbital matrix ``[B, n, n_det*n]``.
+
+    Counterpart of ``ops/slogdet.py`` ``slogdet_flat`` and of the whole-Jacobian
+    branch of ``fwdlap._slogdet_flat_rule`` (``slogdet_fl_flat_tpu``): the rows
+    are split at nu = ceil(n/2) and the flat kernel takes the two blocks.
+    """
+    from .ops.fl_slogdet import slogdet_fl_flat_split
+    from .ops.slogdet import slogdet_flat as slogdet_flat_op
+
+    if not is_fl(v):
+        return slogdet_flat_op(v, n_det)
+    nu = (v.shape[-2] + 1) // 2
+    sign, logdet, jout, lout = slogdet_fl_flat_split(
+        v.x, v.jac[..., :nu, :].contiguous(), v.jac[..., nu:, :].contiguous(), v.lap, n_det
+    )
+    return sign, FL(logdet, jout, lout)
+
+
+def _square_blocks(*vs):
+    """Square-matrix row blocks as ``[B, D, rows, n]`` FLs, a ``[B, rows, n]``
+    block taken as D = 1; and whether that axis was added."""
+    if all(v.ndim == 3 for v in vs):
+        return [v[..., None, :, :] for v in vs], True
+    if all(v.ndim == 4 for v in vs):
+        return list(vs), False
+    raise ValueError(f'square slogdet takes [B, D, n, n] or [B, n, n], got {[v.shape for v in vs]}')
+
+
+def _logdet_fl(sign, logdet, jout, lout, added_axis: bool):
+    out = FL(logdet, jout, lout)
+    return (sign[..., 0], out[..., 0]) if added_axis else (sign, out)
+
+
+def slogdet(v):
+    """(sign, log|det|) of square matrices ``[B, D, n, n]`` or ``[B, n, n]``.
+
+    Counterpart of ``ops/slogdet.py`` ``slogdet`` and its rule
+    ``fwdlap._slogdet_rule`` on a whole Jacobian ``[B, K, D, n, n]``: the
+    traces go to :func:`ops.fl_slogdet.square_traces` (the CUDA kernel on the
+    card).  ``slogdet(cat([up, down], -2))`` is the unsplit path that the JAX
+    package selects with ``DEEPQMC_TPU_NO_SPLIT_SLOGDET``.
+    """
+    from .ops.fl_slogdet import slogdet_fl_square
+    from .ops.slogdet import slogdet as slogdet_op
+
+    if not is_fl(v):
+        return slogdet_op(v)
+    (v,), added = _square_blocks(v)
+    out = slogdet_fl_square(v.x, v.jac.contiguous(), v.lap.contiguous())
+    return _logdet_fl(*out, added)
+
+
+def slogdet_rows(up, down):
+    """(sign, log|det|) of the row concatenation ``[up; down]`` of square row
+    blocks ``[B, D, nu, n]`` and ``[B, D, nd, n]`` (or without D).
+
+    Counterpart of a row concatenation followed by ``slogdet`` under
+    ``fwdlap._slogdet_rule`` on ``FLRowBlocks``: the Jacobian stays in its two
+    row blocks, which :func:`ops.fl_slogdet.square_split_traces` reads in place.
+    nd may be 0.
+    """
+    from .ops.fl_slogdet import slogdet_fl_square_split
+
+    if not is_fl(up) and not is_fl(down):
+        return slogdet(torch.cat([up, down], dim=-2))
+    if not (is_fl(up) and is_fl(down)):
+        raise ValueError('slogdet_rows: both row blocks must be FL')
+    (up, down), added = _square_blocks(up, down)
+    out = slogdet_fl_square_split(
+        torch.cat([up.x, down.x], dim=-2),
+        up.jac.contiguous(),
+        down.jac.contiguous(),
+        torch.cat([up.lap, down.lap], dim=-2),
+    )
+    return _logdet_fl(*out, added)
+
+
 def forward_laplacian(f):
     """LaplacianFactory: ``f`` maps electrons ``[B, n, 3]`` to ``log psi`` ``[B]``;
     returns ``r -> (lap f(r) [B], grad f(r) [B, 3n])`` in one forward pass."""

@@ -39,6 +39,10 @@ _SIGNATURES = {
     'fl_attention_smem_bytes': ([_I] * 4, _L),
     'fl_slogdet_traces_launch': ([_P] * 5 + [_I] * 5 + [_P], _I),
     'fl_slogdet_smem_bytes': ([_I], _L),
+    'fl_slogdet_square_launch': ([_P] * 5 + [_I] * 4 + [_P], _I),
+    'fl_slogdet_square_smem_bytes': ([_I], _L),
+    'fl_slogdet_square_split_launch': ([_P] * 6 + [_I] * 5 + [_P], _I),
+    'fl_slogdet_square_split_smem_bytes': ([_I], _L),
     'fl_block_launch': ([_P] * 14 + [_I] * 6 + [_P], _I),
     'fl_block_smem_bytes': ([_I] * 4, _L),
 }

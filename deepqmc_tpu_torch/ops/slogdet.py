@@ -1,12 +1,19 @@
-"""Flat-layout log-determinant (counterpart of ``deepqmc_tpu/ops/slogdet.py``).
+"""Log-determinants (counterpart of ``deepqmc_tpu/ops/slogdet.py``).
 
-The ansatz assembles its Slater matrices flat, ``[..., n, n_det * n]`` with
-determinant-major columns; this module unpacks them to ``[..., n_det, n, n]``.
+:func:`slogdet` takes square matrices ``[..., n, n]``.  The ansatz assembles
+its Slater matrices flat, ``[..., n, n_det * n]`` with determinant-major
+columns; :func:`slogdet_flat` unpacks them to ``[..., n_det, n, n]``.  Their
+forward-Laplacian rules are ``fwdlap.slogdet`` and ``fwdlap.slogdet_flat``.
 """
 
 import torch
 
-__all__ = ['slogdet_flat', 'unflatten_dets']
+__all__ = ['slogdet', 'slogdet_flat', 'unflatten_dets']
+
+
+def slogdet(a: torch.Tensor):
+    """(sign, log|det|) of the trailing square dimensions of ``a``."""
+    return torch.linalg.slogdet(a)
 
 
 def unflatten_dets(a_flat: torch.Tensor, n_det: int) -> torch.Tensor:

@@ -34,11 +34,16 @@ class NeuralNetworkWaveFunction(nn.Module):
         psi = self.conf_coeff(sign * fl.exp(logdet - shift)).squeeze(-1)
         return torch.sign(fl.primal(psi)), fl.log(fl.abs(psi)) + shift.squeeze(-1)
 
-    def forward(self, phys_conf: PhysicalConfiguration) -> Psi:
+    def _spin_orbitals(self, phys_conf: PhysicalConfiguration):
+        """Per-spin flat orbital matrices ``[B, n_spin, n_det * n]`` (envelope
+        times backflow); FLs when ``phys_conf.r`` is one."""
         r, R = phys_conf.r, phys_conf.R
         fs_up, fs_down = self.omni(r, R)
         env_up, env_down = self.envelope(r, R)
-        sign, log_psi = self._determinant_mix(env_up * fs_up, env_down * fs_down)
+        return env_up * fs_up, env_down * fs_down
+
+    def forward(self, phys_conf: PhysicalConfiguration) -> Psi:
+        sign, log_psi = self._determinant_mix(*self._spin_orbitals(phys_conf))
         if self.cusp_electrons is not None:
-            log_psi = log_psi + self.cusp_electrons(r)
+            log_psi = log_psi + self.cusp_electrons(phys_conf.r)
         return Psi(sign, log_psi)

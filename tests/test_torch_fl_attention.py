@@ -73,3 +73,29 @@ def test_kernel_input_checks_reject(fault):
         args[3] = args[3].transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises((TypeError, ValueError)):
         fl_attention.validate(*args)
+
+
+@pytest.fixture
+def fresh_traces():
+    """``_head_fn_factory`` reads its switches while tracing, so each call must
+    trace anew, and no trace made under a switch may outlive the test."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize('head', ['KRON', 'COLFORM'])
+def test_opt_in_heads_match_plain_and_default(head, monkeypatch, fresh_traces):
+    """The JAX kernel's opt-in heads (``DEEPQMC_TPU_ATTN_KRON``/``_COLFORM``,
+    other contraction orders of the same function) in interpret mode against
+    the port's plain version and the default head."""
+    args = _inputs(5)
+    monkeypatch.delenv('DEEPQMC_TPU_ATTN_KRON', raising=False)
+    monkeypatch.delenv('DEEPQMC_TPU_ATTN_COLFORM', raising=False)
+    default = _pallas_blocked(*map(jnp.asarray, args), interpret=True)
+    monkeypatch.setenv(f'DEEPQMC_TPU_ATTN_{head}', '1')
+    jax.clear_caches()
+    got = _pallas_blocked(*map(jnp.asarray, args), interpret=True)
+    plain = fl_attention.mha_core_fl_plain(*(torch.as_tensor(a) for a in args))
+    _close(got, [p.numpy() for p in plain])
+    _close(got, default)

@@ -4,7 +4,8 @@ E_loc and each of its terms from ``deepqmc_tpu_torch`` (forward Laplacian,
 plain kernels on the CPU) against JAX ``hamil.local_energy`` (its forward
 Laplacian on the CPU) and against the port's nested-autograd oracle
 (``physics.loop_laplacian``), at float64, small PsiFormer, same parameters
-and walkers.  Relative tolerance 1e-9: the Laplacian sums 3N second
+and walkers; closed-shell LiH and H2O, the open-shell Li atom (2 up, 1 down)
+and triplet H2 (no down electron).  Relative tolerance 1e-9: the Laplacian sums 3N second
 derivatives, each a long chain of products through attention, determinant
 inverses and the softmax, so float64 rounding accumulates to well above 1e-12
 but stays far below 1e-9 of the terms' scale.
@@ -22,7 +23,8 @@ RTOL = 1e-9
 TERMS = ('E_kin', 'V_loc', 'V_el', 'lap', 'quantum_force')
 
 
-@pytest.fixture(scope='module', params=[('LiH', 'selfgolden'), ('H2O', 'init_sample')])
+@pytest.fixture(scope='module', params=[('LiH', 'selfgolden'), ('H2O', 'init_sample'),
+                                        ('Li', 'init_sample'), ('H2_triplet', 'init_sample')])
 def case(request):
     mol, source = request.param
     hamil_j, ansatz, params = jax_model(mol, seed=1)

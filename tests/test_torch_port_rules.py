@@ -95,3 +95,35 @@ def test_main_path_operands_pass_the_kernel_checks(monkeypatch):
         assert E_loc.dtype == torch.float32 and torch.isfinite(E_loc).all()
         assert state['r'].shape == (8, 10, 3)
         assert set(stats) >= {'local_energy/mean', 'energy/ewm', 'sampling/acceptance'}
+
+
+def test_block_path_operands_pass_the_kernel_checks(monkeypatch):
+    """As above with ``block_kernel=True``: each layer's operands pass the fused
+    block kernel's checks, and the path takes no attention kernel."""
+    from deepqmc_tpu_torch.ops import fl_attention, fl_block, fl_slogdet
+
+    seen = []
+
+    def block(*args, **kwargs):
+        fl_block.validate(*args, **kwargs)
+        seen.append('fl_block')
+        return fl_block.psiformer_block_fl_plain(*args, **kwargs)
+
+    def traces(*args):
+        fl_slogdet.validate(*args)
+        seen.append('fl_slogdet')
+        return fl_slogdet.slogdet_traces_plain(*args)
+
+    def attention(*args):
+        raise AssertionError('the block path called the attention core')
+
+    monkeypatch.setattr(fl_block, 'psiformer_block_fl', block)
+    monkeypatch.setattr(fl_slogdet, 'slogdet_traces', traces)
+    monkeypatch.setattr(fl_attention, 'mha_core_fl', attention)
+    hamil = dqt.MolecularHamiltonian(mol=dqt.Molecule.from_name('H2O'))
+    wf = dqt.psiformer_ansatz(hamil, n_determinants=2, embedding_dim=32, n_interactions=2,
+                              num_heads=2, block_kernel=True)
+    out = list(dqt.evaluate(hamil, wf, n_walkers=8, steps=2, decorr=2, device='cpu'))
+    assert seen == (['fl_block'] * 2 + ['fl_slogdet']) * 2
+    for _, _, E_loc, _ in out:
+        assert E_loc.dtype == torch.float32 and torch.isfinite(E_loc).all()

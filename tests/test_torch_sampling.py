@@ -3,14 +3,18 @@ and EWM.
 
 The two packages' random streams never match, so the sampler is checked by
 feeding ``MetropolisSampler.step`` the same numpy proposals and uniforms as a
-hand-written Metropolis step, and comparing exactly.  The EWM is a
+hand-written Metropolis step, and comparing exactly; and as JAX
+``MetropolisSampler.sample``, whose ``jax.random.normal`` and ``uniform`` are
+replaced within the test by the same numpy draws.  The EWM is a
 deterministic recursion and is held to JAX ``ewm.init_ewm`` directly.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_parity import jax_model, torch_model, walkers
 
 import deepqmc_tpu_torch as dqt
 from deepqmc_tpu.ewm import init_ewm as jax_init_ewm
@@ -52,6 +56,51 @@ def test_metropolis_step_matches_hand_written(seed):
     assert stats['sampling/acceptance'].item() == pytest.approx(acc, abs=1e-15)
     assert new['tau'].item() == pytest.approx(0.3 * max(acc, 0.05) / 0.57, rel=1e-14)
     assert torch.equal(phys_conf.r, new['r'])
+
+
+@torch.inference_mode()
+@pytest.mark.parametrize('mol, seed', [('LiH', 0), ('LiH', 1), ('Li', 2)])
+def test_metropolis_step_matches_jax(mol, seed, monkeypatch):
+    """One move of the port's sampler against JAX ``MetropolisSampler.sample``
+    on the same walkers, ages, parameters and noise, at float64: the same
+    walkers accepted, so r, age, the step size and the acceptance agree to
+    rounding, and psi to the wave function's own parity (1e-12 relative)."""
+    from deepqmc_tpu.sampling.electron_samplers import MetropolisSampler as JaxMetropolis
+
+    hamil_j, ansatz, params = jax_model(mol, seed=seed)
+    hamil_t, wf = torch_model(mol, params)
+    r = walkers(hamil_j, 'init_sample', n=16, seed=seed)
+    rng = np.random.default_rng(seed)
+    age = rng.integers(0, 5, size=len(r))
+    noise, uniforms = rng.normal(size=r.shape), rng.uniform(size=len(r))
+
+    sampler_j = JaxMetropolis(hamil_j, ansatz.apply, tau=0.3)
+    R_j = jnp.asarray(hamil_j.mol.coords)
+    state_j = sampler_j.update(
+        {'r': jnp.asarray(r), 'age': jnp.asarray(age, jnp.int32), 'tau': jnp.asarray(0.3)},
+        params, R_j)
+    monkeypatch.setattr(jax.random, 'normal', lambda key, shape, dtype: jnp.asarray(noise, dtype))
+    monkeypatch.setattr(jax.random, 'uniform', lambda key, shape: jnp.asarray(uniforms))
+    want, _, want_stats = sampler_j.sample(jax.random.PRNGKey(0), state_j, params, R_j)
+
+    sampler_t = MetropolisSampler(hamil_t, wf, tau=0.3)
+    R_t = torch.as_tensor(hamil_t.mol.coords)
+    state_t = sampler_t.update(
+        {'r': torch.tensor(r), 'age': torch.tensor(age), 'tau': torch.tensor(0.3, dtype=R_t.dtype)},
+        R_t)
+    got, _, got_stats = sampler_t.step(state_t, R_t, torch.tensor(noise), torch.tensor(uniforms))
+
+    accepted = np.asarray(want['age']) == 0
+    assert 0 < accepted.sum() < len(accepted)  # both branches exercised
+    np.testing.assert_array_equal(got['age'].numpy(), np.asarray(want['age']))
+    np.testing.assert_array_equal(got['psi'].sign.numpy(), np.asarray(want['psi'].sign))
+    for key, g, w in (('r', got['r'], want['r']), ('psi', got['psi'].log, want['psi'].log),
+                      ('tau', got['tau'], want['tau'])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12, atol=0, err_msg=key)
+    assert set(got_stats) == set(want_stats)
+    for key, value in want_stats.items():
+        np.testing.assert_allclose(got_stats[key].numpy(), np.asarray(value), rtol=1e-12,
+                                   atol=1e-14, err_msg=key)
 
 
 @torch.inference_mode()

@@ -1,7 +1,7 @@
 """The port's PsiFormer wave function against the JAX package.
 
-The small preset (2 determinants, embedding 32, 2 layers, 2 heads) on H2, LiH
-and H2O, with JAX's parameters converted by ``deepqmc_tpu_torch.convert``;
+The small preset (2 determinants, embedding 32, 2 layers, 2 heads) on H2, LiH,
+H2O and the open-shell Li atom (2 up, 1 down) and triplet H2 (2 up, 0 down), with JAX's parameters converted by ``deepqmc_tpu_torch.convert``;
 walkers from JAX ``init_sample`` and, for LiH, the pinned self-golden walker.
 Sign exactly, log|psi| to relative 1e-10 at float64 (the same network; only
 the summation order of the products differs).
@@ -21,7 +21,8 @@ RTOL = 1e-10
 
 @pytest.mark.parametrize(
     'mol, source',
-    [('H2', 'init_sample'), ('LiH', 'init_sample'), ('LiH', 'selfgolden'), ('H2O', 'init_sample')],
+    [('H2', 'init_sample'), ('LiH', 'init_sample'), ('LiH', 'selfgolden'), ('H2O', 'init_sample'),
+     ('Li', 'init_sample'), ('H2_triplet', 'init_sample')],
 )
 def test_psi_matches_jax(mol, source):
     hamil_j, ansatz, params = jax_model(mol)

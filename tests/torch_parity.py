@@ -6,6 +6,10 @@ parameters: JAX's ``init`` perturbed by seeded numpy noise (so the envelope
 and cusp parameters are not all ones), converted with
 ``deepqmc_tpu_torch.convert``.  Walkers come from the JAX ``init_sample`` or,
 for LiH, from the pinned self-golden walker.
+
+Besides the named closed-shell molecules, two open-shell systems are built
+from their geometry in both packages (no molecule data is added to either):
+the Li atom (2 up, 1 down) and triplet H2 (2 up, 0 down).
 """
 
 from pathlib import Path
@@ -18,13 +22,27 @@ SMALL = {'n_determinants': 2, 'embedding_dim': 32, 'n_interactions': 2, 'num_hea
 SELFGOLDENS = Path(__file__).parent / 'test_reference_parity' / 'selfgoldens.npz'
 
 
+OPEN_SHELL = {
+    'Li': dict(coords=[[0.0, 0.0, 0.0]], charges=[3], charge=0, spin=1),
+    'H2_triplet': dict(coords=[[0.0, 0.0, 0.0], [0.742, 0.0, 0.0]], charges=[1, 1],
+                       charge=0, spin=2, unit='angstrom'),
+}
+
+
+def molecule(package, mol_name: str):
+    """``package.Molecule`` by name, or built from ``OPEN_SHELL``."""
+    if mol_name in OPEN_SHELL:
+        return package.Molecule(**OPEN_SHELL[mol_name])
+    return package.Molecule.from_name(mol_name)
+
+
 def jax_model(mol_name: str, seed: int = 0):
     """(JAX hamiltonian, ansatz, perturbed params as numpy)."""
     import deepqmc_tpu as dqj
     from deepqmc_tpu.presets import ansatz_preset
     from deepqmc_tpu.wf import instantiate_ansatz
 
-    hamil = dqj.MolecularHamiltonian(mol=dqj.Molecule.from_name(mol_name))
+    hamil = dqj.MolecularHamiltonian(mol=molecule(dqj, mol_name))
     ansatz = instantiate_ansatz(hamil, ansatz_preset('psiformer', **SMALL))
     pc = hamil.init_sample(jax.random.PRNGKey(seed), hamil.mol.coords, 1)[0]
     params = jax.jit(ansatz.init)(jax.random.PRNGKey(seed + 1), pc)
@@ -41,7 +59,7 @@ def torch_model(mol_name: str, params, block_kernel: bool = False, **hamil_kwarg
     import deepqmc_tpu_torch as dqt
     from deepqmc_tpu_torch.convert import state_dict_from_jax
 
-    hamil = dqt.MolecularHamiltonian(mol=dqt.Molecule.from_name(mol_name), **hamil_kwargs)
+    hamil = dqt.MolecularHamiltonian(mol=molecule(dqt, mol_name), **hamil_kwargs)
     wf = dqt.psiformer_ansatz(hamil, **SMALL, block_kernel=block_kernel).to(torch.float64)
     wf.load_state_dict(state_dict_from_jax(params, wf))
     return hamil, wf
