@@ -15,7 +15,10 @@ Phases, each with a start and an end line and its own time budget:
    tolerances; the kernel's and the plain version's times (median of 20 runs,
    CUDA events, after a warm-up); then at other shapes, among them the three
    slogdet kernels at n = 5 (rows split 3/2), n = 2 with no down rows, n = 42
-   and n = 64;
+   and n = 64; two launches of the block kernel on the same inputs at B = 256
+   must be bitwise equal, and its split-TF32 tensor-core floor and the weight
+   bytes its staging plan reads from L2 (both computed, not measured, so not
+   in the kernels record) are printed beside its float32 bound;
 4. main path: the H2O PsiFormer at full width (16 determinants, embedding
    256, 4 layers, 4 heads of 64; seeded random weights), 2048 walkers,
    3 evaluation steps through ``deepqmc_tpu_torch.evaluate`` (10 Metropolis
@@ -65,6 +68,10 @@ PHASE_BUDGET_S = {
 # of its bytes over the first and its flops over the second.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# Dense TF32 tensor-core flop/s of the same card.  The block kernel's products
+# take three TF32 products per float32 one (split TF32), so its tensor-core
+# floor is 3 flops over this rate; its ``bound_ms`` stays the float32 bound.
+TF32_FLOPS_PER_S = 495e12
 
 # Tolerances of the kernels against their plain versions, both float32 on the
 # card: the two sum in other orders (K = 30 directions, dh = 64 products), so
@@ -110,23 +117,6 @@ class Phase:
         if exc_type is None and dt > self.budget:
             raise SystemExit(f'phase {self.name} overran its budget of {self.budget} s')
         return False
-
-
-def cuda_median_ms(fn, runs=20, warmup=3):
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    times.sort()
-    return times[len(times) // 2]
 
 
 def max_errors(out, ref):
@@ -267,7 +257,11 @@ def main() -> int:
         from deepqmc_tpu_torch.ops import _cuda
         from deepqmc_tpu_torch import fwdlap
         from deepqmc_tpu_torch.ops.fl_attention import mha_core_fl, mha_core_fl_plain
-        from deepqmc_tpu_torch.ops.fl_block import psiformer_block_fl, psiformer_block_fl_plain
+        from deepqmc_tpu_torch.ops.fl_block import (
+            psiformer_block_fl,
+            psiformer_block_fl_plain,
+            weight_bytes,
+        )
         from deepqmc_tpu_torch.ops.fl_slogdet import (
             slogdet_traces,
             slogdet_traces_plain,
@@ -277,6 +271,7 @@ def main() -> int:
             square_traces_plain,
         )
         from deepqmc_tpu_torch.ops.slogdet import unflatten_dets
+        from deepqmc_tpu_torch.utils import cuda_median_ms
     except ImportError as e:
         print(f'chip_smoke: the package deepqmc_tpu_torch is missing ({e}); run from the '
               'repository root', file=sys.stderr)
@@ -342,6 +337,13 @@ def main() -> int:
                     if not ok:
                         raise SystemExit(f'{name} disagrees with its plain version on {label}')
                     worst = max(worst, err)
+                if name == 'fl_block' and B == 256:  # no atomics: the same bits every launch
+                    again = kernel(*args)
+                    same = all(torch.equal(a, o) for a, o in zip(again, got))
+                    print(f'{name} B={B}: two launches bitwise equal: {same}', flush=True)
+                    if not same:
+                        raise SystemExit(f'{name} is not deterministic')
+                    del again
             ms = cuda_median_ms(lambda: kernel(*args))
             plain_ms = cuda_median_ms(lambda: plain(*args))
             bound_ms, nbytes, flops = bound(2048)
@@ -355,6 +357,14 @@ def main() -> int:
                 bound_by=bound_by, library_ms=None,
             ))
             if name == 'fl_block':  # the same layer through the per-op rules (kernel 1)
+                # computed from the counts, not measured: kept out of the kernels record
+                tc_floor_ms = 1e3 * 3 * flops / TF32_FLOPS_PER_S
+                weight_gb = weight_bytes(2048, 30, 10, 256, 4) / 1e9
+                print(f'{name} B=2048 (computed, not measured): split-TF32 tensor-core floor '
+                      f'{tc_floor_ms:.4f} ms (3 x {flops / 1e9:.2f} GFLOP at '
+                      f'{TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s) beside the float32 bound '
+                      f'{bound_ms:.4f} ms; weight bytes from L2 per launch by the kernel\'s '
+                      f'staging plan {weight_gb:.2f} GB', flush=True)
                 layer = block_layer()
                 h = fwdlap.FL(*args[:3])
                 with torch.inference_mode():

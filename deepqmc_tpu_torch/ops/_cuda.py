@@ -43,7 +43,7 @@ _SIGNATURES = {
     'fl_slogdet_square_smem_bytes': ([_I], _L),
     'fl_slogdet_square_split_launch': ([_P] * 6 + [_I] * 5 + [_P], _I),
     'fl_slogdet_square_split_smem_bytes': ([_I], _L),
-    'fl_block_launch': ([_P] * 14 + [_I] * 6 + [_P], _I),
+    'fl_block_launch': ([_P] * 15 + [_I] * 6 + [_P], _I),
     'fl_block_smem_bytes': ([_I] * 4, _L),
 }
 

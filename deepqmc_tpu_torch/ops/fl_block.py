@@ -11,7 +11,9 @@ with ``Wq``, ``Wk``, ``Wv`` ``[d, H*dh]`` (no bias, ``H*dh = d``), ``Wo``,
 ``W1``, ``W2`` ``[d, d]`` and ``b1``, ``b2`` ``[d]``, weights in the JAX
 layout ``[in, out]``.  :func:`psiformer_block_fl` runs the plain PyTorch
 version :func:`psiformer_block_fl_plain` on a CPU tensor and the hand-written
-kernel ``csrc/fl_block.cu`` on a CUDA tensor, or raises.
+kernel ``csrc/fl_block.cu`` on a CUDA tensor, or raises.  The kernel runs the
+six d x d products on the tensor cores in split TF32 (three TF32 products per
+float32 one), to float32 accuracy.
 
 Shapes: ``x`` and ``L`` ``[B, n, d]``, ``J`` ``[B, K, n, d]`` (batch-major),
 with K the number of Laplacian directions.
@@ -23,10 +25,11 @@ from .. import fwdlap as fl
 from . import _cuda
 from .fl_attention import mha_core_fl_plain
 
-__all__ = ['psiformer_block_fl', 'psiformer_block_fl_plain', 'validate']
+__all__ = ['psiformer_block_fl', 'psiformer_block_fl_plain', 'validate', 'weight_bytes']
 
 MAX_N = 32  # tokens the kernel takes
-MAX_KC = 4  # directions per chunk the kernel is built for
+MAX_ROWS = 64  # kc * n, the rows of one chunk's products: one 64-row tensor-core tile
+SCRATCH = 8  # [n, d] arrays per walker the kernel keeps in global memory (kScratch)
 
 
 def psiformer_block_fl_plain(x, J, L, wq, wk, wv, wo, w1, b1, w2, b2, num_heads: int):
@@ -69,15 +72,24 @@ def validate(x, J, L, wq, wk, wv, wo, w1, b1, w2, b2, num_heads: int):
 
 
 def _pick_kc(K: int, n: int, d: int, H: int) -> int:
-    """Directions per chunk: the most that fit in shared memory, at most 4."""
+    """Directions per chunk: the most that fit in shared memory with kc * n <= 64."""
     lib, limit = _cuda.library(), _cuda.smem_limit()
-    for kc in range(min(K, MAX_KC), 0, -1):
+    for kc in range(min(K, MAX_ROWS // n), 0, -1):
         if lib.fl_block_smem_bytes(n, d, H, kc) <= limit:
             return kc
     raise ValueError(
         f'fl_block: n={n}, d={d}, H={H} exceed the {limit} B of shared memory a block can '
-        'use (the primal [n, d] tiles, the K-sums and one direction must fit)'
+        'use (the primal [n, d] tiles, the K-sums, the weight ring and one direction must fit)'
     )
+
+
+def weight_bytes(B: int, K: int, n: int, d: int, H: int) -> int:
+    """Weight bytes one launch reads from L2, by the kernel's staging plan (the
+    header of ``csrc/fl_block.cu``): each block reads the six d x d weights once
+    for the primal pass and once for each chunk of kc directions, and Wo, W1, W2
+    once more for the Laplacian pass."""
+    chunks = -(-K // _pick_kc(K, n, d, H))
+    return 4 * B * d * d * (6 * (1 + chunks) + 3)
 
 
 def _launch(x, J, L, wq, wk, wv, wo, w1, b1, w2, b2, num_heads):
@@ -86,10 +98,12 @@ def _launch(x, J, L, wq, wk, wv, wo, w1, b1, w2, b2, num_heads):
     K = J.shape[1]
     kc = _pick_kc(K, n, d, num_heads)
     y, Ly, Jy = torch.empty_like(x), torch.empty_like(L), torch.empty_like(J)
+    scratch = x.new_empty(B, SCRATCH, n, d)  # m1, m2, the sums Su1, Su2, Sav; Lq, Lk, Lv
     lib = _cuda.library()
     with torch.cuda.device(x.device):
         code = lib.fl_block_launch(
-            *(t.data_ptr() for t in (x, J, L, wq, wk, wv, wo, w1, b1, w2, b2, y, Jy, Ly)),
+            *(t.data_ptr() for t in (x, J, L, wq, wk, wv, wo, w1, b1, w2, b2, y, Jy, Ly,
+                                     scratch)),
             B, K, n, d, num_heads, kc, _cuda.stream(),
         )
     _cuda.check(code, 'fl_block')

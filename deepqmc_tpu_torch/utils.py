@@ -2,7 +2,7 @@
 
 import torch
 
-__all__ = ['resolve_device']
+__all__ = ['cuda_median_ms', 'resolve_device']
 
 
 def resolve_device(device=None) -> torch.device:
@@ -23,3 +23,19 @@ def set_true_fp32():
     """Full-precision float32 products on the card: TF32 off for matmul and cuDNN."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def cuda_median_ms(fn, runs=20, warmup=3):
+    """Median time of ``fn()`` on the card in ms, by CUDA events, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    times.sort()
+    return times[len(times) // 2]

@@ -22,9 +22,9 @@ from torch_parity import SMALL, jax_model, jax_phys_conf, torch_model, torch_phy
 
 import deepqmc_tpu_torch as dqt
 from deepqmc_tpu.ops import fl_block as jax_fl_block
-from deepqmc_tpu_torch import fwdlap
+from deepqmc_tpu_torch import ablate_fl_block, fwdlap
 from deepqmc_tpu_torch.gnn.update_features import NodeAttentionElectronUpdateFeature
-from deepqmc_tpu_torch.ops import fl_attention, fl_block
+from deepqmc_tpu_torch.ops import _cuda, fl_attention, fl_block
 
 RTOL_JAX_KERNEL = 1e-10
 RTOL_PER_OP = 1e-12
@@ -217,3 +217,67 @@ def test_kernel_input_checks_reject(fault):
         args[6] = shifted.copy_(w)
     with pytest.raises((TypeError, ValueError)):
         fl_block.validate(*args, heads)
+
+
+def _tf32(x):
+    """Round float32 to TF32 (10-bit mantissa), to nearest with ties away: add half
+    a TF32 unit to the bits and clear the low 13 (what the kernel's tensor cores
+    read of an operand it has added half a unit to)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(terms):
+    """``a @ w`` as the kernel's tensor cores form it: one TF32 product, or the
+    split-TF32 sum lo*hi + hi*lo + hi*hi with x = hi + lo, in float32."""
+
+    def matmul(a, w):
+        ah, wh = _tf32(a), _tf32(w)
+        if terms == 1:
+            return ah @ wh
+        al, wl = _tf32(a - ah), _tf32(w - wh)
+        return al @ wh + ah @ wl + ah @ wh
+
+    return matmul
+
+
+@pytest.mark.parametrize('terms', [1, 3])
+def test_split_tf32_products_hold_the_kernel_tolerance(terms, monkeypatch):
+    """The fused kernel runs the layer's six d x d products on TF32 tensor cores.
+    Emulated in the plain version at the H2O layer's widths (d = 256, 4 heads,
+    n = 10, K = 30; the preset's initialisation), the three-term split product
+    keeps (y, J_y, L_y) within chip_smoke.KERNEL_RTOL of the float64 plain
+    version, and a single TF32 product does not: the split is what lets the
+    kernel keep the float32 kernels' tolerance."""
+    import chip_smoke
+
+    layer = _layer(256, 4, 0)
+    weights = [w.detach() for w in layer.block_weights()]
+    triple = _random_triple(7, 4, 30, 10, 256)
+    with torch.inference_mode():
+        ref = fl_block.psiformer_block_fl_plain(*map(torch.as_tensor, triple), *weights, 4)
+        mm = _tf32_matmul(terms)
+        monkeypatch.setattr(fwdlap.FL, '__matmul__',
+                            lambda h, w: fwdlap.FL(mm(h.x, w), mm(h.jac, w), mm(h.lap, w)))
+        got = fl_block.psiformer_block_fl_plain(
+            *(torch.as_tensor(t, dtype=torch.float32) for t in triple),
+            *(w.float() for w in weights), 4,
+        )
+    rel = [chip_smoke.max_errors(g.double(), r)[1] for g, r in zip(got, ref)]
+    if terms == 3:
+        assert max(rel) <= chip_smoke.KERNEL_RTOL, rel
+    else:
+        assert max(rel) > chip_smoke.KERNEL_RTOL, rel
+
+
+@pytest.mark.parametrize('variant', sorted(ablate_fl_block.VARIANTS))
+def test_ablation_variants_edit_the_kernel_source(variant):
+    """Each variant of ``python -m deepqmc_tpu_torch.ablate_fl_block`` finds every
+    source fragment it edits in ``csrc/fl_block.cu`` and keeps the braces
+    balanced, so an edit of the kernel that moves a fragment fails here and not
+    first on the card."""
+    src = (_cuda.CSRC / 'fl_block.cu').read_text()
+    edits = ablate_fl_block.VARIANTS[variant]
+    edited = ablate_fl_block._edit(src, edits)
+    assert (edited != src) == bool(edits)
+    assert edited.count('{') - edited.count('}') == src.count('{') - src.count('}')
