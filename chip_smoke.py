@@ -15,21 +15,26 @@ Phases, each with a start and an end line and its own time budget:
    tolerances; the kernel's and the plain version's times (median of 20 runs,
    CUDA events, after a warm-up); then at other shapes, among them the three
    slogdet kernels at n = 5 (rows split 3/2), n = 2 with no down rows, n = 42
-   and n = 64; two launches of the block kernel on the same inputs at B = 256
-   must be bitwise equal, and its split-TF32 tensor-core floor and the weight
-   bytes its staging plan reads from L2 (both computed, not measured, so not
-   in the kernels record) are printed beside its float32 bound;
+   and n = 64, and the attention kernel at n = 1, 2, 7, 16 and 33, and at
+   n = 42 (K = 126, B = 64) and n = 64 (K = 192, B = 32), timed beside their
+   bound; two launches of the attention, flat slogdet and block kernels on
+   the same inputs at B = 256 must be bitwise equal, and the block kernel's
+   split-TF32 tensor-core floor and the weight bytes its staging plan reads
+   from L2 (both computed, not measured, so not in the kernels record) are
+   printed beside its float32 bound;
 4. main path: the H2O PsiFormer at full width (16 determinants, embedding
    256, 4 layers, 4 heads of 64; seeded random weights), 2048 walkers,
    3 evaluation steps through ``deepqmc_tpu_torch.evaluate`` (10 Metropolis
    moves, the forward-Laplacian local energy, statistics and EWM each), with
    the per-op forward Laplacian; the launch counters of the attention and
-   slogdet kernels must grow during it.  Then the local energy of 64 of the
-   walkers from the kernel path (float32, card) against the plain path
-   (float64, CPU);
+   slogdet kernels must grow during it, and one local energy must launch the
+   attention kernel 4 times, the flat slogdet kernel once and the block
+   kernel never.  Then the local energy of 64 of the walkers from the kernel
+   path (float32, card) against the plain path (float64, CPU);
 5. block path: the same model and run with ``block_kernel=True``, where each
    layer's forward Laplacian is one launch of the fused block kernel: 4
-   launches of it and none of the attention kernel per local energy; its
+   launches of it, none of the attention kernel and one of the flat slogdet
+   kernel per local energy; its
    local energy on 64 walkers against the float64 plain path (CPU) and
    against the per-op path on the card;
 6. square path: the main path's model and its last 2048 walkers; the Slater
@@ -91,6 +96,9 @@ ELOC_FACTOR, ELOC_FLOOR = 10.0, 1e-4
 # J and L: L grows near a node of a determinant, where its float32 rounding is
 # amplified as E_loc's is.
 BLOCK_VS_PER_OP_FACTOR = 2.0
+# Kernels whose sums have one owner each and a fixed order: two launches on the
+# same inputs must give the same bits.
+DETERMINISTIC = ('fl_attention', 'fl_slogdet_traces', 'fl_block')
 
 
 _T0 = time.monotonic()
@@ -337,7 +345,7 @@ def main() -> int:
                     if not ok:
                         raise SystemExit(f'{name} disagrees with its plain version on {label}')
                     worst = max(worst, err)
-                if name == 'fl_block' and B == 256:  # no atomics: the same bits every launch
+                if B == 256 and name in DETERMINISTIC:  # no atomics: the same bits every launch
                     again = kernel(*args)
                     same = all(torch.equal(a, o) for a, o in zip(again, got))
                     print(f'{name} B={B}: two launches bitwise equal: {same}', flush=True)
@@ -410,11 +418,36 @@ def main() -> int:
                           f'({nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP)', flush=True)
                 del args
                 torch.cuda.empty_cache()
+        # the attention kernel beyond H2O's 10 tokens: benzene's 42 and its
+        # largest instance, 64, at the preset's 4 heads of 64
+        for B, kw in ((64, dict(K=126, n=42)), (32, dict(K=192, n=64))):
+            args = attention_inputs(gen, B, **kw)
+            for label, o, r in zip(('t', 'J_t', 'L_t'), mha_core_fl(*args), mha_core_fl_plain(*args)):
+                err, rel = max_errors(o, r)
+                print(f'fl_attention B={B} {kw} {label}: max abs err {err:.3e}, rel {rel:.3e}',
+                      flush=True)
+                if not rel <= KERNEL_RTOL:
+                    raise SystemExit(f'fl_attention disagrees with its plain version at B={B} {kw}')
+            ms = cuda_median_ms(lambda: mha_core_fl(*args), runs=5, warmup=1)
+            plain_ms = cuda_median_ms(lambda: mha_core_fl_plain(*args), runs=5, warmup=1)
+            bound_ms, nbytes, flops = attention_bound_ms(B, **kw)
+            print(f'fl_attention B={B} {kw}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+                  f'attention_bound_ms {bound_ms:.4f} ({nbytes / 1e9:.3f} GB, '
+                  f'{flops / 1e9:.2f} GFLOP)', flush=True)
+            del args
+            torch.cuda.empty_cache()
         for name, kernel, plain, make, kw in (
             ('fl_attention', mha_core_fl, mha_core_fl_plain, attention_inputs,
              dict(K=21, n=7, H=2, dh=12)),
             ('fl_attention', mha_core_fl, mha_core_fl_plain, attention_inputs,
              dict(K=48, n=16, H=2, dh=64)),
+            # one token (no softmax to speak of), two, and an odd count past 32
+            ('fl_attention', mha_core_fl, mha_core_fl_plain, attention_inputs,
+             dict(K=5, n=1, H=1, dh=4)),
+            ('fl_attention', mha_core_fl, mha_core_fl_plain, attention_inputs,
+             dict(K=4, n=2, H=2, dh=8)),
+            ('fl_attention', mha_core_fl, mha_core_fl_plain, attention_inputs,
+             dict(K=9, n=33, H=2, dh=16)),
             # odd n with K not a multiple of the 4-direction chunk; a width that is
             # not a multiple of 8 (one head); the small test width; n = 32 with a
             # 2-direction chunk
@@ -495,7 +528,15 @@ def main() -> int:
             raise SystemExit('the per-op main path launched the block kernel')
         main_last = last
         print(f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB', flush=True)
-        local_energy_ms(wf, last, 'per-op path', step_s)
+        pc = local_energy_ms(wf, last, 'per-op path', step_s)
+        zero_counts()
+        with torch.inference_mode():
+            hamil.local_energy(wf, pc)
+        one = counts()
+        print(f'launches in one local energy on the per-op path: {one}', flush=True)
+        if one['fl_attention'] != 4 or one['fl_slogdet_traces'] != 1 or one['fl_block']:
+            raise SystemExit('one local energy on the per-op path is not 4 attention launches '
+                             'and 1 flat slogdet launch')
 
         weights = {k: v.cpu() for k, v in wf.state_dict().items()}
         plain_wfs = {}
@@ -527,8 +568,9 @@ def main() -> int:
             hamil.local_energy(wf_block, pc)
         one = counts()
         print(f'launches in one local energy on the block path: {one}', flush=True)
-        if one['fl_block'] != 4 or one['fl_attention'] != 0:
-            raise SystemExit('one local energy on the block path is not 4 block launches')
+        if one['fl_block'] != 4 or one['fl_attention'] != 0 or one['fl_slogdet_traces'] != 1:
+            raise SystemExit('one local energy on the block path is not 4 block launches '
+                             'and 1 flat slogdet launch')
 
         r64 = last['r'][:64]
         rel, e_block, scale = eloc_rel_errors(hamil, wf_block, r64, R, plain_wfs)

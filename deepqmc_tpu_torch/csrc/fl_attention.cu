@@ -6,329 +6,515 @@
 //
 // Layouts (f32, contiguous): primals q, k, v, Lq, Lk, Lv and outputs t, Lt are
 // [B, n, H, dh]; Jacobians Jq, Jk, Jv and the output Jt are [B, K, n, H, dh].
-// Requires dh % 4 == 0 and n <= 32 (the wrapper checks both).
+// Requires 1 <= n <= 64, dh % 4 == 0 and 16-byte aligned operands (the
+// wrapper checks them).
 //
-// What bounds it: bytes.  Each Jacobian is read from HBM once and Jt written
-// once (about 2.7 GB per call for the H2O PsiFormer at B = 2048) against
-// about 8 flops per Jacobian byte.  Design: one block per (walker, head).
-// The head's primal and Laplacian [n, dh] tiles sit in shared memory; the
-// logits Jacobian Jz (overwritten in place by the softmax Jacobian Ja),
-// [K, n, n], stays in shared memory for the whole block.
-//  - Pass 1: one thread per (direction k, row i) keeps the row's n logits
-//    Jacobians and n cross products sum_d Jq_k[i] Jk_k[j] in registers; it
-//    streams its Jq row and the direction's Jk rows straight from global
-//    memory as float4 (the Jk rows are shared by the n threads of one
-//    direction, so the loads broadcast), and the primal rows from shared
-//    memory.
-//  - The softmax forward Laplacian (fl_attention._softmax_fl) in shared memory.
-//  - Pass 2: Jv streams through a shared-memory window of kc directions; one
-//    thread per (direction parity, row pair, column pair) forms
-//    Jt_k = Ja_k v + a Jv_k for its 2 x 2 outputs and accumulates
-//    sum_k Ja_k Jv_k in registers; the two parities meet in shared memory for
-//    t and Lt.
+// What bounds it: bytes at small n.  Each Jacobian is read from HBM once and
+// Jt written once (2.68 GB per call for the H2O PsiFormer at B = 2048, n = 10)
+// against about 7 flops per Jacobian byte; at n = 42 and 64 the flops (12 n^2
+// dh a direction) bound it.  What bounds this kernel on the card at n = 10 is
+// the shared-memory pipe (loads, shuffles and copies share it), so the passes
+// are laid out to feed many multiply-adds from each load.
+//
+// Design: one block per (walker, head), one pass over the directions.  Every
+// cross-direction term of the softmax's forward Laplacian is a sum over k of
+// products of direction-k quantities (fl_block.cu uses the same algebra):
+//   Jz_k = (Jq_k k^T + q Jk_k^T) / sqrt(dh),  g_k[i] = sum_j a_ij Jz_k[i, j]
+//   Ja_k = a (Jz_k - g_k)
+//   La   = a (w - m - 2 P + 2 G),  w = (Lq k^T + q Lk^T) / sqrt(dh) + W,
+//          m[i] = sum_j a_ij w_ij
+// with the sums W = sum_k (2 Jq_k Jk_k^T / sqrt(dh) + Jz_k^2) (that is,
+// Lz's cross term and Q), P = sum_k Jz_k g_k, G = sum_k g_k^2 ([n, n], [n, n],
+// [n]) and Sav = sum_k Ja_k Jv_k ([n, dh]).  What stays resident is O(n^2 +
+// n dh) and does not grow with K:
+//  - start: q, k, v land in shared memory; a = softmax(z).  Row i and row
+//    i + ceil(n/2) of a (and of Ja, La) are stored as one float2 a column;
+//  - the direction stream: a copying warp (the block's last) moves the tiles
+//    Jq_k, Jk_k, Jv_k ([n, dh] each, rows H dh apart in memory) in order into
+//    a ring of `slots` tiles by 16-byte `cp.async` copies; each slot has a
+//    "full" mbarrier (the copying lanes arrive as their copies land) and an
+//    "empty" one (thread 0 arrives once the computing threads are past it).
+//    The computing threads never issue a copy;
+//  - pass A, per direction: a lane forms Jz_k and Jq_k Jk_k^T on a 2 x 2
+//    tile (rows i, i + ceil(n/2); columns j, j + ceil(n/2)) over the whole of
+//    dh, 8 loads of 16 bytes for 48 multiply-adds; g_k of its two rows is the
+//    sum over the ceil(n/2) lanes of the row pair (shuffles); the lane adds
+//    its entries' shares to W and P (G for the pair's first lane) and writes
+//    its entries of Ja_k;
+//  - pass B, per direction: thread (row pair, float4 column c) forms
+//    Jt_k = Ja_k v + a Jv_k for its two rows (one 8-byte load each of a and
+//    Ja a column), stores them (16 consecutive threads write one 256-byte row
+//    at dh = 64), and adds Ja_k Jv_k to its Sav entries.  Ja_k is never kept
+//    past its direction;
+//  - end: Lq, Lk, Lv land in the ring; La replaces Ja; t = a v and
+//    Lt = La v + a Lv + 2 Sav are written.
+// Two barriers of the computing threads a direction, none in the passes.
+// Each sum has one owner thread and adds the directions in order, and the
+// shuffles sum in a fixed pattern: no atomics, so two launches give
+// bitwise-equal results.
 
 #include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 320;
+constexpr int kMaxN = 64;
+constexpr int kMaxThreads = 256;  // computing threads; one more warp copies
+// Blocks of at most kSmallBlock threads (the copying warp included; H2O's
+// n = 10, dh = 64 takes 128) are held to the registers of kSmallBlocks of
+// them an SM: more blocks in flight beat a few spilled registers there.
+constexpr int kSmallBlock = 128, kSmallBlocks = 8;
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
+// acc + a . b as four fused multiply-adds
+__device__ __forceinline__ float fma4sum(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float s, float4 w) {
+  acc.x = fmaf(s, w.x, acc.x);
+  acc.y = fmaf(s, w.y, acc.y);
+  acc.z = fmaf(s, w.z, acc.z);
+  acc.w = fmaf(s, w.w, acc.w);
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// Wait until this thread's cp.async copies have landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// One arrival on `bar` once this thread's earlier cp.async copies have landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Wait for the phase of `bar` with this parity to complete.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Barrier of the computing threads only (the copying warp does not take part).
+__device__ __forceinline__ void compute_sync(int threads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
+}
+
+// Sum (or max) over the `width` lanes of a row group; width a power of 2.
+__device__ __forceinline__ float group_sum(float v, int width) {
+  for (int o = width / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sum over the `width` lanes base .. base + width - 1 of the warp, each lane
+// of them getting it: a butterfly where width is a power of 2 (the group then
+// starts at a multiple of it), else the members in order.
+__device__ __forceinline__ float pair_sum(float v, int base, int width) {
+  if ((width & (width - 1)) == 0) return group_sum(v, width);
+  float s = 0.f;
+  for (int q = 0; q < width; ++q) s += __shfl_sync(0xffffffffu, v, (base + q) & 31);
+  return s;
+}
+
+__device__ __forceinline__ float group_max(float v, int width) {
+  for (int o = width / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Shared-memory plan of one block, in floats.
 struct Layout {
-  int ldt, nn, tile, scratch;
+  int ldt;   // row stride of an [n, dh] tile: float4 aligned, banks shifted by 4 a row
+  int tile;  // n * ldt
+  int q, k, v, sav, at, jat, w, p, g, ring, bar, total;
 };
 
-__host__ __device__ inline Layout layout(int K, int n, int dh, int kc) {
+__host__ __device__ inline Layout layout(int n, int dh, int slots) {
   Layout L;
-  L.ldt = dh + 4;  // row stride of the [n, dh] tiles: float4 aligned, banks shifted
-  L.nn = n * n;
+  L.ldt = dh + 4;
   L.tile = n * L.ldt;
-  int s = K * L.nn;                        // pass 1: cross products per direction
-  if (kc * n * dh > s) s = kc * n * dh;    // pass 2: the Jv window
-  if (2 * n * dh > s) s = 2 * n * dh;      // the two parities' cross terms
-  L.scratch = (s + 3) / 4 * 4;
+  const int nn = n * n;
+  L.q = 0;
+  L.k = L.tile;
+  L.v = 2 * L.tile;
+  const int pairs = n * ((n + 1) / 2);  // [n][ceil(n/2)] float2
+  L.sav = 3 * L.tile;          // [n][ldt]  sum_k Ja_k Jv_k
+  L.at = 4 * L.tile;           // a:   at[j][p] = (a[p][j], a[p + ceil(n/2)][j])
+  L.jat = L.at + 2 * pairs;    // Ja_k (then La), the same pairing
+  L.w = L.jat + 2 * pairs;     // [n][n]    W
+  L.p = L.w + nn;        // [n][n]    P
+  L.g = L.p + nn;        // [n]       G
+  L.ring = (L.g + n + 3) / 4 * 4;
+  L.bar = L.ring + slots * L.tile;  // per slot a "full" and an "empty" mbarrier, 8 bytes each
+  L.total = L.bar + 4 * slots;
   return L;
 }
 
-__host__ __device__ inline long smem_floats(int K, int n, int dh, int kc) {
-  const Layout L = layout(K, n, dh, kc);
-  return 6L * L.tile + L.scratch + (long)K * L.nn + 3L * L.nn + (long)K * n + 3L * n;
+// Lanes of a row group of the softmax and the Laplacian: a power of 2 >=
+// ceil(n / 2); lane jp takes columns jp and jp + ceil(n / 2) of the row.
+__host__ __device__ inline int lanes_per_row(int n) {
+  const int hn = (n + 1) / 2;
+  int l = 1;
+  while (l < hn) l <<= 1;
+  return l;
 }
 
-template <int NMAX>
-__global__ void __launch_bounds__(kThreads, 3) fl_attention_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ jq,
-    const float* __restrict__ jk, const float* __restrict__ jv,
-    const float* __restrict__ lq, const float* __restrict__ lk,
-    const float* __restrict__ lv, float* __restrict__ t,
-    float* __restrict__ jt, float* __restrict__ lt, int K, int n, int H,
-    int dh, int kc) {
+// Computing threads of a block: enough warps for pass A's row pairs and pass
+// B's (row pair, float4 column) items, at most kMaxThreads.
+inline int threads_for(int n, int dh) {
+  const int hn = (n + 1) / 2, ppw = 32 / hn;  // pass A: row pairs a warp
+  const int warps_a = (hn + ppw - 1) / ppw;
+  const int warps_b = ((n + 1) / 2 * (dh / 4) + 31) / 32;
+  int w = warps_a > warps_b ? warps_a : warps_b;
+  if (w * 32 > kMaxThreads) w = kMaxThreads / 32;
+  return w * 32;
+}
+
+struct Params {
+  const float *q, *k, *v, *jq, *jk, *jv, *lq, *lk, *lv;
+  float *t, *jt, *lt;
+  int K, n, H, dh, slots;
+};
+
+template <int MAX_THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS) fl_attention_kernel(Params pr) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int tid = threadIdx.x;
-  const int T = blockDim.x;
-  const Layout L = layout(K, n, dh, kc);
-  const int ldt = L.ldt, nn = L.nn, dq = dh / 4;
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int K = pr.K, n = pr.n, H = pr.H, dh = pr.dh, slots = pr.slots;
+  const Layout L = layout(n, dh, slots);
+  const int ldt = L.ldt, dq = dh / 4;
+  float *sq = sm + L.q, *sk = sm + L.k, *sv = sm + L.v, *sav = sm + L.sav;
+  float2 *sat = reinterpret_cast<float2*>(sm + L.at), *sjat = reinterpret_cast<float2*>(sm + L.jat);
+  float *sw = sm + L.w, *sp = sm + L.p;
+  float *sg = sm + L.g, *ring = sm + L.ring;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.bar);
+  uint64_t* empty = full + slots;
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int tid = threadIdx.x, T = blockDim.x - 32;  // T computing threads, then the copying warp
+  const int lane = tid & 31, warp = tid >> 5, nwarps = T >> 5;
+  const long HD = (long)H * dh;
+  const long pbase = (long)b * n * HD + (long)h * dh;  // row 0 of (b, h) in [B, n, H, dh]
   const float scale = 1.0f / sqrtf((float)dh);
 
-  float* sq = smem;
-  float* sk = sq + L.tile;
-  float* sv = sk + L.tile;
-  float* slq = sv + L.tile;
-  float* slk = slq + L.tile;
-  float* slv = slk + L.tile;
-  float* scr = slv + L.tile;     // cross products / Jv window / parity cross terms
-  float* sjz = scr + L.scratch;  // [K][n][n]: Jz, then Ja
-  float* sz = sjz + K * nn;      // [n][n]: z, then a
-  float* slz = sz + nn;          // [n][n]: Lz, Le, then La
-  float* se = slz + nn;          // [n][n]: exp(z - max)
-  float* sjs = se + nn;          // [K][n]: sum_j Je
-  float* srs = sjs + K * n;      // [n]: s
-  float* sls = srs + n;          // [n]: Ls
-  float* sjsq = sls + n;         // [n]: sum_k Js^2
+  // row groups of lpr lanes, lane jp takes columns jp and jp + hn
+  const int hn = (n + 1) / 2, lpr = lanes_per_row(n), rpw = 32 / lpr;
+  const int jp = lane % lpr, rsub = lane / lpr;
+  const bool ok0 = jp < hn, ok1 = jp + hn < n;
+  const int j0 = min(jp, hn - 1), j1 = min(jp + hn, n - 1);  // clamped: loads stay in range
+  // a row-pair matrix entry: m[i][j] in pm[j * hn + i % hn], .x for i < hn
+  const auto pget = [&](const float2* pm, int i, int j) {
+    const float2 v = pm[j * hn + (i < hn ? i : i - hn)];
+    return i < hn ? v.x : v.y;
+  };
+  const auto pset = [&](float2* pm, int i, int j, float v) {
+    float* f = reinterpret_cast<float*>(pm + j * hn + (i < hn ? i : i - hn));
+    f[i < hn ? 0 : 1] = v;
+  };
+  // pass A's lanes: groups of hn lanes, one a row pair (rows ip, ip + hn);
+  // lane jp of a group takes columns jp and jp + hn
+  const int ppw = 32 / hn, a_sub = lane / hn, a_jp = lane % hn;
+  const bool a_ok = a_sub < ppw, a_ok1 = a_jp + hn < n;
+  const int a_j1 = min(a_jp + hn, n - 1);
 
-  const long HD = (long)H * dh;
-  const long pbase = (long)b * n * HD + (long)h * dh;
-  for (int e = tid; e < n * dq; e += T) {
-    const int i = e / dq, c = e % dq;
-    const long g = pbase + i * HD;
-    const int o = i * ldt + 4 * c;
-    *reinterpret_cast<float4*>(sq + o) = __ldg(reinterpret_cast<const float4*>(q + g) + c);
-    *reinterpret_cast<float4*>(sk + o) = __ldg(reinterpret_cast<const float4*>(k + g) + c);
-    *reinterpret_cast<float4*>(sv + o) = __ldg(reinterpret_cast<const float4*>(v + g) + c);
-    *reinterpret_cast<float4*>(slq + o) = __ldg(reinterpret_cast<const float4*>(lq + g) + c);
-    *reinterpret_cast<float4*>(slk + o) = __ldg(reinterpret_cast<const float4*>(lk + g) + c);
-    *reinterpret_cast<float4*>(slv + o) = __ldg(reinterpret_cast<const float4*>(lv + g) + c);
+  // [n, dh] tile of rows HD apart from `src` into `dst`, 16-byte cp.async
+  // copies by the `threads` threads from `first` on
+  const auto copy_tile = [&](float* dst, const float* src, int first, int threads) {
+    for (int e = tid - first; e < n * dq; e += threads) {
+      const int r = e / dq, c = 4 * (e % dq);
+      cp_async16(dst + r * ldt + c, src + r * HD + c);
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(full + s, 32);  // the copying warp's lanes, as their copies land
+      mbar_init(empty + s, 1);  // thread 0, once the computing threads are done with it
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  // ---- pass 1: Jz_k[i, :] and sum_d Jq_k[i] Jk_k[:] per (direction, row)
-  for (int r = tid; r < K * n; r += T) {
-    const int kk = r / n, i = r % n;
-    const long jbase = ((long)b * K + kk) * n * HD + (long)h * dh;
-    const float4* jq_row = reinterpret_cast<const float4*>(jq + jbase + i * HD);
-    const float4* q_row = reinterpret_cast<const float4*>(sq + i * ldt);
-    float jz[NMAX], cr[NMAX];
-#pragma unroll
-    for (int j = 0; j < NMAX; ++j) jz[j] = cr[j] = 0.f;
-    for (int c = 0; c < dq; ++c) {
-      const float4 a = __ldg(jq_row + c);
-      const float4 qv = q_row[c];
-#pragma unroll
-      for (int j = 0; j < NMAX; ++j) {
-        if (j < n) {
-          const float4 kv = reinterpret_cast<const float4*>(sk + j * ldt)[c];
-          const float4 jkv = __ldg(reinterpret_cast<const float4*>(jk + jbase + j * HD) + c);
-          jz[j] += dot4(a, kv) + dot4(qv, jkv);
-          cr[j] += dot4(a, jkv);
-        }
+  if (tid >= T) {
+    // the copying warp: tiles 3 kk + {0, 1, 2} (Jq, Jk, Jv of direction kk)
+    // in order, into ring slot tile % slots once that slot is released
+    uint32_t phase = 0;  // bit s: the parity of slot s's next release
+    int slot = 0, kk = 0, which = 0;
+    for (int t = 0; t < 3 * K; ++t) {
+      if (t >= slots) {
+        mbar_wait(empty + slot, (phase >> slot) & 1u);
+        phase ^= 1u << slot;
+      }
+      const float* base = which == 0 ? pr.jq : which == 1 ? pr.jk : pr.jv;
+      copy_tile(ring + slot * L.tile, base + ((long)b * K + kk) * n * HD + (long)h * dh, T, 32);
+      cp_async_arrive(full + slot);
+      if (++slot == slots) slot = 0;
+      if (++which == 3) {
+        which = 0;
+        ++kk;
       }
     }
-#pragma unroll
-    for (int j = 0; j < NMAX; ++j) {
-      if (j < n) {
-        sjz[kk * nn + i * n + j] = jz[j] * scale;
-        scr[kk * nn + i * n + j] = cr[j];
+    cp_async_wait_all();
+    return;
+  }
+
+  copy_tile(sq, pr.q + pbase, 0, T);
+  copy_tile(sk, pr.k + pbase, 0, T);
+  copy_tile(sv, pr.v + pbase, 0, T);
+  for (int e = tid; e < L.tile; e += T) sav[e] = 0.f;
+  for (int e = tid; e < L.ring - L.at; e += T) sm[L.at + e] = 0.f;  // a, Ja, W, P, G
+  cp_async_wait_all();  // the primal tiles have landed
+  compute_sync(T);
+  uint32_t phase = 0;  // bit s: the parity of slot s's next fill
+  const auto wait_full = [&](int s) {
+    mbar_wait(full + s, (phase >> s) & 1u);
+    phase ^= 1u << s;
+  };
+
+  // a = softmax(q k^T / sqrt(dh)) over j, stored transposed
+  for (int i0 = warp * rpw; i0 < n; i0 += nwarps * rpw) {
+    const int i = min(i0 + rsub, n - 1);
+    const bool oki = i0 + rsub < n;
+    const float *qi = sq + i * ldt, *k0 = sk + j0 * ldt, *k1 = sk + j1 * ldt;
+    float z0 = 0.f, z1 = 0.f;
+    for (int c = 0; c < dh; c += 4) {
+      const float4 qv = ld4(qi + c);
+      z0 += dot4(qv, ld4(k0 + c));
+      z1 += dot4(qv, ld4(k1 + c));
+    }
+    z0 *= scale;
+    z1 *= scale;
+    const float mx = group_max(fmaxf(ok0 ? z0 : -INFINITY, ok1 ? z1 : -INFINITY), lpr);
+    const float e0 = ok0 ? expf(z0 - mx) : 0.f, e1 = ok1 ? expf(z1 - mx) : 0.f;
+    const float inv_s = 1.f / group_sum(e0 + e1, lpr);
+    if (oki && ok0) pset(sat, i, j0, e0 * inv_s);
+    if (oki && ok1) pset(sat, i, j1, e1 * inv_s);
+  }
+
+  int slot_q = 0, slot_prev = -1;  // ring slots of direction kk's Jq tile, of kk - 1's Jv
+  for (int kk = 0; kk < K; ++kk) {
+    const int slot_k = slot_q + 1 == slots ? 0 : slot_q + 1;
+    const int slot_v = slot_k + 1 == slots ? 0 : slot_k + 1;
+    wait_full(slot_q);  // Jq_k and Jk_k have landed
+    wait_full(slot_k);
+    compute_sync(T);  // every thread is done with direction kk - 1
+    if (tid == 0 && slot_prev >= 0) mbar_arrive(empty + slot_prev);
+    const float* sjq = ring + slot_q * L.tile;
+    const float* sjk = ring + slot_k * L.tile;
+
+    // pass A: Jz_k and Jq_k Jk_k^T on the lane's 2 x 2 tile, g_k of its two
+    // rows summed over the group's lanes, the sums' shares, Ja_k
+    for (int p0 = warp * ppw; p0 < hn; p0 += nwarps * ppw) {
+      const bool okp = a_ok && p0 + a_sub < hn;
+      const int i0 = min(p0 + a_sub, hn - 1), i1 = min(i0 + hn, n - 1);
+      const bool ok_i1 = okp && i0 + hn < n;
+      const float *q0 = sq + i0 * ldt, *q1 = sq + i1 * ldt;
+      const float *y0 = sjq + i0 * ldt, *y1 = sjq + i1 * ldt;
+      const float *k0 = sk + a_jp * ldt, *k1 = sk + a_j1 * ldt;
+      const float *x0 = sjk + a_jp * ldt, *x1 = sjk + a_j1 * ldt;
+      float z00 = 0.f, z01 = 0.f, z10 = 0.f, z11 = 0.f;
+      float c00 = 0.f, c01 = 0.f, c10 = 0.f, c11 = 0.f;
+#pragma unroll 1
+      for (int c = 0; c < dh; c += 4) {
+        const float4 qa = ld4(q0 + c), qb = ld4(q1 + c), ya = ld4(y0 + c), yb = ld4(y1 + c);
+        const float4 ka = ld4(k0 + c), kb = ld4(k1 + c), xa = ld4(x0 + c), xb = ld4(x1 + c);
+        z00 = fma4sum(ya, ka, fma4sum(qa, xa, z00));
+        z01 = fma4sum(ya, kb, fma4sum(qa, xb, z01));
+        z10 = fma4sum(yb, ka, fma4sum(qb, xa, z10));
+        z11 = fma4sum(yb, kb, fma4sum(qb, xb, z11));
+        c00 = fma4sum(ya, xa, c00);
+        c01 = fma4sum(ya, xb, c01);
+        c10 = fma4sum(yb, xa, c10);
+        c11 = fma4sum(yb, xb, c11);
+      }
+      z00 *= scale;
+      z01 *= scale;
+      z10 *= scale;
+      z11 *= scale;
+      const float2 aa = sat[a_jp * hn + i0], ab = a_ok1 ? sat[a_j1 * hn + i0] : make_float2(0.f, 0.f);
+      const float g0 = pair_sum(aa.x * z00 + ab.x * z01, a_sub * hn, hn);
+      const float g1 = pair_sum(aa.y * z10 + ab.y * z11, a_sub * hn, hn);
+      const auto put = [&](int i, int j, float a, float z, float x, float g) {
+        const int e = i * n + j;
+        sw[e] += 2.f * scale * x + z * z;
+        sp[e] += z * g;
+        pset(sjat, i, j, a * (z - g));
+      };
+      if (okp) {
+        put(i0, a_jp, aa.x, z00, c00, g0);
+        if (a_ok1) put(i0, a_j1, ab.x, z01, c01, g0);
+        if (a_jp == 0) sg[i0] += g0 * g0;
+      }
+      if (ok_i1) {
+        put(i1, a_jp, aa.y, z10, c10, g1);
+        if (a_ok1) put(i1, a_j1, ab.y, z11, c11, g1);
+        if (a_jp == 0) sg[i1] += g1 * g1;
+      }
+    }
+
+    wait_full(slot_v);  // Jv_k has landed
+    compute_sync(T);  // Ja_k is written, Jq_k and Jk_k are read
+    if (tid == 0) {
+      mbar_arrive(empty + slot_q);
+      mbar_arrive(empty + slot_k);
+    }
+    const float* sjv = ring + slot_v * L.tile;
+    slot_prev = slot_v;
+    slot_q = slot_v + 1 == slots ? 0 : slot_v + 1;
+
+    // pass B: Jt_k = Ja_k v + a Jv_k for rows i and i + hn; Sav += Ja_k Jv_k
+    float* jtk = pr.jt + ((long)b * K + kk) * n * HD + (long)h * dh;
+    for (int e = tid; e < hn * dq; e += T) {
+      const int i0 = e / dq, c = 4 * (e % dq);
+      const bool has1 = i0 + hn < n;
+      const int i1 = has1 ? i0 + hn : i0;
+      float4 t0v = make_float4(0.f, 0.f, 0.f, 0.f), t1v = t0v, s0 = t0v, s1 = t0v;
+      for (int j = 0; j < n; ++j) {
+        const float4 vj = ld4(sv + j * ldt + c), jvj = ld4(sjv + j * ldt + c);
+        const float2 ja = sjat[j * hn + i0], a = sat[j * hn + i0];
+        fma4(t0v, ja.x, vj);
+        fma4(t0v, a.x, jvj);
+        fma4(s0, ja.x, jvj);
+        fma4(t1v, ja.y, vj);
+        fma4(t1v, a.y, jvj);
+        fma4(s1, ja.y, jvj);
+      }
+      st4(jtk + i0 * HD + c, t0v);
+      st4(sav + i0 * ldt + c, add4(ld4(sav + i0 * ldt + c), s0));
+      if (has1) {
+        st4(jtk + i1 * HD + c, t1v);
+        st4(sav + i1 * ldt + c, add4(ld4(sav + i1 * ldt + c), s1));
       }
     }
   }
-  __syncthreads();
 
-  // z and Lz = (Lq k^T + q Lk^T + 2 sum_k Jq_k Jk_k^T) / sqrt(dh)
-  for (int r = tid; r < nn; r += T) {
-    const int i = r / n, j = r % n;
-    float cross = 0.f;
-    for (int kk = 0; kk < K; ++kk) cross += scr[kk * nn + r];
-    const float4* qi = reinterpret_cast<const float4*>(sq + i * ldt);
-    const float4* kj = reinterpret_cast<const float4*>(sk + j * ldt);
-    const float4* lqi = reinterpret_cast<const float4*>(slq + i * ldt);
-    const float4* lkj = reinterpret_cast<const float4*>(slk + j * ldt);
-    float z = 0.f, lz = 0.f;
-    for (int c = 0; c < dq; ++c) {
-      z += dot4(qi[c], kj[c]);
-      lz += dot4(lqi[c], kj[c]) + dot4(qi[c], lkj[c]);
+  // ---- the Laplacian: Lq, Lk, Lv into the ring's first three slots (every
+  // tile of the stream has landed and been read)
+  compute_sync(T);
+  float *slq = ring, *slk = ring + L.tile, *slv = ring + 2 * L.tile;
+  copy_tile(slq, pr.lq + pbase, 0, T);
+  copy_tile(slk, pr.lk + pbase, 0, T);
+  copy_tile(slv, pr.lv + pbase, 0, T);
+  cp_async_wait_all();
+  compute_sync(T);
+  for (int i0 = warp * rpw; i0 < n; i0 += nwarps * rpw) {  // La = a (w - m - 2 P + 2 G)
+    const int i = min(i0 + rsub, n - 1);
+    const bool oki = i0 + rsub < n;
+    const float *qi = sq + i * ldt, *lqi = slq + i * ldt;
+    const float *k0 = sk + j0 * ldt, *k1 = sk + j1 * ldt;
+    const float *lk0 = slk + j0 * ldt, *lk1 = slk + j1 * ldt;
+    float z0 = 0.f, z1 = 0.f;
+    for (int c = 0; c < dh; c += 4) {
+      const float4 lqv = ld4(lqi + c), qv = ld4(qi + c);
+      z0 += dot4(lqv, ld4(k0 + c)) + dot4(qv, ld4(lk0 + c));
+      z1 += dot4(lqv, ld4(k1 + c)) + dot4(qv, ld4(lk1 + c));
     }
-    sz[r] = z * scale;
-    slz[r] = (lz + 2.f * cross) * scale;
+    const float w0 = z0 * scale + sw[i * n + j0], w1 = z1 * scale + sw[i * n + j1];
+    const float a0 = ok0 ? pget(sat, i, j0) : 0.f, a1 = ok1 ? pget(sat, i, j1) : 0.f;
+    const float m = group_sum(a0 * w0 + a1 * w1, lpr);
+    const float g2 = 2.f * sg[i];
+    if (oki && ok0) pset(sjat, i, j0, a0 * (w0 - m - 2.f * sp[i * n + j0] + g2));
+    if (oki && ok1) pset(sjat, i, j1, a1 * (w1 - m - 2.f * sp[i * n + j1] + g2));
   }
-  __syncthreads();
-
-  // ---- softmax over j with its Jacobian and Laplacian (fl_attention._softmax_fl)
-  for (int i = tid; i < n; i += T) {
-    float m = sz[i * n];
-    for (int j = 1; j < n; ++j) m = fmaxf(m, sz[i * n + j]);
-    float sum = 0.f;
+  compute_sync(T);
+  for (int e = tid; e < hn * dq; e += T) {  // t = a v, Lt = La v + a Lv + 2 Sav
+    const int i0 = e / dq, c = 4 * (e % dq);
+    const bool has1 = i0 + hn < n;
+    const int i1 = has1 ? i0 + hn : i0;
+    float4 t0v = make_float4(0.f, 0.f, 0.f, 0.f), t1v = t0v;
+    float4 l0 = add4(ld4(sav + i0 * ldt + c), ld4(sav + i0 * ldt + c));
+    float4 l1 = add4(ld4(sav + i1 * ldt + c), ld4(sav + i1 * ldt + c));
     for (int j = 0; j < n; ++j) {
-      const float ez = expf(sz[i * n + j] - m);
-      se[i * n + j] = ez;
-      sum += ez;
+      const float4 vj = ld4(sv + j * ldt + c), lvj = ld4(slv + j * ldt + c);
+      const float2 a = sat[j * hn + i0], la = sjat[j * hn + i0];
+      fma4(t0v, a.x, vj);
+      fma4(l0, la.x, vj);
+      fma4(l0, a.x, lvj);
+      fma4(t1v, a.y, vj);
+      fma4(l1, la.y, vj);
+      fma4(l1, a.y, lvj);
     }
-    srs[i] = sum;
-  }
-  __syncthreads();
-  for (int r = tid; r < K * n; r += T) {  // Js[k][i] = sum_j e_ij Jz_kij
-    const int kk = r / n, i = r % n;
-    float acc = 0.f;
-    for (int j = 0; j < n; ++j) acc += se[i * n + j] * sjz[kk * nn + i * n + j];
-    sjs[r] = acc;
-  }
-  for (int r = tid; r < nn; r += T) {  // Le = e (Lz + sum_k Jz_k^2)
-    float acc = 0.f;
-    for (int kk = 0; kk < K; ++kk) {
-      const float jzv = sjz[kk * nn + r];
-      acc += jzv * jzv;
+    st4(pr.t + pbase + i0 * HD + c, t0v);
+    st4(pr.lt + pbase + i0 * HD + c, l0);
+    if (has1) {
+      st4(pr.t + pbase + i1 * HD + c, t1v);
+      st4(pr.lt + pbase + i1 * HD + c, l1);
     }
-    slz[r] = se[r] * (slz[r] + acc);
   }
-  __syncthreads();
-  for (int i = tid; i < n; i += T) {
-    float ls = 0.f, jsq = 0.f;
-    for (int j = 0; j < n; ++j) ls += slz[i * n + j];
-    for (int kk = 0; kk < K; ++kk) jsq += sjs[kk * n + i] * sjs[kk * n + i];
-    sls[i] = ls;
-    sjsq[i] = jsq;
-  }
-  __syncthreads();
-  for (int r = tid; r < nn; r += T) {
-    const int i = r / n;
-    const float inv = 1.f / srs[i];
-    const float ev = se[r];
-    const float a = ev * inv;
-    float cross = 0.f;  // sum_k Je_k Js_k
-    for (int kk = 0; kk < K; ++kk) {
-      const float jsv = sjs[kk * n + i];
-      const float je = ev * sjz[kk * nn + r];
-      cross += je * jsv;
-      sjz[kk * nn + r] = (je - a * jsv) * inv;  // Ja
-    }
-    slz[r] = (slz[r] - a * sls[i]) * inv - 2.f * inv * inv * cross +
-             2.f * a * inv * inv * sjsq[i];  // La
-    sz[r] = a;
-  }
-  __syncthreads();
-
-  // ---- pass 2: Jt_k = Ja_k v + a Jv_k, cross_t = sum_k Ja_k Jv_k
-  const int nI = (n + 1) / 2, nD = dh / 2;
-  const int items = 2 * nI * nD;
-  for (int base = 0; base < items; base += T) {
-    // neighbouring threads take the two parities of one (row pair, column
-    // pair), so both always fall in the same round of the loop
-    const int it = base + tid;
-    const bool active = it < items;
-    const int par = it % 2, dp = (it / 2) % nD, ip = it / (2 * nD);
-    const int i0 = 2 * ip, i1 = 2 * ip + 1, d = 2 * dp;
-    const bool has1 = i1 < n;
-    float2 cr0 = make_float2(0.f, 0.f), cr1 = make_float2(0.f, 0.f);
-    for (int k0 = 0; k0 < K; k0 += kc) {
-      const int kn = min(kc, K - k0);
-      for (int e = tid; e < kn * n * dq; e += T) {
-        const int kk = e / (n * dq), r = e % (n * dq);
-        const int j = r / dq, c = r % dq;
-        const long g = (((long)b * K + k0 + kk) * n + j) * HD + (long)h * dh;
-        reinterpret_cast<float4*>(scr)[e] = __ldg(reinterpret_cast<const float4*>(jv + g) + c);
-      }
-      __syncthreads();
-      if (active) {
-        for (int kk = par; kk < kn; kk += 2) {
-          const float* ja = sjz + (k0 + kk) * nn;
-          float2 t0 = make_float2(0.f, 0.f), t1 = make_float2(0.f, 0.f);
-          for (int j = 0; j < n; ++j) {
-            const float2 vv = *reinterpret_cast<const float2*>(sv + j * ldt + d);
-            const float2 jvv = *reinterpret_cast<const float2*>(scr + (kk * n + j) * dh + d);
-            const float ja0 = ja[i0 * n + j], a0 = sz[i0 * n + j];
-            t0.x += ja0 * vv.x + a0 * jvv.x;
-            t0.y += ja0 * vv.y + a0 * jvv.y;
-            cr0.x += ja0 * jvv.x;
-            cr0.y += ja0 * jvv.y;
-            if (has1) {
-              const float ja1 = ja[i1 * n + j], a1 = sz[i1 * n + j];
-              t1.x += ja1 * vv.x + a1 * jvv.x;
-              t1.y += ja1 * vv.y + a1 * jvv.y;
-              cr1.x += ja1 * jvv.x;
-              cr1.y += ja1 * jvv.y;
-            }
-          }
-          const long g = ((long)b * K + k0 + kk) * n * HD + (long)h * dh + d;
-          *reinterpret_cast<float2*>(jt + g + i0 * HD) = t0;
-          if (has1) *reinterpret_cast<float2*>(jt + g + i1 * HD) = t1;
-        }
-      }
-      __syncthreads();
-    }
-    // the two direction parities' cross terms meet in shared memory
-    if (active) {
-      *reinterpret_cast<float2*>(scr + (par * n + i0) * dh + d) = cr0;
-      if (has1) *reinterpret_cast<float2*>(scr + (par * n + i1) * dh + d) = cr1;
-    }
-    __syncthreads();
-    if (active && par == 0) {
-      for (int s = 0; s < (has1 ? 2 : 1); ++s) {
-        const int i = i0 + s;
-        float2 tv = make_float2(0.f, 0.f), lv2 = make_float2(0.f, 0.f);
-        for (int j = 0; j < n; ++j) {
-          const float a = sz[i * n + j], la = slz[i * n + j];
-          const float2 vv = *reinterpret_cast<const float2*>(sv + j * ldt + d);
-          const float2 lvv = *reinterpret_cast<const float2*>(slv + j * ldt + d);
-          tv.x += a * vv.x;
-          tv.y += a * vv.y;
-          lv2.x += la * vv.x + a * lvv.x;
-          lv2.y += la * vv.y + a * lvv.y;
-        }
-        const float2 c0 = *reinterpret_cast<const float2*>(scr + i * dh + d);
-        const float2 c1 = *reinterpret_cast<const float2*>(scr + (n + i) * dh + d);
-        lv2.x += 2.f * (c0.x + c1.x);
-        lv2.y += 2.f * (c0.y + c1.y);
-        const long g = pbase + i * HD + d;
-        *reinterpret_cast<float2*>(t + g) = tv;
-        *reinterpret_cast<float2*>(lt + g) = lv2;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <int NMAX>
-int launch(const float* q, const float* k, const float* v, const float* jq,
-           const float* jk, const float* jv, const float* lq, const float* lk,
-           const float* lv, float* t, float* jt, float* lt, int B, int K, int n,
-           int H, int dh, int kc, cudaStream_t stream) {
-  const long smem = smem_floats(K, n, dh, kc) * (long)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fl_attention_kernel<NMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fl_attention_kernel<NMAX><<<B * H, kThreads, smem, stream>>>(
-      q, k, v, jq, jk, jv, lq, lk, lv, t, jt, lt, K, n, H, dh, kc);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes of one block; the wrapper picks kc from it.
-long fl_attention_smem_bytes(int K, int n, int dh, int kc) {
-  return smem_floats(K, n, dh, kc) * (long)sizeof(float);
+// Shared-memory bytes of one block with a ring of `slots` [n, dh] tiles; the
+// wrapper picks `slots` from it.  K does not enter: nothing resident grows with it.
+long fl_attention_smem_bytes(int n, int dh, int slots) {
+  return (long)layout(n, dh, slots).total * (long)sizeof(float);
+}
+
+// The kernel for n, dh: the small-block instance where the block fits it.
+using Kernel = void (*)(Params);
+static Kernel kernel_for(int n, int dh) {
+  return threads_for(n, dh) + 32 <= kSmallBlock ? fl_attention_kernel<kSmallBlock, kSmallBlocks>
+                                                : fl_attention_kernel<kMaxThreads + 32, 1>;
 }
 
 int fl_attention_launch(const float* q, const float* k, const float* v,
                         const float* jq, const float* jk, const float* jv,
                         const float* lq, const float* lk, const float* lv,
                         float* t, float* jt, float* lt, int B, int K, int n,
-                        int H, int dh, int kc, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (dh % 4 != 0 || n < 1) return (int)cudaErrorInvalidValue;
-  if (n <= 4) return launch<4>(q, k, v, jq, jk, jv, lq, lk, lv, t, jt, lt, B, K, n, H, dh, kc, s);
-  if (n <= 8) return launch<8>(q, k, v, jq, jk, jv, lq, lk, lv, t, jt, lt, B, K, n, H, dh, kc, s);
-  if (n <= 12) return launch<12>(q, k, v, jq, jk, jv, lq, lk, lv, t, jt, lt, B, K, n, H, dh, kc, s);
-  if (n <= 16) return launch<16>(q, k, v, jq, jk, jv, lq, lk, lv, t, jt, lt, B, K, n, H, dh, kc, s);
-  if (n <= 32) return launch<32>(q, k, v, jq, jk, jv, lq, lk, lv, t, jt, lt, B, K, n, H, dh, kc, s);
-  return (int)cudaErrorInvalidValue;
+                        int H, int dh, int slots, void* stream) {
+  if (dh % 4 != 0 || dh < 4 || n < 1 || n > kMaxN || K < 1 || slots < 3 || slots > 32)
+    return (int)cudaErrorInvalidValue;
+  const long smem = fl_attention_smem_bytes(n, dh, slots);
+  const Kernel kernel = kernel_for(n, dh);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const Params pr{q, k, v, jq, jk, jv, lq, lk, lv, t, jt, lt, K, n, H, dh, slots};
+  kernel<<<B * H, threads_for(n, dh) + 32, smem, (cudaStream_t)stream>>>(pr);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

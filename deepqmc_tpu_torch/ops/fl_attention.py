@@ -9,6 +9,8 @@ Shapes: primals and Laplacians ``[B, n, H, dh]``; Jacobians ``[B, K, n, H, dh]``
 (batch-major), with K the number of Laplacian directions.
 """
 
+import functools
+
 import torch
 
 from . import _cuda
@@ -59,30 +61,37 @@ def mha_core_fl_plain(q, k, v, Jq, Jk, Jv, Lq, Lk, Lv):
     return t, Jt, Lt
 
 
-def _pick_kc(K: int, n: int, dh: int) -> int:
-    """Directions per shared-memory window: the most that fit, at most 8."""
+MAX_N = 64  # tokens the kernel takes (pass A's row group of at most 32 lanes)
+MAX_SLOTS = 5  # [n, dh] tiles in the kernel's copy ring; more cost blocks an SM (PERF.md)
+MIN_SLOTS = 3  # one direction's Jq, Jk and Jv
+
+
+@functools.lru_cache(maxsize=None)
+def _pick_slots(n: int, dh: int, device: int) -> int:
+    """Tiles in the kernel's copy ring on ``device``: the most that fit, at most
+    MAX_SLOTS."""
     lib, limit = _cuda.library(), _cuda.smem_limit()
-    for kc in range(min(K, 8), 0, -1):
-        if lib.fl_attention_smem_bytes(K, n, dh, kc) <= limit:
-            return kc
+    for slots in range(MAX_SLOTS, MIN_SLOTS - 1, -1):
+        if lib.fl_attention_smem_bytes(n, dh, slots) <= limit:
+            return slots
     raise ValueError(
-        f'fl_attention: K={K}, n={n}, dh={dh} exceed the {limit} B of shared memory '
-        'a block can use (the [K, n, n] softmax Jacobian and the [n, dh] tiles '
+        f'fl_attention: n={n}, dh={dh} exceed the {limit} B of shared memory a block '
+        f'can use (the [n, dh] tiles, the [n, n] sums and a ring of {MIN_SLOTS} tiles '
         'must fit)'
     )
 
 
-MAX_N = 32  # tokens the kernel takes (a register row of the logits Jacobian)
-
-
 def validate(q, k, v, Jq, Jk, Jv, Lq, Lk, Lv):
     """Raise unless the operands are what the kernel takes: float32 on one
-    device, contiguous, primals [B, n, H, dh] and Jacobians [B, K, n, H, dh],
-    n <= 32 and dh a multiple of 4."""
+    device, contiguous and 16-byte aligned, primals [B, n, H, dh] and
+    Jacobians [B, K, n, H, dh], n <= 64 and dh a multiple of 4."""
     B, n, H, dh = q.shape
     K = Jq.shape[1]
     if n > MAX_N or dh % 4:
-        raise ValueError(f'fl_attention: needs n <= {MAX_N} and dh % 4 == 0, got n={n}, dh={dh}')
+        raise ValueError(
+            f'fl_attention: needs n <= {MAX_N} (a row of the softmax in one warp, two '
+            f'columns a lane) and dh % 4 == 0 (16-byte copies), got n={n}, dh={dh}'
+        )
     for name, x, shape in (
         *((nm, x, (B, n, H, dh)) for nm, x in zip(('q', 'k', 'v', 'Lq', 'Lk', 'Lv'),
                                                  (q, k, v, Lq, Lk, Lv))),
@@ -94,20 +103,22 @@ def validate(q, k, v, Jq, Jk, Jv, Lq, Lk, Lv):
             raise ValueError(f'fl_attention: {name} has shape {tuple(x.shape)}, want {shape}')
         if not x.is_contiguous():
             raise ValueError(f'fl_attention: {name} must be contiguous')
+        if x.data_ptr() % 16:
+            raise ValueError(f'fl_attention: {name} must be 16-byte aligned')
 
 
 def _launch(q, k, v, Jq, Jk, Jv, Lq, Lk, Lv):
     validate(q, k, v, Jq, Jk, Jv, Lq, Lk, Lv)
     B, n, H, dh = q.shape
     K = Jq.shape[1]
-    kc = _pick_kc(K, n, dh)
     t, Lt = torch.empty_like(q), torch.empty_like(q)
     Jt = torch.empty_like(Jq)
     lib = _cuda.library()
     with torch.cuda.device(q.device):
+        slots = _pick_slots(n, dh, torch.cuda.current_device())
         code = lib.fl_attention_launch(
             *(x.data_ptr() for x in (q, k, v, Jq, Jk, Jv, Lq, Lk, Lv, t, Jt, Lt)),
-            B, K, n, H, dh, kc, _cuda.stream(),
+            B, K, n, H, dh, slots, _cuda.stream(),
         )
     _cuda.check(code, 'fl_attention')
     mha_core_fl.launches += 1

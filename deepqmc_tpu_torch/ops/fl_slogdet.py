@@ -25,6 +25,8 @@ The square kernels return the Laplacian with its linear term tr(A_d^-1 L_d),
 as the TPU kernels do; the flat one returns sum_k tr(m_k^2) only.
 """
 
+import functools
+
 import torch
 
 from . import _cuda
@@ -135,14 +137,59 @@ def _launch(counter, entry, smem_entry, inv, operands, K, sizes):
     return jout, out
 
 
+FLAT_MAX_THREADS = 256  # a flat-kernel block: at most one thread per (determinant, row)
+# Directions in the flat kernel's copy ring: two on their way while one is in
+# use.  More stages cost blocks per SM, which the kernel needs more (PERF.md).
+FLAT_STAGES = 3
+
+
+def flat_plan(B, D, n, sms, limit, smem_bytes):
+    """G, the determinants a block of the flat kernel takes.
+
+    The largest divisor of D with G n <= FLAT_MAX_THREADS that gives each of
+    the ``sms`` SMs two blocks of the grid and fits two blocks in an SM's
+    ``limit`` bytes by ``smem_bytes(n, G, FLAT_STAGES)``: the kernel waits on
+    its loads and needs blocks in flight more than determinants a block.
+    Else 1, if one block of it fits; raises if not.  (Above 48 electrons the
+    kernel runs another body, which takes no plan: ``csrc/fl_slogdet.cu``.)
+    """
+    groups = [g for g in range(D, 0, -1) if D % g == 0 and g * n <= FLAT_MAX_THREADS]
+    fits = [g for g in groups
+            if B * (D // g) >= 2 * sms and 2 * smem_bytes(n, g, FLAT_STAGES) <= limit]
+    for G in fits + groups[-1:]:
+        if smem_bytes(n, G, FLAT_STAGES) <= limit:
+            return G
+    raise ValueError(
+        f'fl_slogdet: n={n} exceeds the {limit} B of shared memory a block can use'
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _flat_plan_on(B, D, n, device):
+    props = torch.cuda.get_device_properties(device)
+    return flat_plan(B, D, n, props.multi_processor_count, _cuda.smem_limit(),
+                     _cuda.library().fl_slogdet_traces_smem_bytes)
+
+
 def slogdet_traces(inv, ju, jd):
     """tr(A_d^-1 J_{k,d}) and sum_k tr((A_d^-1 J_{k,d})^2) on flat row blocks
     (TPU kernel ``_pallas_blocked_flat_split``): kernel on the card, else plain."""
     if not inv.is_cuda:
         return slogdet_traces_plain(inv, ju, jd)
     validate(inv, ju, jd)
-    return _launch(slogdet_traces, 'fl_slogdet_traces_launch', 'fl_slogdet_smem_bytes',
-                   inv, (ju, jd), ju.shape[1], (ju.shape[2], jd.shape[2]))
+    B, D, n, _ = inv.shape
+    K, nu, nd = ju.shape[1], ju.shape[2], jd.shape[2]
+    jout = torch.empty((B, K, D), dtype=inv.dtype, device=inv.device)
+    trq = torch.empty((B, D), dtype=inv.dtype, device=inv.device)
+    with torch.cuda.device(inv.device):
+        G = _flat_plan_on(B, D, n, torch.cuda.current_device())
+        code = _cuda.library().fl_slogdet_traces_launch(
+            *(x.data_ptr() for x in (inv, ju, jd, jout, trq)), B, D, K, nu, nd, G,
+            FLAT_STAGES, _cuda.stream(),
+        )
+    _cuda.check(code, 'fl_slogdet_traces_launch')
+    slogdet_traces.launches += 1
+    return jout, trq
 
 
 def square_traces(inv, ja, la):

@@ -93,3 +93,29 @@ def test_kernel_input_checks_reject(fault):
         inv = inv.transpose(-1, -2)
     with pytest.raises((TypeError, ValueError)):
         fl_slogdet.validate(inv, ju, jd)
+
+
+def _flat_smem_bytes(n, G, S):
+    """Bytes of the flat kernel's shared-memory plan (``flat_layout`` of
+    ``csrc/fl_slogdet.cu``): S stages of n rows by G n columns (rounded up to
+    4), A^-1 transposed (above 16 electrons), the rows of m with one column of
+    padding, and an 8-byte mbarrier a stage."""
+    gn = G * n
+    floats = S * n * ((gn + 3) // 4 * 4) + (n * gn if n > 16 else 0) + gn * (n + 1)
+    return 4 * ((floats + 1) // 2 * 2 + 2 * S)
+
+
+@pytest.mark.parametrize('case, B, D, n, want', [
+    ('H2O, all determinants a block', 2048, 16, 10, 16),
+    ('benzene, 2 of 42 rows a block', 256, 16, 42, 2),
+    ('n = 48, one a block to fill the card', 64, 4, 48, 1),
+    ('few walkers, one a block', 5, 3, 7, 1),
+])
+def test_flat_plan_groups(case, B, D, n, want):
+    """Determinants a block of the flat kernel on an H100 (132 SMs, 227 KB a block)."""
+    assert fl_slogdet.flat_plan(B, D, n, 132, 232448, _flat_smem_bytes) == want
+
+
+def test_flat_plan_raises_when_nothing_fits():
+    with pytest.raises(ValueError, match='shared memory'):
+        fl_slogdet.flat_plan(64, 4, 48, 132, 30_000, _flat_smem_bytes)
