@@ -15,10 +15,12 @@ Phases, each with a start and an end line and its own time budget:
    tolerances; the kernel's and the plain version's times (median of 20 runs,
    CUDA events, after a warm-up); then at other shapes, among them the three
    slogdet kernels at n = 5 (rows split 3/2), n = 2 with no down rows, n = 42
-   and n = 64, and the attention kernel at n = 1, 2, 7, 16 and 33, and at
+   and n = 64, each with the body it took (staged or tiled) on a line, and the
+   attention kernel at n = 1, 2, 7, 16 and 33, and at
    n = 42 (K = 126, B = 64) and n = 64 (K = 192, B = 32), timed beside their
-   bound; two launches of the attention, flat slogdet and block kernels on
-   the same inputs at B = 256 must be bitwise equal, and the block kernel's
+   bound; two launches of every kernel on the same inputs at B = 256 (and of
+   the slogdet kernels at each of their other shapes) must be bitwise
+   equal, and the block kernel's
    split-TF32 tensor-core floor and the weight bytes its staging plan reads
    from L2 (both computed, not measured, so not in the kernels record) are
    printed beside its float32 bound;
@@ -36,7 +38,11 @@ Phases, each with a start and an end line and its own time budget:
    launches of it, none of the attention kernel and one of the flat slogdet
    kernel per local energy; its
    local energy on 64 walkers against the float64 plain path (CPU) and
-   against the per-op path on the card;
+   against the per-op path on the card.  Then one layer with
+   ``block_kernel=True`` at n = 42 (B = 64, K = 126), past the block kernel's
+   32 electrons: it must take the per-op rules (one attention launch, no block
+   launch) and agree with the per-op layer, and the block kernel's wrapper
+   called directly at n = 42 must raise;
 6. square path: the main path's model and its last 2048 walkers; the Slater
    matrices' forward-Laplacian triple (``_spin_orbitals``) goes through four
    dispatches of the log-determinant: flat row blocks and flat whole
@@ -98,7 +104,8 @@ ELOC_FACTOR, ELOC_FLOOR = 10.0, 1e-4
 BLOCK_VS_PER_OP_FACTOR = 2.0
 # Kernels whose sums have one owner each and a fixed order: two launches on the
 # same inputs must give the same bits.
-DETERMINISTIC = ('fl_attention', 'fl_slogdet_traces', 'fl_block')
+DETERMINISTIC = ('fl_attention', 'fl_slogdet_traces', 'fl_slogdet_square',
+                 'fl_slogdet_square_split', 'fl_block')
 
 
 _T0 = time.monotonic()
@@ -200,14 +207,21 @@ def square_bound_ms(B):
     return slogdet_bound_ms(B, with_l=True)
 
 
-def block_layer(d=256, H=4, seed=0):
+def block_layer(d=256, H=4, seed=0, block_kernel=False):
     """One PsiFormer layer on the card with the preset's initialisation."""
     import torch
 
     from deepqmc_tpu_torch.gnn.update_features import NodeAttentionElectronUpdateFeature
 
     gen = torch.Generator().manual_seed(seed)
-    return NodeAttentionElectronUpdateFeature(d, num_heads=H, gen=gen).cuda()
+    return NodeAttentionElectronUpdateFeature(d, num_heads=H, gen=gen,
+                                              block_kernel=block_kernel).cuda()
+
+
+def body_of(kernel):
+    """Which body of ``csrc/fl_slogdet.cu`` the last launch of a slogdet kernel took."""
+    p = kernel.last_plan
+    return f'{("staged", "tiled")[p.body]} body, G={p.G}, S={p.S}'
 
 
 def block_inputs(gen, B, K=30, n=10, d=256, H=4):
@@ -337,6 +351,8 @@ def main() -> int:
                 got = kernel(*args)
                 torch.cuda.synchronize()
                 ref = plain(*args)
+                if name.startswith('fl_slogdet'):
+                    print(f'{name} B={B}: {body_of(kernel)}', flush=True)
                 for label, o, r in zip(outs, got, ref):
                     err, rel = max_errors(o, r)
                     ok = rel <= KERNEL_RTOL and math.isfinite(err)
@@ -404,11 +420,16 @@ def main() -> int:
         for B, kw in slogdet_shapes:
             for name, kernel, plain, make in slogdet_kernels:
                 args = make(gen, B, **kw)
-                for o, r in zip(kernel(*args), plain(*args)):
+                got = kernel(*args)
+                print(f'{name} B={B} {kw}: {body_of(kernel)}', flush=True)
+                for o, r in zip(got, plain(*args)):
                     err, rel = max_errors(o, r)
                     print(f'{name} B={B} {kw}: max abs err {err:.3e}, rel {rel:.3e}', flush=True)
                     if not rel <= KERNEL_RTOL:
                         raise SystemExit(f'{name} disagrees with its plain version at B={B} {kw}')
+                if not all(torch.equal(a, o) for a, o in zip(kernel(*args), got)):
+                    raise SystemExit(f'{name} is not deterministic at B={B} {kw}')
+                del got
                 if B > 5:
                     ms = cuda_median_ms(lambda: kernel(*args), runs=5, warmup=1)
                     bound_ms, nbytes, flops = slogdet_bound_ms(
@@ -589,6 +610,39 @@ def main() -> int:
               flush=True)
         if not diff <= BLOCK_VS_PER_OP_FACTOR * tol:
             raise SystemExit('block-path local energy disagrees with the per-op path')
+
+        # above 32 electrons the block path runs the layer's per-op rules
+        # (fl_block.takes): one attention launch, no block launch
+        h = fwdlap.FL(*block_inputs(gen, 64, K=126, n=42)[:3])
+        fused, per_op = block_layer(block_kernel=True), block_layer()
+        with torch.inference_mode():
+            zero_counts()
+            y = fused(h)
+            torch.cuda.synchronize()
+            launches = counts()
+            want = dict.fromkeys(counters, 0) | {'fl_attention': 1}
+            print(f'block layer (block_kernel=True) at n = 42, B = 64, K = 126: launches '
+                  f'{launches}', flush=True)
+            if launches != want:
+                raise SystemExit(f'the block layer at n = 42 launched {launches}, want {want}')
+            y_ref = per_op(h)
+            for label, o, r in zip(('y', 'J_y', 'L_y'), (y.x, y.jac, y.lap),
+                                   (y_ref.x, y_ref.jac, y_ref.lap)):
+                err, rel = max_errors(o, r)
+                ok = rel <= BLOCK_VS_PER_OP_FACTOR * KERNEL_RTOL
+                print(f'block layer at n = 42 against the per-op layer, {label}: max abs err '
+                      f'{err:.3e}, rel {rel:.3e} (tol {BLOCK_VS_PER_OP_FACTOR * KERNEL_RTOL:.0e}) '
+                      f'{"ok" if ok else "FAIL"}', flush=True)
+                if not ok:
+                    raise SystemExit(f'the block layer at n = 42 disagrees on {label}')
+            try:
+                psiformer_block_fl(h.x, h.jac, h.lap, *fused.block_weights(), 4)
+            except ValueError as e:
+                print(f'psiformer_block_fl at n = 42 on the card raises: {e}', flush=True)
+            else:
+                raise SystemExit('psiformer_block_fl took n = 42 on the card')
+        del h, y, y_ref, fused, per_op
+        torch.cuda.empty_cache()
 
     with Phase('square_path'):
         D = wf.n_det

@@ -32,200 +32,150 @@
 // n flops per byte; at n = 42 and 64 the 2 n^3 flops per (walker, direction,
 // determinant) bound them.
 //
-// Kernel 2 (`fl_slogdet_flat_kernel`).  In the flat layout direction k's rows
-// of walker b are two contiguous runs, nu D n floats in ju and nd D n in jd.
-// One block takes a walker and a group of G determinants (all D at n = 10;
-// fewer at large n, so that the block stays at most 256 threads and the grid
-// fills the card).  A ring of 3 stages (the wrapper's FLAT_STAGES), each one
-// direction's rows restricted to the group's G n columns, is filled two
-// directions ahead by TMA copies (`cp.async.bulk`) completing on the stage's
-// mbarrier: one copy each for the up and the down run when the group holds
-// every determinant, else one a row; 4-byte `cp.async` copies where the rows
-// are not 16-byte aligned.  A determinant's rows of m = A_d^-1 J_{k,d} are
-// formed by L lanes of one warp, R rows a lane (rows l, l + L, ...; L = 4,
-// R = 3 at n = 10) in registers, so a staged row J[r][:] loaded once serves R
-// rows of m; up to n = 16 a lane also keeps its rows of A^-1 in registers
-// (beyond, A^-1 sits transposed in shared memory), and n = 10 has its own
-// instance with no padded columns.  The rows of m meet in the warp's part of
-// shared memory (a warp barrier, not a block one); each lane forms m[i][i]
-// and sum_c m[i][c] m[c][i] of its rows, the L lanes sum them by shuffles,
-// and the determinant's first lane writes tr(m_k) and adds tr(m_k^2) to its
-// sum over k.  One block barrier a direction (the stage has landed; the
-// stage before it is free for the next copy).  No atomics: two launches give
-// bitwise-equal results.  On the card what holds it is latency with few
-// blocks per SM, so the plan keeps shared memory small; above n = 48
-// (kFlatMaxN) the launch takes the body of kernels 3 and 4 instead.
+// Two bodies serve the three layouts.  Every layout is contiguous per (walker,
+// direction): the flat one is two runs (nu D n and nd D n floats), the square
+// one one run of D n^2, the square split one two runs (D nu n and D nd n).  The
+// layout record `RowBlocks`, made by the wrapper (`row_blocks` in
+// ops/fl_slogdet.py), says which copies fill a stage of a ring with direction
+// k's rows of a block's G determinants (one TMA copy a run where the block
+// holds whole runs, else one a row; 8- or 4-byte `cp.async` copies where a run
+// or row is not 16-byte aligned, except that a square layout's run goes by TMA
+// at its shift, when that is the same for every direction), and where
+// determinant g's row r lies in the stage.  The kernels derive the stage's
+// strides from their layout at compile time (`stage_rows`) and each launch
+// checks the record against them.  Each launch picks its body by n
+// (`fl_slogdet_body`).
 //
-// Kernels 3 and 4 (`fl_slogdet_kernel`): one block per (walker, determinant)
-// with A_d^-1 in shared memory.  One thread per (direction k, row i) forms row
-// i of m_k in registers, reading the rows of J_{k,d} from global memory (the n
-// threads of one direction read the same rows, so the loads broadcast); the
-// rows of m meet in shared memory for tr(m_k) and tr(m_k^2).  m never reaches
-// HBM.  At n = 64 a round takes 5 directions and the 64-float row may spill to
-// local memory.
+// Staged body (`fl_slogdet_staged_kernel`, small n).  One block takes a walker
+// and a group of G determinants (all D at n = 10; fewer at larger n, so that
+// the block stays at most 256 threads and the grid fills the card).  A ring of
+// S = 3 stages (the wrapper's FLAT_STAGES), each one direction's rows of the
+// group, is filled two directions ahead, completing on the stage's mbarrier.  A
+// determinant's rows of m = A_d^-1 J_{k,d} are formed by L lanes of one warp,
+// R rows a lane (rows l, l + L, ...; L = 4, R = 3 at n = 10) in registers, so a
+// staged row J[r][:] loaded once serves R rows of m; up to n = 16 a lane also
+// keeps its rows of A^-1 in registers (beyond, A^-1 sits transposed in shared
+// memory), and n = 10 has its own instance with no padded columns.  The rows
+// of m meet in the warp's part of shared memory (a warp barrier, not a block
+// one); each lane forms m[i][i] and sum_c m[i][c] m[c][i] of its rows, the L
+// lanes sum them by shuffles, and the determinant's first lane writes tr(m_k)
+// and adds tr(m_k^2) to its sum over k.  The square entries' lanes form
+// tr(A^-1 L) once, from the rows of A^-1 they hold.  One block barrier a
+// direction (the stage has landed; the stage before it is free for the next
+// copy).  What holds it on the card is latency with few blocks per SM, so the
+// plan keeps shared memory small.
+//
+// Tiled body (`fl_slogdet_tiled_kernel`, large n).  One block per (walker,
+// determinant) keeps A_d^-1 transposed in shared memory, padded to np = n
+// rounded up to 4 with zero rows, for all K directions, and streams the
+// directions through a ring of S stages (the wrapper's plan: the deepest ring
+// that costs no block an SM).  Each thread forms a 4 x 4 tile of m_k = A^-1 J_k
+// in registers as outer products: per step a float4 of a column of A^-1 and 4
+// values of a row of J_k, 16 FMAs for two or three shared loads (against one
+// FMA a load in the staged body at large n).  Where a row of J_k is only
+// 8-byte aligned a thread's 4 columns are two pairs np / 2 apart, so that a
+// warp reads a row without bank conflicts.  The tiles meet in a
+// double-buffered shared array (float4 chunks swizzled by row), so one block
+// barrier a direction serves both the ring and the exchange: after it each
+// thread adds sum m[i][c] m[c][i] over its tile and the transposed tile (its
+// share of tr(m_k^2), kept over k), and warp 0 sums the diagonal, which each
+// entry's holder wrote beside the tiles, into tr(m_k); then the next
+// direction's product starts.  Columns beyond n read past a row's end and are
+// masked out of the traces.  One block sum at the end.  On the card what
+// holds it is the shared-memory pipe and latency in the product loop (about
+// 30 % of the float32 peak at n = 42, 45 % at n = 64; PERF.md).
+//
+// Both bodies sum in a fixed order with one writer per output and no atomics:
+// two launches give bitwise-equal results.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 320;
-constexpr int kWarps = kThreads / 32;
+enum Layout { kFlat = 0, kSquare = 1, kSquareSplit = 2 };
+enum Body { kStaged = 0, kTiled = 1 };
 
-__host__ __device__ inline int dirs_per_round(int n) { return kThreads / n; }
+// Up to these n a launch takes the staged body, above them the tiled one.  On
+// an H100 (700 W; deepqmc_tpu_torch/sweep_slogdet.py, B = 256, D = 16,
+// K = 3 n, ms a call, staged against tiled): flat 0.238 against 0.358 at
+// n = 16, 0.549 against 0.590 at 18, 1.145 against 0.527 at 20; square 0.224
+// against 0.248 at 16, 0.539 against 0.375 at 18; square split 0.270 against
+// 0.298 at 16, 0.550 against 0.457 at 18 (PERF.md).
+constexpr int kFlatMaxN = 18;
+constexpr int kSquareMaxN = 16;
+constexpr int kStagedMaxN = 48;       // the staged body's largest instance
+constexpr int kStagedMaxThreads = 256;
+constexpr int kTiledMaxThreads = 256;  // (64 / 4)^2 tiles at n = 64
+constexpr int kRegInvN = 16;  // up to this n a staged lane keeps its rows of A^-1 in registers
 
-__host__ __device__ inline long smem_floats(int n) {
-  const long kr = dirs_per_round(n);
-  return (long)n * n + kr * n * (n + 1) + 2 * kr * n + kWarps;
-}
-
-// Where the rows of J_{k,d} lie: block (b, k, d) of the up rows starts at
-// ju + (b * K + k) * up_bk + d * up_d, the down rows likewise, and row r of a
-// block at r * row.
+// The layout record, field for field ops/fl_slogdet.py `RowBlocks` (all in
+// floats).  In memory, determinant d's up row r of (walker b, direction k)
+// lies at ju + (b K + k) up_bk + d up_d + r row, its down rows likewise in jd.
+// In a stage, determinant g of the block's group has its up row r at
+// g s_up_d + r s_row and its down row r at s_dn + g s_dn_d + r s_row.  runs:
+// each block (up, down) of the group is one run of G nu n (G nd n) floats,
+// laid out in the stage as in memory (up at 0, down at s_dn); else a copy a
+// row of G n floats.  vw: floats a copy, 4 by TMA, 2 or 1 by cp.async.
+// align: the floats both Jacobian pointers are aligned to (4, 2 or 1).
+// shift (square layouts whose runs are not all 16-byte aligned, where the
+// (walker, direction) strides are multiples of 4 floats): each run lands at
+// its address mod 16 bytes past its place in the stage, 0 to 3 floats
+// further (the run's shift, the same for every direction of a block), its
+// 16-byte-aligned interior by TMA and the up to 3 floats before and after it
+// by plain copies, in place of cp.async copies of vw floats.
 struct RowBlocks {
   long up_bk, up_d, dn_bk, dn_d, row;
+  long s_up_d, s_dn, s_dn_d, s_row, stage;
+  long runs, vw, align, shift;
 };
 
-__device__ inline float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float s = 0.f;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < kWarps; ++w) s += red[w];
-  return s;
-}
+struct Params {
+  const float *inv, *ju, *jd, *la;
+  float *jout, *out;
+  int D, K, nu, nd, G, S;
+  RowBlocks rb;
+};
 
-// Kernels 3 and 4.  WITH_L: out = tr(A^-1 L) - trq; else out = trq.
-template <int NMAX, bool WITH_L>
-__global__ void __launch_bounds__(kThreads) fl_slogdet_kernel(
-    const float* __restrict__ inv, const float* __restrict__ ju,
-    const float* __restrict__ jd, const float* __restrict__ la,
-    float* __restrict__ jout, float* __restrict__ out, int D, int K, int nu,
-    int nd, RowBlocks g) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x / D;
-  const int d = blockIdx.x % D;
+// The stage half of the record as each layout makes it (ops/fl_slogdet.py
+// `row_blocks`): the kernels derive it from their layout, a template
+// argument, so that the compiler sees how the strides follow from n and G
+// (the staged body's row loads schedule much better so; PERF.md), and each
+// launch checks that the wrapper's record agrees.
+struct StageRows {
+  int s_up_d, s_dn, s_dn_d, s_row, stage;
+};
+
+__host__ __device__ inline int up4(int x) { return (x + 3) / 4 * 4; }
+
+__host__ __device__ inline StageRows stage_rows(int layout, int nu, int nd, int G, bool shift) {
   const int n = nu + nd;
-  const int ld = n + 1;
-  const int kr = dirs_per_round(n);
-  const int tid = threadIdx.x;
-
-  float* a = smem;                // [n][n]        A_d^-1
-  float* m = a + n * n;           // [kr][n][ld]   rows of m_k
-  float* diag = m + kr * n * ld;  // [kr * n]      m_k[i][i]
-  float* part = diag + kr * n;    // [kr * n]      sum_c m_k[i][c] m_k[c][i]
-  float* red = part + kr * n;     // [kWarps]      warp sums
-
-  const long bd = (long)b * D + d;
-  const float* inv_bd = inv + bd * n * n;
-  for (int e = tid; e < n * n; e += kThreads) a[e] = inv_bd[e];
-  __syncthreads();
-
-  // tr(A^-1 L) = sum_{j,i} A^-1[i][j] L[j][i], each thread a share of it
-  float acc = 0.f;
-  if (WITH_L) {
-    const float* l_bd = la + bd * n * n;
-    for (int e = tid; e < n * n; e += kThreads)
-      acc = fmaf(a[(e % n) * n + e / n], __ldg(l_bd + e), acc);
+  if (layout == kFlat) {  // the group's G n columns of each row, rows padded to 4
+    const int ldr = up4(G * n);
+    return {n, nu * ldr, n, ldr, n * ldr};
   }
-
-  const int slot = tid / n, i = tid % n;
-  float trq_acc = 0.f;  // threads with tid < kr: their direction slot's sum
-  for (int k0 = 0; k0 < K; k0 += kr) {
-    const int k = k0 + slot;
-    const bool active = slot < kr && k < K;
-    if (active) {
-      float row[NMAX];
-#pragma unroll
-      for (int c = 0; c < NMAX; ++c) row[c] = 0.f;
-      const long bk = (long)b * K + k;
-      const float* up = ju + bk * g.up_bk + d * g.up_d;
-      const float* dn = nd ? jd + bk * g.dn_bk + d * g.dn_d : nullptr;
-      for (int r = 0; r < n; ++r) {
-        const float air = a[i * n + r];
-        const float* src = r < nu ? up + r * g.row : dn + (r - nu) * g.row;
-#pragma unroll
-        for (int c = 0; c < NMAX; ++c)
-          if (c < n) row[c] = fmaf(air, __ldg(src + c), row[c]);
-      }
-      float dg = 0.f;
-#pragma unroll
-      for (int c = 0; c < NMAX; ++c) {
-        if (c < n) {
-          m[(slot * n + i) * ld + c] = row[c];
-          if (c == i) dg = row[c];
-        }
-      }
-      diag[tid] = dg;
-    }
-    __syncthreads();
-    if (active) {
-      const float* mk = m + slot * n * ld;
-      float q = 0.f;
-      for (int c = 0; c < n; ++c) q = fmaf(mk[i * ld + c], mk[c * ld + i], q);
-      part[tid] = q;
-    }
-    __syncthreads();
-    if (tid < kr && k0 + tid < K) {
-      float tr = 0.f, q = 0.f;
-      for (int r = 0; r < n; ++r) {
-        tr += diag[tid * n + r];
-        q += part[tid * n + r];
-      }
-      jout[((long)b * K + k0 + tid) * D + d] = tr;
-      trq_acc += q;
-    }
-    __syncthreads();
-  }
-  const float s = block_sum(WITH_L ? acc - trq_acc : trq_acc, red);
-  if (tid == 0) out[bd] = s;
+  // the up run, then the down run from a 4-float boundary, with shift each
+  // with room for its shift
+  const int room = shift ? 3 : 0;
+  const int s_dn = up4(G * nu * n + room);
+  return {nu * n, s_dn, nd * n, n, s_dn + (nd ? up4(G * nd * n + room) : 0)};
 }
 
-template <int NMAX, bool WITH_L>
-int launch(const float* inv, const float* ju, const float* jd, const float* la,
-           float* jout, float* out, int B, int D, int K, int nu, int nd,
-           RowBlocks g, cudaStream_t stream) {
-  const long smem = smem_floats(nu + nd) * (long)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fl_slogdet_kernel<NMAX, WITH_L>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fl_slogdet_kernel<NMAX, WITH_L><<<B * D, kThreads, smem, stream>>>(
-      inv, ju, jd, la, jout, out, D, K, nu, nd, g);
-  return (int)cudaGetLastError();
+// The shift of the run that starts at `p`: its address mod 16 bytes, in floats.
+__device__ __forceinline__ int run_shift(const float* p) {
+  return (int)(reinterpret_cast<uintptr_t>(p) >> 2) & 3;
 }
 
-template <bool WITH_L>
-int dispatch(const float* inv, const float* ju, const float* jd,
-             const float* la, float* jout, float* out, int B, int D, int K,
-             int nu, int nd, RowBlocks g, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int n = nu + nd;
-  if (n < 1 || nu < 0 || nd < 0) return (int)cudaErrorInvalidValue;
-#define FL_SLOGDET_CASE(N)                                                  \
-  if (n <= N)                                                               \
-    return launch<N, WITH_L>(inv, ju, jd, la, jout, out, B, D, K, nu, nd, g, \
-                             s);
-  FL_SLOGDET_CASE(4)
-  FL_SLOGDET_CASE(8)
-  FL_SLOGDET_CASE(12)
-  FL_SLOGDET_CASE(16)
-  FL_SLOGDET_CASE(32)
-  FL_SLOGDET_CASE(64)
-#undef FL_SLOGDET_CASE
-  return (int)cudaErrorInvalidValue;
-}
-
-
-// ---- kernel 2: flat row blocks through a copy ring ----
+// ---- copies: TMA, cp.async and mbarriers ----
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "n"(BYTES)
                : "memory");
 }
 
@@ -268,50 +218,129 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t
       : "memory");
 }
 
-constexpr int kFlatMaxThreads = 256;
-// Above this n kernel 2 runs the body of kernels 3 and 4 instead: a direction's
-// staged rows (16 KB a determinant at n = 64) leave two blocks of one warp on
-// an SM, and the body that reads its rows from global memory through L1 is
-// faster there (6.6-6.8 ms against 9.2 ms at n = 64 on an H100; slower at
-// n = 42, 22.6 against 17.3 ms; chip_smoke.py, PERF.md).
-constexpr int kFlatMaxN = 48;
-constexpr int kRegInvN = 16;  // up to this n a lane keeps its rows of A^-1 in registers
+// The mbarriers of a ring: one arrival (thread 0's expect_tx) for TMA, one a
+// thread for cp.async.
+__device__ __forceinline__ void init_ring(uint64_t* bars, int S, bool bulk, int T) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(bars + s, bulk ? 1 : T);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+}
 
-// Rows of m a lane of kernel 2 forms (R) and the largest n it takes (NMAX):
-// a determinant's rows i = l + L r (r < R) lie on L = lanes(n, R) lanes of one
-// warp, a power of 2 at most 32.
-__host__ __device__ inline int flat_lanes(int n, int R) {
+// Direction k's rows of determinants d0 .. d0 + G - 1 of walker b into the
+// stage `dst`, completing on `bar`.  Flat layout: by TMA (vw = 4), one copy a
+// run, the up and the down block by threads 0 and 32 (1 in a one-warp block),
+// or one a row (thread r); thread 0 announces the bytes, G n^2 floats; else
+// cp.async copies of vw floats by every thread, each arriving once its copies
+// have landed.  SHIFT (square layouts): each run at its shift, its interior
+// by TMA (threads 0 and 32 again; thread 0 announces the interiors' bytes)
+// and its ends by plain copies (threads 1 to 12), which the block barrier
+// before the stage is read makes visible.
+template <int LAYOUT, bool SHIFT>
+__device__ __forceinline__ void issue_stage(const Params& pr, const StageRows& sr, int b, int k,
+                                            int d0, float* dst, uint64_t* bar, int tid, int T) {
+  const RowBlocks& rb = pr.rb;
+  const int nu = pr.nu, nd = pr.nd, n = nu + nd, gn = pr.G * n;
+  const int s_dn = sr.s_dn, s_row = sr.s_row;
+  const long bk = (long)b * pr.K + k;
+  const float* up = pr.ju + bk * rb.up_bk + d0 * rb.up_d;
+  const float* dn = pr.jd + bk * rb.dn_bk + d0 * rb.dn_d;
+  const int tid2 = T > 32 ? 32 : 1;  // the second copying thread
+  if constexpr (SHIFT) {
+    const int sh_u = run_shift(up), sh_d = nd ? run_shift(dn) : 0;
+    const int len_u = gn * nu, len_d = gn * nd;
+    const int head_u = min((4 - sh_u) & 3, len_u), head_d = min((4 - sh_d) & 3, len_d);
+    const int in_u = (len_u - head_u) & ~3, in_d = (len_d - head_d) & ~3;
+    float *to_u = dst + sh_u, *to_d = dst + s_dn + sh_d;
+    if (tid == 0) mbar_expect(bar, 4u * (in_u + in_d));
+    if (tid == 0 && in_u) bulk_copy(to_u + head_u, up + head_u, 4u * in_u, bar);
+    if (tid == tid2 && in_d) bulk_copy(to_d + head_d, dn + head_d, 4u * in_d, bar);
+    const int e = tid - 1;  // threads 1 .. 12: up to 3 floats before and 3 after each run
+    if (e >= 0 && e < 12) {
+      const bool u = e < 6;
+      const int i = e % 6, head = u ? head_u : head_d, inner = u ? in_u : in_d;
+      const int tail = (u ? len_u : len_d) - head - inner;
+      const int at = i < 3 ? (i < head ? i : -1) : (i - 3 < tail ? head + inner + i - 3 : -1);
+      if (at >= 0) (u ? to_u : to_d)[at] = __ldg((u ? up : dn) + at);
+    }
+    return;
+  }
+  if (rb.vw == 4) {
+    if (tid == 0) mbar_expect(bar, 4u * gn * n);
+    if (rb.runs) {
+      if (tid == 0) bulk_copy(dst, up, 4u * gn * nu, bar);
+      if (tid == tid2 && nd) bulk_copy(dst + s_dn, dn, 4u * gn * nd, bar);
+    } else {
+      for (int r = tid; r < n; r += T)
+        bulk_copy(r < nu ? dst + r * s_row : dst + s_dn + (r - nu) * s_row,
+                  r < nu ? up + r * rb.row : dn + (r - nu) * rb.row, 4u * gn, bar);
+    }
+    return;
+  }
+  const int v = (int)rb.vw;
+  if (rb.runs) {
+    const int cu = gn * nu / v, cd = gn * nd / v;  // copies of the up and the down run
+    for (int e = tid; e < cu + cd; e += T) {
+      float* to = e < cu ? dst + e * v : dst + s_dn + (e - cu) * v;
+      const float* from = e < cu ? up + e * v : dn + (long)(e - cu) * v;
+      if (v == 2)
+        cp_async<8>(to, from);
+      else
+        cp_async<4>(to, from);
+    }
+  } else {
+    const int cr = gn / v;  // copies a row
+    for (int e = tid; e < n * cr; e += T) {
+      const int r = e / cr, c = (e % cr) * v;
+      float* to = (r < nu ? dst + r * s_row : dst + s_dn + (r - nu) * s_row) + c;
+      const float* from = (r < nu ? up + r * rb.row : dn + (r - nu) * rb.row) + c;
+      if (v == 2)
+        cp_async<8>(to, from);
+      else
+        cp_async<4>(to, from);
+    }
+  }
+  cp_async_arrive(bar);
+}
+
+// The shifts (up, down) of the runs of determinants d0 .. of walker b, the
+// same for every direction; 0 without SHIFT.
+template <bool SHIFT>
+__device__ __forceinline__ int2 run_shifts(const Params& pr, int b, int d0) {
+  if constexpr (!SHIFT) return make_int2(0, 0);
+  const long b0 = (long)b * pr.K;
+  return make_int2(run_shift(pr.ju + b0 * pr.rb.up_bk + d0 * pr.rb.up_d),
+                   pr.nd ? run_shift(pr.jd + b0 * pr.rb.dn_bk + d0 * pr.rb.dn_d) : 0);
+}
+
+// ---- the staged body (small n) ----
+
+// Rows of m a lane of the staged body forms (R) and the largest n it takes
+// (NMAX): a determinant's rows i = l + L r (r < R) lie on L = lanes(n, R) lanes
+// of one warp, a power of 2 at most 32.
+__host__ __device__ inline int staged_lanes(int n, int R) {
   int l = 1;
   while (l * R < n) l <<= 1;
   return l;
 }
 
-// Shared-memory plan of kernel 2, in floats: S stages [n][ldr] (ldr = G n
-// rounded up to 4), A^-1 transposed [n][G n] (n > kRegInvN only: below, the
-// lanes keep their rows of A^-1 in registers), the rows of m [G n][n + 1] and
-// the stages' mbarriers (8 bytes each).
-struct FlatLayout {
-  int ldr, stage, invt, xm, bar, total;
+// Shared-memory plan of the staged body, in floats: S stages of `stage`
+// floats, A^-1 transposed [n][G n] (n > kRegInvN only: below, the lanes keep
+// their rows of A^-1 in registers), the rows of m [G n][n + 1] and the stages'
+// mbarriers (8 bytes each).
+struct StagedLayout {
+  int invt, xm, bar, total;
 };
 
-__host__ __device__ inline FlatLayout flat_layout(int n, int G, int S) {
-  FlatLayout L;
+__host__ __device__ inline StagedLayout staged_layout(int n, int G, int S, int stage) {
+  StagedLayout L;
   const int gn = G * n;
-  L.ldr = (gn + 3) / 4 * 4;
-  L.stage = n * L.ldr;
-  L.invt = S * L.stage;
+  L.invt = S * stage;
   L.xm = L.invt + (n > kRegInvN ? n * gn : 0);
   L.bar = (L.xm + gn * (n + 1) + 1) / 2 * 2;
   L.total = L.bar + 2 * S;
   return L;
 }
-
-struct FlatParams {
-  const float *inv, *ju, *jd;
-  float *jout, *trq;
-  int D, K, nu, nd, G, S;
-  bool bulk;  // rows and pointers 16-byte aligned: TMA copies, else 4-byte cp.async
-};
 
 // m[r][:] += a[r] J[rr][:] for one staged row J[rr][:] of a determinant
 template <int NMAX, int R, int VEC>
@@ -341,64 +370,45 @@ __device__ __forceinline__ void add_row(float (&m)[R][NMAX], const float (&a)[R]
   }
 }
 
-template <int NMAX, int R, int VEC>
-__global__ void __launch_bounds__(kFlatMaxThreads) fl_slogdet_flat_kernel(FlatParams pr) {
+// LAYOUT kFlat: out = sum_k tr(m_k^2); else out = tr(A^-1 L) - sum_k tr(m_k^2).
+// In the flat and the square stage a determinant's down rows follow its up
+// rows at the same stride; only the square split stage needs a jump between
+// the two (an offset picked per row, so each row is loaded once).
+template <int NMAX, int R, int VEC, int LAYOUT, bool SHIFT>
+__global__ void __launch_bounds__(kStagedMaxThreads) fl_slogdet_staged_kernel(Params pr) {
+  constexpr bool WITH_L = LAYOUT != kFlat;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int D = pr.D, K = pr.K, nu = pr.nu, nd = pr.nd, G = pr.G, S = pr.S;
   const int n = nu + nd, gn = G * n, ldx = n + 1;
-  const int L = flat_lanes(n, R);
-  const FlatLayout Lo = flat_layout(n, G, S);
+  const StageRows sr = stage_rows(LAYOUT, nu, nd, G, SHIFT);
+  const int stage = sr.stage, s_row = sr.s_row;
+  const int L = staged_lanes(n, R);
+  const StagedLayout Lo = staged_layout(n, G, S, stage);
   float *ring = sm, *invt = sm + Lo.invt, *xm = sm + Lo.xm;
   const int groups = D / G;
   const int b = blockIdx.x / groups, d0 = (blockIdx.x % groups) * G;
   const int tid = threadIdx.x, T = blockDim.x;
   const int dl = tid / L, l = tid % L;  // determinant of the group, lane in it
   const bool act = dl < G;
-  const long Dn = (long)D * n;
 
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + Lo.bar);
-  // direction k's rows of the group into stage k % S: one TMA copy for each of
-  // the up and the down block when the group holds every determinant (their
-  // rows are then one run each), else one a row, or, where the rows are not
-  // 16-byte aligned, 4-byte cp.async copies by every thread; each completing
-  // on the stage's mbarrier
-  const auto issue = [&](int k) {
-    float* dst = ring + (k % S) * Lo.stage;
-    uint64_t* bar = bars + k % S;
-    const float* up = pr.ju + ((long)b * K + k) * nu * Dn + d0 * n;
-    const float* dn = pr.jd + ((long)b * K + k) * nd * Dn + d0 * n;
-    if (pr.bulk) {
-      if (tid == 0) mbar_expect(bar, 4u * gn * n);
-      if (gn == Dn) {
-        if (tid == 0) bulk_copy(dst, up, 4u * gn * nu, bar);
-        if (tid == (T > 32 ? 32 : 1) && nd) bulk_copy(dst + nu * Lo.ldr, dn, 4u * gn * nd, bar);
-      } else {
-        for (int r = tid; r < n; r += T)
-          bulk_copy(dst + r * Lo.ldr, r < nu ? up + r * Dn : dn + (r - nu) * Dn, 4u * gn, bar);
-      }
-    } else {
-      for (int e = tid; e < n * gn; e += T) {
-        const int r = e / gn, c = e % gn;
-        cp_async4(dst + r * Lo.ldr + c, (r < nu ? up + r * Dn : dn + (r - nu) * Dn) + c);
-      }
-      cp_async_arrive(bar);
-    }
-  };
-  if (tid == 0) {
-    for (int s = 0; s < S; ++s) mbar_init(bars + s, pr.bulk ? 1 : T);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
+  init_ring(bars, S, SHIFT || pr.rb.vw == 4, T);
   // A^-1 of the group, transposed: invt[r][dl n + i] = A_dl^-1[i][r]
   const float* inv_g = pr.inv + ((long)b * D + d0) * n * n;
   if (n > kRegInvN)
     for (int e = tid; e < gn * n; e += T) invt[e] = __ldg(inv_g + (e % gn) * n + e / gn);
   __syncthreads();  // the mbarriers are initialised
-  for (int k = 0; k < S - 1 && k < K; ++k) issue(k);
+  for (int k = 0; k < S - 1 && k < K; ++k)
+    issue_stage<LAYOUT, SHIFT>(pr, sr, b, k, d0, ring + k * stage, bars + k, tid, T);
   uint32_t phase = 0;  // bit s: the parity of stage s's next fill
 
   const int dlc = act ? dl : 0;
   const float* xd = xm + dlc * n * ldx;  // the determinant's rows of m
+  const int up_off = dlc * sr.s_up_d;  // row rr at up_off + rr s_row (+ jump if rr >= nu)
+  const int2 sh = run_shifts<SHIFT>(pr, b, d0);
+  const int jump =
+      LAYOUT == kSquareSplit ? sr.s_dn + sh.y + dlc * sr.s_dn_d - nu * s_row - up_off - sh.x : 0;
   // small n: the lane's rows of A^-1 in registers for the whole block
   constexpr bool kRegInv = NMAX <= kRegInvN;
   float ainv[R][kRegInv ? NMAX : 1];
@@ -416,14 +426,17 @@ __global__ void __launch_bounds__(kFlatMaxThreads) fl_slogdet_flat_kernel(FlatPa
     mbar_wait(bars + sk, (phase >> sk) & 1u);  // direction k has landed
     phase ^= 1u << sk;
     __syncthreads();  // ... and every thread is done with stage (k - 1) % S
-    if (k + S - 1 < K) issue(k + S - 1);
+    if (k + S - 1 < K) {
+      const int s = (k + S - 1) % S;
+      issue_stage<LAYOUT, SHIFT>(pr, sr, b, k + S - 1, d0, ring + s * stage, bars + s, tid, T);
+    }
     // rows i = l + L r of m = A^-1 J_k in registers
     float m[R][NMAX];
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int c = 0; c < NMAX; ++c) m[r][c] = 0.f;
-    const float* st = ring + (k % S) * Lo.stage + dlc * n;
+    const float* up = ring + sk * stage + up_off + sh.x;
     if constexpr (kRegInv) {
 #pragma unroll
       for (int rr = 0; rr < NMAX; ++rr) {
@@ -431,7 +444,7 @@ __global__ void __launch_bounds__(kFlatMaxThreads) fl_slogdet_flat_kernel(FlatPa
           float a[R];
 #pragma unroll
           for (int r = 0; r < R; ++r) a[r] = ainv[r][rr];
-          add_row<NMAX, R, VEC>(m, a, st + rr * Lo.ldr, n);
+          add_row<NMAX, R, VEC>(m, a, up + rr * s_row + (rr < nu ? 0 : jump), n);
         }
       }
     } else {
@@ -442,7 +455,7 @@ __global__ void __launch_bounds__(kFlatMaxThreads) fl_slogdet_flat_kernel(FlatPa
           const int i = l + L * r;
           a[r] = i < n ? invt[rr * gn + dlc * n + i] : 0.f;
         }
-        add_row<NMAX, R, VEC>(m, a, st + rr * Lo.ldr, n);
+        add_row<NMAX, R, VEC>(m, a, up + rr * s_row + (rr < nu ? 0 : jump), n);
       }
     }
     // the rows meet in the determinant's part of xm (one warp: no block barrier)
@@ -479,82 +492,341 @@ __global__ void __launch_bounds__(kFlatMaxThreads) fl_slogdet_flat_kernel(FlatPa
     }
     __syncwarp();  // the reads of xm end before the next direction's writes
   }
-  if (act && l == 0) pr.trq[(long)b * D + d0 + dl] = trq_acc;
+  float lin = 0.f;  // tr(A^-1 L) = sum_i sum_c A^-1[i][c] L[c][i], the lane's rows i
+  if constexpr (WITH_L) {
+    const float* l_d = pr.la + ((long)b * D + d0 + dlc) * n * n;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = l + L * r;
+      if (act && i < n) {
+        if constexpr (kRegInv) {
+#pragma unroll
+          for (int c = 0; c < NMAX; ++c)
+            if (c < n) lin = fmaf(ainv[r][c], __ldg(l_d + c * n + i), lin);
+        } else {
+          for (int c = 0; c < n; ++c)
+            lin = fmaf(invt[c * gn + dlc * n + i], __ldg(l_d + c * n + i), lin);
+        }
+      }
+    }
+    for (int o = L / 2; o > 0; o >>= 1) lin += __shfl_xor_sync(0xffffffffu, lin, o);
+  }
+  if (act && l == 0) pr.out[(long)b * D + d0 + dl] = WITH_L ? lin - trq_acc : trq_acc;
 }
 
-template <int NMAX, int R, int VEC>
-int launch_flat(const FlatParams& pr, int B, cudaStream_t stream) {
+// ---- the tiled body (large n) ----
+
+// Shared-memory plan of the tiled body, in floats: A^-1 transposed [n][np]
+// (np = n rounded up to 4, zero columns beyond n), S stages of `stage` floats
+// and 4 of slack (a thread's last columns read up to 3 floats past a row's
+// end), the tiles of m twice [np][64], m's diagonal twice [np], the warps'
+// sums and the stages' mbarriers.  Row r of m keeps its float4 chunk q at
+// chunk q ^ (r / 4 % 8) of a 64-float row, so the 8 threads of a quarter warp
+// (consecutive tj) writing their tiles' rows meet 8 different bank groups,
+// and so do those reading the rows of the transposed tiles where a thread's
+// columns are 4 in a row.
+constexpr int kTileLd = 64;
+
+__device__ __forceinline__ int tile_at(int r, int col) {
+  return r * kTileLd + 4 * ((col >> 2) ^ (r / 4 % 8)) + (col & 3);
+}
+
+struct TiledLayout {
+  int np, ring, xm, diag, red, bar, total;
+};
+
+__host__ __device__ inline TiledLayout tiled_layout(int n, int S, int stage) {
+  TiledLayout L;
+  L.np = (n + 3) / 4 * 4;
+  L.ring = n * L.np;
+  L.xm = L.ring + S * stage + 4;
+  L.diag = L.xm + 2 * L.np * kTileLd;
+  L.red = L.diag + 2 * L.np;
+  L.bar = L.red + kTiledMaxThreads / 32;
+  L.total = L.bar + 2 * S;
+  return L;
+}
+
+__host__ __device__ inline int tiled_threads(int n) {
+  const int nt = (n + 3) / 4;
+  return (nt * nt + 31) / 32 * 32;
+}
+
+// Column q (0 .. 3) of thread tj's tile, of nt tiles a row: two pairs np / 2
+// apart where a row of J is 8-byte aligned but not 16 (VEC 2), else 4 in a
+// row.  With two floats a load the threads of a warp read a row of J without
+// bank conflicts, where 11 tiles of 4 floats in a row would wrap the 32 banks
+// (n = 42).
+template <int VEC>
+__device__ __forceinline__ int tile_col(int tj, int q, int nt) {
+  return VEC == 2 ? 2 * tj + (q & 1) + (q >> 1) * 2 * nt : 4 * tj + q;
+}
+
+// acc += A^-1[rows 4 ti ..][c] (x) J[c][columns of tj] for c in [c0, c1): `a`
+// points at column 4 ti of the transposed A^-1 (row stride np), `j` at row 0
+// of the stage's block (row stride s_row).
+template <int VEC>
+__device__ __forceinline__ void tile_rows(float (&acc)[4][4], const float* a, const float* j,
+                                          int tj, int nt, int c0, int c1, int np, int s_row) {
+#pragma unroll 4
+  for (int c = c0; c < c1; ++c) {
+    const float4 av = *reinterpret_cast<const float4*>(a + c * np);
+    const float* jr = j + c * s_row;
+    float jv[4];
+    if (VEC == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(jr + 4 * tj);
+      jv[0] = t.x, jv[1] = t.y, jv[2] = t.z, jv[3] = t.w;
+    } else if (VEC == 2) {
+      const float2 t0 = *reinterpret_cast<const float2*>(jr + 2 * tj);
+      const float2 t1 = *reinterpret_cast<const float2*>(jr + 2 * tj + 2 * nt);
+      jv[0] = t0.x, jv[1] = t0.y, jv[2] = t1.x, jv[3] = t1.y;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) jv[q] = jr[4 * tj + q];
+    }
+    const float ai[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(ai[i], jv[q], acc[i][q]);
+  }
+}
+
+// LAYOUT kFlat: out = sum_k tr(m_k^2); else out = tr(A^-1 L) - sum_k tr(m_k^2).
+// The float2 instance (n = 42) may take registers enough for one block an SM:
+// ptxas otherwise holds it to 64 and spills.
+template <int VEC, int LAYOUT, bool SHIFT>
+__global__ void __launch_bounds__(kTiledMaxThreads, VEC == 2 ? 1 : 2)
+    fl_slogdet_tiled_kernel(Params pr) {
+  constexpr bool WITH_L = LAYOUT != kFlat;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int D = pr.D, K = pr.K, nu = pr.nu, nd = pr.nd, S = pr.S, n = nu + nd;
+  const StageRows sr = stage_rows(LAYOUT, nu, nd, 1, SHIFT);
+  const int stage = sr.stage, s_row = sr.s_row;
+  const TiledLayout Lo = tiled_layout(n, S, stage);
+  const int np = Lo.np, nt = np / 4;
+  float *at = sm, *ring = sm + Lo.ring, *xm = sm + Lo.xm, *diag = sm + Lo.diag,
+        *red = sm + Lo.red;
+  const int b = blockIdx.x / D, d = blockIdx.x % D;
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int ti = tid / nt, tj = tid % nt;  // the tile: rows 4 ti .., columns tile_col(tj, .)
+  const bool act = ti < nt;
+  const long bd = (long)b * D + d;
+
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + Lo.bar);
+  init_ring(bars, S, SHIFT || pr.rb.vw == 4, T);
+  // at[c][i] = A^-1[i][c], zero for n <= i < np
+  const float* inv_d = pr.inv + bd * n * n;
+  for (int e = tid; e < n * n; e += T) at[(e % n) * np + e / n] = __ldg(inv_d + e);
+  for (int e = tid; e < n * (np - n); e += T) at[(e / (np - n)) * np + n + e % (np - n)] = 0.f;
+  __syncthreads();  // A^-1 and the mbarriers are ready
+  for (int k = 0; k < S - 1 && k < K; ++k)
+    issue_stage<LAYOUT, SHIFT>(pr, sr, b, k, d, ring + k * stage, bars + k, tid, T);
+
+  float part = 0.f;  // the thread's share of tr(A^-1 L): la[e] = L[c][i] at e = c n + i
+  if constexpr (WITH_L) {
+    const float* l_d = pr.la + bd * n * n;
+    for (int e = tid; e < n * n; e += T)
+      part = fmaf(at[(e / n) * np + e % n], __ldg(l_d + e), part);
+  }
+  int col[4];  // the thread's columns of m
+#pragma unroll
+  for (int q = 0; q < 4; ++q) col[q] = tile_col<VEC>(tj, q, nt);
+  uint32_t phase = 0;  // bit s: the parity of stage s's next fill
+  float acc[4][4];
+  float q2 = 0.f;  // the thread's share of sum_k tr(m_k^2)
+  const float* a = at + 4 * ti;
+  const int2 sh = run_shifts<SHIFT>(pr, b, d);
+  const int dn_off = sr.s_dn - nu * s_row;  // row c >= nu of the stage at dn_off + c s_row
+  for (int k = 0; k <= K; ++k) {
+    if (k < K) {
+      const int sk = k % S;
+      mbar_wait(bars + sk, (phase >> sk) & 1u);  // direction k has landed
+      phase ^= 1u << sk;
+    }
+    // every thread is done with stage (k - 1) % S and has put direction
+    // k - 1's tile into xm
+    __syncthreads();
+    if (k + S - 1 < K) {
+      const int s = (k + S - 1) % S;
+      issue_stage<LAYOUT, SHIFT>(pr, sr, b, k + S - 1, d, ring + s * stage, bars + s, tid, T);
+    }
+    if (k > 0) {  // the traces of direction k - 1
+      const float* x = xm + ((k - 1) & 1) * np * kTileLd;
+      if (act) {  // sum over the tile of m[i][c] m[c][i], m[c][i] from the transposed tile
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 v = *reinterpret_cast<const float4*>(x + tile_at(col[q], 4 * ti));
+          const float vt[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (4 * ti + i < n && col[q] < n) q2 = fmaf(acc[i][q], vt[i], q2);
+        }
+      }
+      if (tid < 32) {  // tr(m_{k-1}) from the diagonal, by warp 0
+        float t = 0.f;
+        for (int r = tid; r < n; r += 32) t += diag[((k - 1) & 1) * np + r];
+        for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+        if (tid == 0) pr.jout[((long)b * K + k - 1) * D + d] = t;
+      }
+    }
+    if (k == K) break;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
+    if (act) {
+      const float* st = ring + (k % S) * stage;
+      tile_rows<VEC>(acc, a, st + sh.x, tj, nt, 0, nu, np, s_row);
+      tile_rows<VEC>(acc, a, st + dn_off + sh.y, tj, nt, nu, n, np, s_row);
+      float* x = xm + (k & 1) * np * kTileLd;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 4 * ti + i;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)  // the holder of m[r][r] puts it on the diagonal
+          if (col[q] == r) diag[(k & 1) * np + r] = acc[i][q];
+        if (VEC == 2) {
+          *reinterpret_cast<float2*>(x + tile_at(r, col[0])) = make_float2(acc[i][0], acc[i][1]);
+          *reinterpret_cast<float2*>(x + tile_at(r, col[2])) = make_float2(acc[i][2], acc[i][3]);
+        } else {
+          *reinterpret_cast<float4*>(x + tile_at(r, col[0])) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        }
+      }
+    }
+  }
+  // one block sum, in a fixed order
+  float v = WITH_L ? part - q2 : q2;
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (tid % 32 == 0) red[tid / 32] = v;
+  __syncthreads();
+  if (tid == 0) {
+    float s = 0.f;
+    for (int w = 0; w < T / 32; ++w) s += red[w];
+    pr.out[bd] = s;
+  }
+}
+
+// ---- launches ----
+
+long smem_bytes(int body, int n, int G, int S, int stage) {
+  const int floats =
+      body == kTiled ? tiled_layout(n, S, stage).total : staged_layout(n, G, S, stage).total;
+  return (long)floats * (long)sizeof(float);
+}
+
+template <int LAYOUT, bool SHIFT>
+int launch_body(const Params& pr, int B, int body, long smem, cudaStream_t stream) {
+  const RowBlocks& rb = pr.rb;
   const int n = pr.nu + pr.nd;
-  const long smem = (long)flat_layout(n, pr.G, pr.S).total * (long)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fl_slogdet_flat_kernel<NMAX, R, VEC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = (pr.G * flat_lanes(n, R) + 31) / 32 * 32;
-  fl_slogdet_flat_kernel<NMAX, R, VEC><<<B * (pr.D / pr.G), threads, smem, stream>>>(pr);
-  return (int)cudaGetLastError();
+  const auto go = [&](auto kernel, int blocks, int threads) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks, threads, smem, stream>>>(pr);
+    return (int)cudaGetLastError();
+  };
+  if (body == kTiled) {
+    if (pr.G != 1) return (int)cudaErrorInvalidValue;
+    const int blocks = B * pr.D, threads = tiled_threads(n);
+    // a square layout's rows start at multiples of 4 (2) floats where n is and
+    // so are the pointers (then so is every shift); flat rows are padded to 4
+    if (LAYOUT == kFlat || (n % 4 == 0 && rb.align == 4))
+      return go(fl_slogdet_tiled_kernel<4, LAYOUT, SHIFT>, blocks, threads);
+    if (n % 2 == 0 && rb.align >= 2)
+      return go(fl_slogdet_tiled_kernel<2, LAYOUT, SHIFT>, blocks, threads);
+    return go(fl_slogdet_tiled_kernel<1, LAYOUT, SHIFT>, blocks, threads);
+  }
+  if (body != kStaged || n > kStagedMaxN || pr.G * n > kStagedMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  // float2 rows where every staged row starts at an even float: n even (then
+  // so is every stage stride) and, in the square layouts, the pointers 8-byte
+  // aligned (then so is every shift)
+  const bool even = n % 2 == 0 && (LAYOUT == kFlat || rb.align >= 2);
+  const int blocks = B * (pr.D / pr.G);
+#define FL_STAGED_CASE(N, R)                                                                 \
+  if (n <= N) {                                                                              \
+    const int threads = (pr.G * staged_lanes(n, R) + 31) / 32 * 32;                          \
+    return even ? go(fl_slogdet_staged_kernel<N, R, 2, LAYOUT, SHIFT>, blocks, threads)      \
+                : go(fl_slogdet_staged_kernel<N, R, 1, LAYOUT, SHIFT>, blocks, threads);     \
+  }
+  FL_STAGED_CASE(10, 3)  // H2O's 10 electrons: no padded columns
+  FL_STAGED_CASE(16, 3)
+  FL_STAGED_CASE(32, 2)
+  FL_STAGED_CASE(48, 2)
+#undef FL_STAGED_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int LAYOUT>
+int launch(const Params& pr, int B, int body, cudaStream_t stream) {
+  const RowBlocks& rb = pr.rb;
+  const int n = pr.nu + pr.nd;
+  if (n < 1 || n > 64 || pr.nu < 0 || pr.nd < 0 || pr.K < 1 || pr.G < 1 || pr.D % pr.G ||
+      pr.S < 2 || pr.S > 32 || rb.stage < 1 || !(rb.vw == 1 || rb.vw == 2 || rb.vw == 4) ||
+      !(rb.align == 1 || rb.align == 2 || rb.align == 4) ||
+      (rb.shift && (LAYOUT == kFlat || rb.up_bk % 4 || rb.dn_bk % 4)))
+    return (int)cudaErrorInvalidValue;
+  const StageRows sr = stage_rows(LAYOUT, pr.nu, pr.nd, pr.G, rb.shift);
+  if (rb.s_up_d != sr.s_up_d || rb.s_dn != sr.s_dn || rb.s_dn_d != sr.s_dn_d ||
+      rb.s_row != sr.s_row || rb.stage != sr.stage)
+    return (int)cudaErrorInvalidValue;
+  const long smem = smem_bytes(body, n, pr.G, pr.S, sr.stage);
+  if constexpr (LAYOUT != kFlat)
+    if (rb.shift) return launch_body<LAYOUT, true>(pr, B, body, smem, stream);
+  return launch_body<LAYOUT, false>(pr, B, body, smem, stream);
+}
+
+int body_of(int layout, int n) {
+  return n > (layout == kFlat ? kFlatMaxN : kSquareMaxN) ? kTiled : kStaged;
 }
 
 }  // namespace
 
 extern "C" {
 
-long fl_slogdet_square_smem_bytes(int n) { return smem_floats(n) * (long)sizeof(float); }
-long fl_slogdet_square_split_smem_bytes(int n) { return fl_slogdet_square_smem_bytes(n); }
+// The body a launch of `layout` takes at n electrons (Body: 0 staged, 1 tiled).
+int fl_slogdet_body(int layout, int n) { return body_of(layout, n); }
 
-// Kernel 2: shared-memory bytes of a block of G determinants and S stages.
-long fl_slogdet_traces_smem_bytes(int n, int G, int S) {
-  return (long)flat_layout(n, G, S).total * (long)sizeof(float);
+// Shared-memory bytes of a block of `body` with G determinants, S stages of
+// `stage` floats.
+long fl_slogdet_smem_bytes(int body, int n, int G, int S, long stage) {
+  return smem_bytes(body, n, G, S, (int)stage);
 }
 
-// Kernel 2: flat row blocks; trq = sum_k tr(m_k^2).  G divides D, G n <= 256,
-// S >= 3 (the wrapper picks them).
-int fl_slogdet_traces_launch(const float* inv, const float* ju, const float* jd,
-                             float* jout, float* trq, int B, int D, int K,
-                             int nu, int nd, int G, int S, void* stream) {
-  const int n = nu + nd;
-  if (n > kFlatMaxN) {  // the body of kernels 3 and 4 (G, S unused): see the note above
-    const long Dn = (long)D * n;
-    const RowBlocks g{nu * Dn, n, nd * Dn, n, Dn};
-    return dispatch<false>(inv, ju, jd, nullptr, jout, trq, B, D, K, nu, nd, g, stream);
-  }
-  if (n < 1 || nu < 0 || nd < 0 || G < 1 || D % G || G * n > kFlatMaxThreads || S < 3 ||
-      S > 32 || K < 1)
-    return (int)cudaErrorInvalidValue;
-  const auto aligned = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
-  const bool bulk = (D * n) % 4 == 0 && (G * n) % 4 == 0 && aligned(ju) &&
-                    (nd == 0 || aligned(jd));
-  const FlatParams pr{inv, ju, jd, jout, trq, D, K, nu, nd, G, S, bulk};
-  const cudaStream_t s = (cudaStream_t)stream;
-  const bool even = n % 2 == 0;
-#define FL_FLAT_CASE(N, R)                                                         \
-  if (n <= N)                                                                      \
-    return even ? launch_flat<N, R, 2>(pr, B, s) : launch_flat<N, R, 1>(pr, B, s);
-  FL_FLAT_CASE(10, 3)  // H2O's 10 electrons: no padded columns
-  FL_FLAT_CASE(16, 3)
-  FL_FLAT_CASE(32, 2)
-  FL_FLAT_CASE(48, 2)  // benzene's 42
-#undef FL_FLAT_CASE
-  return (int)cudaErrorInvalidValue;
+// Each entry: body < 0 takes the body by n; G divides D (1 for the tiled
+// body), 2 <= S <= 32; `rows` points at the layout record (RowBlocks) of a
+// block of G determinants.
+//
+// Kernel 2: flat row blocks; trq = sum_k tr(m_k^2).
+int fl_slogdet_traces_launch(const float* inv, const float* ju, const float* jd, float* jout,
+                             float* trq, int B, int D, int K, int nu, int nd, int body, int G,
+                             int S, const void* rows, void* stream) {
+  const Params pr{inv, ju, jd, nullptr, jout, trq, D, K, nu, nd, G, S,
+                  *static_cast<const RowBlocks*>(rows)};
+  return launch<kFlat>(pr, B, body < 0 ? body_of(kFlat, nu + nd) : body, (cudaStream_t)stream);
 }
 
 // Kernel 3: the square Jacobian [B, K, D, n, n] whole; lout with tr(A^-1 L).
-int fl_slogdet_square_launch(const float* inv, const float* ja, const float* la,
-                             float* jout, float* lout, int B, int D, int K,
-                             int n, void* stream) {
-  const RowBlocks g{(long)D * n * n, (long)n * n, 0, 0, n};
-  return dispatch<true>(inv, ja, nullptr, la, jout, lout, B, D, K, n, 0, g,
-                        stream);
+int fl_slogdet_square_launch(const float* inv, const float* ja, const float* la, float* jout,
+                             float* lout, int B, int D, int K, int n, int body, int G, int S,
+                             const void* rows, void* stream) {
+  const Params pr{inv, ja, ja, la, jout, lout, D, K, n, 0, G, S,
+                  *static_cast<const RowBlocks*>(rows)};
+  return launch<kSquare>(pr, B, body < 0 ? body_of(kSquare, n) : body, (cudaStream_t)stream);
 }
 
 // Kernel 4: the square Jacobian in row blocks [B, K, D, nu, n], [B, K, D, nd, n].
-int fl_slogdet_square_split_launch(const float* inv, const float* ju,
-                                   const float* jd, const float* la,
-                                   float* jout, float* lout, int B, int D,
-                                   int K, int nu, int nd, void* stream) {
-  const long n = nu + nd;
-  const RowBlocks g{D * nu * n, nu * n, D * nd * n, nd * n, n};
-  return dispatch<true>(inv, ju, jd, la, jout, lout, B, D, K, nu, nd, g,
-                        stream);
+int fl_slogdet_square_split_launch(const float* inv, const float* ju, const float* jd,
+                                   const float* la, float* jout, float* lout, int B, int D,
+                                   int K, int nu, int nd, int body, int G, int S,
+                                   const void* rows, void* stream) {
+  const Params pr{inv, ju, jd, la, jout, lout, D, K, nu, nd, G, S,
+                  *static_cast<const RowBlocks*>(rows)};
+  return launch<kSquareSplit>(pr, B, body < 0 ? body_of(kSquareSplit, nu + nd) : body,
+                              (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -16,8 +16,12 @@ class NodeAttentionElectronUpdateFeature(nn.Module):
     With ``block_kernel`` the forward Laplacian of the whole block goes through
     :func:`ops.fl_block.psiformer_block_fl` (one kernel launch on the card), the
     counterpart of the JAX package's fused rule for the named-jit block
-    ``_psiformer_block`` (``fwdlap._try_block_rule``).  Plain tensors, such as
-    the sampler's forwards, always take the per-op forward.
+    ``_psiformer_block`` (``fwdlap._try_block_rule``), wherever
+    :func:`ops.fl_block.takes` says the kernel takes the shape: on the card
+    up to 32 electrons (its shared memory).  Above that the block runs the
+    per-op FL rules, as the JAX rule falls back to per-primitive
+    interpretation.  Plain tensors, such as the sampler's forwards, always
+    take the per-op forward.
     """
 
     def __init__(self, embedding_dim: int, *, num_heads: int, gen: torch.Generator,
@@ -40,7 +44,7 @@ class NodeAttentionElectronUpdateFeature(nn.Module):
         return att.query.w, att.key.w, att.value.w, att.w, lin1.w, lin1.b, lin2.w, lin2.b
 
     def forward(self, h):
-        if self.block_kernel and is_fl(h):
+        if self.block_kernel and is_fl(h) and fl_block.takes(h.x):
             y, jy, ly = fl_block.psiformer_block_fl(
                 h.x, h.jac, h.lap, *self.block_weights(), self.attention.num_heads
             )

@@ -37,12 +37,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURES = {
     'fl_attention_launch': ([_P] * 12 + [_I] * 6 + [_P], _I),
     'fl_attention_smem_bytes': ([_I] * 3, _L),
-    'fl_slogdet_traces_launch': ([_P] * 5 + [_I] * 7 + [_P], _I),
-    'fl_slogdet_traces_smem_bytes': ([_I] * 3, _L),
-    'fl_slogdet_square_launch': ([_P] * 5 + [_I] * 4 + [_P], _I),
-    'fl_slogdet_square_smem_bytes': ([_I], _L),
-    'fl_slogdet_square_split_launch': ([_P] * 6 + [_I] * 5 + [_P], _I),
-    'fl_slogdet_square_split_smem_bytes': ([_I], _L),
+    'fl_slogdet_traces_launch': ([_P] * 5 + [_I] * 8 + [_P] * 2, _I),
+    'fl_slogdet_square_launch': ([_P] * 5 + [_I] * 7 + [_P] * 2, _I),
+    'fl_slogdet_square_split_launch': ([_P] * 6 + [_I] * 8 + [_P] * 2, _I),
+    'fl_slogdet_body': ([_I] * 2, _I),
+    'fl_slogdet_smem_bytes': ([_I] * 4 + [_L], _L),
     'fl_block_launch': ([_P] * 15 + [_I] * 6 + [_P], _I),
     'fl_block_smem_bytes': ([_I] * 4, _L),
 }

@@ -25,11 +25,26 @@ from .. import fwdlap as fl
 from . import _cuda
 from .fl_attention import mha_core_fl_plain
 
-__all__ = ['psiformer_block_fl', 'psiformer_block_fl_plain', 'validate', 'weight_bytes']
+__all__ = [
+    'psiformer_block_fl', 'psiformer_block_fl_plain', 'takes', 'validate', 'weight_bytes',
+]
 
 MAX_N = 32  # tokens the kernel takes
 MAX_ROWS = 64  # kc * n, the rows of one chunk's products: one 64-row tensor-core tile
 SCRATCH = 8  # [n, d] arrays per walker the kernel keeps in global memory (kScratch)
+
+
+def takes(x) -> bool:
+    """Whether the block path takes a layer whose FL triple has primal ``x``
+    ``[B, n, d]``: on the card only up to MAX_N tokens, where the kernel's
+    [n, d] tiles fit a block's shared memory (at n = 64 the q, k and v tiles
+    alone need 196 KB of the 227 KB); on the CPU always (the plain version).
+    A layer the block path does not take runs the per-op FL rules (kernel 1
+    and the library's products), as the JAX package's block rule returns to
+    per-primitive interpretation where a block is not fusable.  The decision
+    reads the shape and the device only, so the launch counters show the
+    route taken."""
+    return not x.is_cuda or x.shape[-2] <= MAX_N
 
 
 def psiformer_block_fl_plain(x, J, L, wq, wk, wv, wo, w1, b1, w2, b2, num_heads: int):

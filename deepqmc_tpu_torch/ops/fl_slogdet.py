@@ -23,8 +23,17 @@ tensor, or raises:
 
 The square kernels return the Laplacian with its linear term tr(A_d^-1 L_d),
 as the TPU kernels do; the flat one returns sum_k tr(m_k^2) only.
+
+All three launch one of two bodies of the library, picked by n
+(``fl_slogdet_body``): the staged body (a block per walker and group of G
+determinants) at small n, the tiled body (a block per walker and
+determinant, 4 x 4 register tiles of m) at large n.  :func:`plan` gives G and
+the ring's depth S, and :func:`row_blocks` the layout record that tells the
+kernel where a direction's rows lie and how to copy them.
 """
 
+import collections
+import ctypes
 import functools
 
 import torch
@@ -44,7 +53,7 @@ __all__ = [
     'square_traces_plain',
 ]
 
-MAX_N = 64  # electrons per determinant the kernels take (a register row of m)
+MAX_N = 64  # electrons per determinant the kernels take (16 x 16 tiles in the tiled body)
 
 
 # --- plain versions -----------------------------------------------------------
@@ -118,40 +127,100 @@ def validate_square_split(inv, ju, jd, la):
 
 # --- kernels ------------------------------------------------------------------
 
+# Layouts and bodies of ``csrc/fl_slogdet.cu`` (its ``Layout`` and ``Body``).
+FLAT, SQUARE, SQUARE_SPLIT = 0, 1, 2
+STAGED, TILED = 0, 1
 
-def _launch(counter, entry, smem_entry, inv, operands, K, sizes):
-    """Launch ``entry`` of the library on ``inv`` and ``operands``; (jout, out)."""
-    B, D, n, _ = inv.shape
-    lib, limit = _cuda.library(), _cuda.smem_limit()
-    if getattr(lib, smem_entry)(n) > limit:
-        raise ValueError(f'{entry}: n={n} exceeds the {limit} B of shared memory a block can use')
-    jout = torch.empty((B, K, D), dtype=inv.dtype, device=inv.device)
-    out = torch.empty((B, D), dtype=inv.dtype, device=inv.device)
-    with torch.cuda.device(inv.device):
-        code = getattr(lib, entry)(
-            inv.data_ptr(), *(x.data_ptr() for x in operands), jout.data_ptr(), out.data_ptr(),
-            B, D, K, *sizes, _cuda.stream(),
-        )
-    _cuda.check(code, entry)
-    counter.launches += 1
-    return jout, out
-
-
-FLAT_MAX_THREADS = 256  # a flat-kernel block: at most one thread per (determinant, row)
-# Directions in the flat kernel's copy ring: two on their way while one is in
+FLAT_MAX_THREADS = 256  # a staged block: at most one thread per (determinant, row)
+# Directions in the staged body's copy ring: two on their way while one is in
 # use.  More stages cost blocks per SM, which the kernel needs more (PERF.md).
 FLAT_STAGES = 3
+STAGED_MAX_N = 48  # the staged body's largest instance
+TILED_STAGES = (4, 3, 2)  # the tiled body's ring depths, deepest first
+# An H100 SM: shared memory, of which each resident block costs 1 KB more than
+# it asks for, resident threads and resident blocks.
+SM_SHARED_BYTES = 233472
+BLOCK_RESERVED_BYTES = 1024
+SM_MAX_THREADS, SM_MAX_BLOCKS = 2048, 32
+
+Plan = collections.namedtuple('Plan', 'body G S')
+
+
+class RowBlocks(ctypes.Structure):
+    """The layout record of ``csrc/fl_slogdet.cu`` (``RowBlocks``), in floats.
+
+    In memory, determinant d's up row r of (walker b, direction k) lies at
+    ``ju + (b K + k) up_bk + d up_d + r row``, its down rows likewise in
+    ``jd``.  In a stage of the kernel's ring, determinant g of the block's
+    group has its up row r at ``g s_up_d + r s_row`` and its down row r at
+    ``s_dn + g s_dn_d + r s_row``; a stage is ``stage`` floats.  ``runs``:
+    each block (up, down) of the group is one run of G nu n (G nd n) floats,
+    laid out in the stage as in memory; else one copy a row of G n floats.
+    ``vw``: floats a copy, 4 by TMA, 2 or 1 by ``cp.async``.  ``align``: the
+    floats both pointers are aligned to.  ``shift``: a square layout's runs,
+    not all 16-byte aligned, each land 0 to 3 floats past their place (their
+    address mod 16 bytes, the same for every direction where the (walker,
+    direction) strides are multiples of 4 floats), the 16-byte-aligned
+    interior by TMA, the ends by plain copies, in place of copies of vw floats.
+    """
+
+    _fields_ = [(name, ctypes.c_long) for name in (
+        'up_bk', 'up_d', 'dn_bk', 'dn_d', 'row', 's_up_d', 's_dn', 's_dn_d', 's_row', 'stage',
+        'runs', 'vw', 'align', 'shift')]
+
+
+def _up4(x):
+    return -(-x // 4) * 4
+
+
+def row_blocks(layout, D, nu, nd, G, align=16):
+    """The layout record of a block of G determinants; ``align``, the bytes
+    both Jacobian pointers are aligned to (a power of 2), sets how wide a copy
+    may be.  The flat stage keeps the group's G n columns of each row (rows
+    padded to 4 floats); the square stages hold the group's runs as they lie
+    in memory (with 3 floats of room each where they are shifted), the down
+    run from the first 4-float boundary after the up run.  (The kernels derive the
+    stage half from the layout too, ``stage_rows``, and refuse a launch whose
+    record disagrees.)"""
+    n = nu + nd
+    if layout == FLAT:
+        Dn, ldr = D * n, _up4(G * n)
+        rb = RowBlocks(nu * Dn, n, nd * Dn, n, Dn, n, nu * ldr, n, ldr, n * ldr,
+                       int(G == D and ldr == Dn), 1, align // 4, 0)
+    else:  # SQUARE is SQUARE_SPLIT with nu = n, nd = 0
+        up_d, dn_d = nu * n, nd * n
+        rb = RowBlocks(D * up_d, up_d, D * dn_d, dn_d, n, up_d, 0, dn_d, n, 0, 1, 1, align // 4,
+                       0)
+    # every start, in memory and in the stage, and every length a multiple of vw
+    counts = [rb.up_bk, G * rb.up_d, G * n * nu if rb.runs else G * n]
+    if not rb.runs:
+        counts += [rb.row, rb.s_row]
+    if nd:
+        counts += [rb.dn_bk, G * rb.dn_d, rb.s_dn] + ([G * n * nd] if rb.runs else [])
+    rb.vw = next(v for v in (4, 2, 1) if 4 * v <= align and all(c % v == 0 for c in counts))
+    if layout != FLAT:
+        rb.shift = int(rb.vw < 4 and rb.up_bk % 4 == 0 and rb.dn_bk % 4 == 0)
+        room = 3 if rb.shift else 0
+        rb.s_dn = _up4(G * nu * n + room)
+        rb.stage = rb.s_dn + (_up4(G * nd * n + room) if nd else 0)
+    return rb
+
+
+def tiled_threads(n):
+    """Threads of a tiled block: one per 4 x 4 tile of the [np, np] product
+    (np = n rounded up to 4), rounded up to whole warps."""
+    nt = -(-n // 4)
+    return -(-nt * nt // 32) * 32
 
 
 def flat_plan(B, D, n, sms, limit, smem_bytes):
-    """G, the determinants a block of the flat kernel takes.
+    """G, the determinants a block of the staged body takes (every layout).
 
     The largest divisor of D with G n <= FLAT_MAX_THREADS that gives each of
     the ``sms`` SMs two blocks of the grid and fits two blocks in an SM's
     ``limit`` bytes by ``smem_bytes(n, G, FLAT_STAGES)``: the kernel waits on
     its loads and needs blocks in flight more than determinants a block.
-    Else 1, if one block of it fits; raises if not.  (Above 48 electrons the
-    kernel runs another body, which takes no plan: ``csrc/fl_slogdet.cu``.)
+    Else 1, if one block of it fits; raises if not.
     """
     groups = [g for g in range(D, 0, -1) if D % g == 0 and g * n <= FLAT_MAX_THREADS]
     fits = [g for g in groups
@@ -164,59 +233,118 @@ def flat_plan(B, D, n, sms, limit, smem_bytes):
     )
 
 
+def tiled_stages(B, D, n, sms, limit, smem_bytes, sm_bytes=SM_SHARED_BYTES):
+    """S, the directions in the tiled body's ring (one block per walker and
+    determinant): the deepest of TILED_STAGES that costs no block an SM, where
+    an SM wants as many blocks as the grid gives it, up to its threads' and
+    blocks' limits; ``smem_bytes(S)`` is a block's shared memory.  Raises if no ring
+    fits in ``limit`` bytes."""
+    want = min(-(-B * D // sms), SM_MAX_THREADS // tiled_threads(n), SM_MAX_BLOCKS)
+    fits = [S for S in TILED_STAGES if smem_bytes(S) <= limit]
+    if not fits:
+        raise ValueError(
+            f'fl_slogdet: n={n} exceeds the {limit} B of shared memory a block can use'
+        )
+    return max(fits, key=lambda S: (
+        min(want, sm_bytes // (smem_bytes(S) + BLOCK_RESERVED_BYTES)), S))
+
+
+def plan(layout, body, B, D, nu, nd, sms, limit, smem_bytes, sm_bytes=SM_SHARED_BYTES):
+    """The launch plan (body, G, S) of ``body`` for ``layout``; ``smem_bytes(body,
+    n, G, S, stage)`` is a block's shared memory (the library's
+    ``fl_slogdet_smem_bytes``)."""
+    n = nu + nd
+
+    def smem(G, S):
+        return smem_bytes(body, n, G, S, row_blocks(layout, D, nu, nd, G).stage)
+
+    if body == STAGED:
+        if n > STAGED_MAX_N:
+            raise ValueError(f'fl_slogdet: the staged body takes n <= {STAGED_MAX_N}, got {n}')
+        return Plan(STAGED, flat_plan(B, D, n, sms, limit, lambda _, G, S: smem(G, S)),
+                    FLAT_STAGES)
+    return Plan(TILED, 1, tiled_stages(B, D, n, sms, limit, lambda S: smem(1, S), sm_bytes))
+
+
 @functools.lru_cache(maxsize=None)
-def _flat_plan_on(B, D, n, device):
+def _plan_on(layout, B, D, nu, nd, device, body):
+    lib = _cuda.library()
+    if body is None:
+        body = lib.fl_slogdet_body(layout, nu + nd)
     props = torch.cuda.get_device_properties(device)
-    return flat_plan(B, D, n, props.multi_processor_count, _cuda.smem_limit(),
-                     _cuda.library().fl_slogdet_traces_smem_bytes)
+    return plan(layout, body, B, D, nu, nd, props.multi_processor_count, _cuda.smem_limit(),
+                lib.fl_slogdet_smem_bytes,
+                getattr(props, 'shared_memory_per_multiprocessor', SM_SHARED_BYTES))
 
 
-def slogdet_traces(inv, ju, jd):
+_row_blocks_on = functools.lru_cache(maxsize=None)(row_blocks)  # one record per shape: host time
+
+
+def _align(*tensors):
+    """The largest of 16, 8, 4 bytes that every non-empty tensor's pointer is aligned to."""
+    bits = 0
+    for t in tensors:
+        if t.numel():
+            bits |= t.data_ptr()
+    return 16 if bits % 16 == 0 else 8 if bits % 8 == 0 else 4
+
+
+def _launch(counter, layout, entry, inv, jacobians, la, K, nu, nd, body):
+    """Launch ``entry`` on the inverse, the Jacobian operands (and ``la``);
+    (jout, out).  ``body`` None takes the body by n, as the library says."""
+    B, D, n, _ = inv.shape
+    jout = torch.empty((B, K, D), dtype=inv.dtype, device=inv.device)
+    out = torch.empty((B, D), dtype=inv.dtype, device=inv.device)
+    sizes = (nu, nd) if layout != SQUARE else (n,)
+    with torch.cuda.device(inv.device):
+        p = _plan_on(layout, B, D, nu, nd, inv.device.index, body)
+        rows = _row_blocks_on(layout, D, nu, nd, p.G, _align(*jacobians))
+        code = getattr(_cuda.library(), entry)(
+            inv.data_ptr(), *(x.data_ptr() for x in jacobians),
+            *((la.data_ptr(),) if la is not None else ()), jout.data_ptr(), out.data_ptr(),
+            B, D, K, *sizes, p.body, p.G, p.S, ctypes.addressof(rows), _cuda.stream(),
+        )
+    _cuda.check(code, entry)
+    counter.launches += 1
+    counter.last_plan = p
+    return jout, out
+
+
+def slogdet_traces(inv, ju, jd, *, body=None):
     """tr(A_d^-1 J_{k,d}) and sum_k tr((A_d^-1 J_{k,d})^2) on flat row blocks
-    (TPU kernel ``_pallas_blocked_flat_split``): kernel on the card, else plain."""
+    (TPU kernel ``_pallas_blocked_flat_split``): kernel on the card, else plain.
+    ``body`` (STAGED or TILED) overrides the library's choice by n, for timing."""
     if not inv.is_cuda:
         return slogdet_traces_plain(inv, ju, jd)
     validate(inv, ju, jd)
-    B, D, n, _ = inv.shape
-    K, nu, nd = ju.shape[1], ju.shape[2], jd.shape[2]
-    jout = torch.empty((B, K, D), dtype=inv.dtype, device=inv.device)
-    trq = torch.empty((B, D), dtype=inv.dtype, device=inv.device)
-    with torch.cuda.device(inv.device):
-        G = _flat_plan_on(B, D, n, torch.cuda.current_device())
-        code = _cuda.library().fl_slogdet_traces_launch(
-            *(x.data_ptr() for x in (inv, ju, jd, jout, trq)), B, D, K, nu, nd, G,
-            FLAT_STAGES, _cuda.stream(),
-        )
-    _cuda.check(code, 'fl_slogdet_traces_launch')
-    slogdet_traces.launches += 1
-    return jout, trq
+    return _launch(slogdet_traces, FLAT, 'fl_slogdet_traces_launch', inv, (ju, jd), None,
+                   ju.shape[1], ju.shape[2], jd.shape[2], body)
 
 
-def square_traces(inv, ja, la):
+def square_traces(inv, ja, la, *, body=None):
     """(jout, lout) of :func:`square_traces_plain` (TPU kernel ``_pallas_blocked``):
-    kernel on the card, else plain."""
+    kernel on the card, else plain; ``body`` as in :func:`slogdet_traces`."""
     if not inv.is_cuda:
         return square_traces_plain(inv, ja, la)
     validate_square(inv, ja, la)
-    return _launch(square_traces, 'fl_slogdet_square_launch', 'fl_slogdet_square_smem_bytes',
-                   inv, (ja, la), ja.shape[1], (inv.shape[-1],))
+    return _launch(square_traces, SQUARE, 'fl_slogdet_square_launch', inv, (ja,), la,
+                   ja.shape[1], inv.shape[-1], 0, body)
 
 
-def square_split_traces(inv, ju, jd, la):
+def square_split_traces(inv, ju, jd, la, *, body=None):
     """(jout, lout) of :func:`square_split_traces_plain` (TPU kernel
-    ``_pallas_blocked_split``): kernel on the card, else plain.  The column
-    halves of A^-1 are read in place."""
+    ``_pallas_blocked_split``): kernel on the card, else plain; ``body`` as in
+    :func:`slogdet_traces`.  The column halves of A^-1 are read in place."""
     if not inv.is_cuda:
         return square_split_traces_plain(inv, ju, jd, la)
     validate_square_split(inv, ju, jd, la)
-    return _launch(square_split_traces, 'fl_slogdet_square_split_launch',
-                   'fl_slogdet_square_split_smem_bytes', inv, (ju, jd, la), ju.shape[1],
-                   (ju.shape[3], jd.shape[3]))
+    return _launch(square_split_traces, SQUARE_SPLIT, 'fl_slogdet_square_split_launch', inv,
+                   (ju, jd), la, ju.shape[1], ju.shape[3], jd.shape[3], body)
 
 
-slogdet_traces.launches = 0
-square_traces.launches = 0
-square_split_traces.launches = 0
+slogdet_traces.launches, slogdet_traces.last_plan = 0, None
+square_traces.launches, square_traces.last_plan = 0, None
+square_split_traces.launches, square_split_traces.last_plan = 0, None
 
 
 # --- the FL log-determinant ---------------------------------------------------

@@ -12,6 +12,8 @@ with its block rule on (interpret mode) at relative 1e-9, the tolerance of
 with a seed.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -100,6 +102,58 @@ def test_layer_switch_routes_fl_triples_only():
     assert fl_block.psiformer_block_fl.launches == before == 0
     for g, w in zip((got.x, got.jac, got.lap), (want.x, want.jac, want.lap)):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=RTOL_PER_OP, atol=RTOL_PER_OP)
+
+
+@pytest.mark.parametrize('n, on_card, want', [
+    (10, True, True), (32, True, True), (33, True, False), (42, True, False),
+    (42, False, True), (64, False, True),
+])
+def test_block_path_takes_by_size(n, on_card, want):
+    """On the card the block path takes a layer up to MAX_N = 32 electrons, the
+    kernel's shared-memory limit; on the CPU always (the plain version)."""
+    x = SimpleNamespace(is_cuda=True, shape=(2, n, 32)) if on_card else torch.zeros(2, n, 32)
+    assert fl_block.takes(x) is want
+
+
+@pytest.mark.parametrize('n', [10, 33, 42])
+def test_layer_dispatch_past_32_electrons_on_the_card(n, monkeypatch):
+    """With tensors seen as on the card, a layer with ``block_kernel=True``
+    launches the block kernel up to 32 electrons and takes the per-op rules
+    (one attention core, no block launch) at n = 33 and 42, with the per-op
+    layer's result bit for bit."""
+    takes = fl_block.takes
+    monkeypatch.setattr(fl_block, 'takes',
+                        lambda x: takes(SimpleNamespace(is_cuda=True, shape=x.shape)))
+    blocks = _counted(monkeypatch, fl_block, 'psiformer_block_fl')
+    attention = _counted(monkeypatch, fl_attention, 'mha_core_fl')
+    d, heads = 16, 2
+    fused, per_op = _layer(d, heads, 6, block_kernel=True), _layer(d, heads, 6)
+    h = fwdlap.FL(*(torch.as_tensor(t) for t in _random_triple(7, 2, 3, n, d)))
+    with torch.inference_mode():
+        got = fused(h)
+        assert (len(blocks), len(attention)) == ((1, 0) if n <= fl_block.MAX_N else (0, 1))
+        want = per_op(h)
+    if n > fl_block.MAX_N:
+        for g, w in zip((got.x, got.jac, got.lap), (want.x, want.jac, want.lap)):
+            assert torch.equal(g, w)
+
+
+def test_layer_on_cpu_takes_the_block_path_at_any_size(monkeypatch):
+    """On the CPU the layer with ``block_kernel=True`` runs the block wrapper
+    (its plain version) at n = 42 too, as before the dispatch by size."""
+    launches = fl_block.psiformer_block_fl.launches
+    blocks = _counted(monkeypatch, fl_block, 'psiformer_block_fl')
+    d, heads = 16, 2
+    fused = _layer(d, heads, 8, block_kernel=True)
+    x, jac, lap = (torch.as_tensor(t) for t in _random_triple(9, 2, 3, 42, d))
+    with torch.inference_mode():
+        got = fused(fwdlap.FL(x, jac, lap))
+    assert blocks == ['psiformer_block_fl']
+    monkeypatch.undo()
+    assert fl_block.psiformer_block_fl.launches == launches
+    want = fl_block.psiformer_block_fl_plain(x, jac, lap, *fused.block_weights(), heads)
+    for g, w in zip((got.x, got.jac, got.lap), want):
+        assert torch.equal(g, w)
 
 
 def test_wrapper_takes_plain_version_on_cpu():

@@ -15,6 +15,9 @@ package.
   tolerance 1e-8: second derivatives through an inverse, as
   ``tests/test_fl_slogdet.py`` holds JAX's rule to its own oracle.
 - The kernel wrappers' CPU path and their input checks.
+- A float64 emulation of the tiled body of kernels 3 and 4 (and of kernel 2
+  above its threshold) at n = 33, 42 and 64 against the plain versions,
+  relative 1e-12: the same sums in another order.
 """
 
 import jax
@@ -35,6 +38,8 @@ from deepqmc_tpu.ops.slogdet import slogdet_flat as jax_slogdet_flat
 from deepqmc_tpu_torch import fwdlap as fl
 from deepqmc_tpu_torch.ops import fl_slogdet
 from deepqmc_tpu_torch.physics import loop_laplacian
+from test_torch_fl_slogdet import LAYOUTS, _fill_stage, _global, _row, _tile_col, _up4, _vec
+from test_torch_fl_slogdet import _rows as _layout_rows
 
 RTOL = 1e-10
 FL_RTOL = 1e-8
@@ -277,3 +282,67 @@ def test_plain_versions_match_explicit_products_at_n42():
             torch.testing.assert_close(trq_f[b, d], trq, rtol=RTOL, atol=0)
             for got in (lout_s, lout_p):
                 torch.testing.assert_close(got[b, d], lout, rtol=RTOL, atol=RTOL)
+
+
+# --- the tiled body's algebra ------------------------------------------------------
+
+
+def _tiled_traces(layout, inv, ja, la, nu):
+    """A float64 emulation of the tiled body: A^-1 transposed and padded to np
+    with zero columns, J_k's rows read from the stage the record's copies fill
+    (NaN where no copy writes), each thread's 4 x 4 tile of m = A^-1 J_k over
+    rows 4 ti .. 4 ti + 3 and its columns ``tile_col``, tr(m_k) from the
+    diagonal, sum_k tr(m_k^2) from each tile and the transposed tile, masked
+    to the n x n block; (jout [B, K, D], out [B, D])."""
+    B, K, D, n, _ = ja.shape
+    np_, nt, vec = _up4(n), _up4(n) // 4, _vec(layout, n)
+    rb = fl_slogdet.row_blocks(layout, D, nu, n - nu, 1)
+    up, dn = _global(layout, ja, nu)
+    jout, out = np.zeros((B, K, D)), np.zeros((B, D))
+    for b in range(B):
+        for d in range(D):
+            at = np.zeros((n, np_))
+            at[:, :n] = inv[b, d].T
+            part = sum(at.reshape(-1)[(e // n) * np_ + e % n] * la[b, d].reshape(-1)[e]
+                       for e in range(n * n)) if la is not None else 0.0
+            q = 0.0
+            for k in range(K):
+                stage, shifts = _fill_stage(layout, rb, up, dn, b, k, d, K, 1, nu, n - nu)
+                J = np.stack([_row(rb, stage, 0, c, nu, np_, shifts) for c in range(n)])  # [n, np]
+                with np.errstate(invalid='ignore'):
+                    m = at.T @ J  # columns beyond n hold NaN: the kernel masks them
+                for ti in range(nt):
+                    rows = np.arange(4 * ti, 4 * ti + 4)
+                    for tj in range(nt):
+                        cols = np.array([_tile_col(vec, tj, c, nt) for c in range(4)])
+                        pair = m[np.ix_(rows, cols)] * m[np.ix_(cols, rows)].T
+                        q += np.where(np.outer(rows < n, cols < n), pair, 0.0).sum()
+                jout[b, k, d] = np.trace(m[:n, :n])
+            out[b, d] = part - q if la is not None else q
+    return jout, out
+
+
+@pytest.mark.parametrize('layout', sorted(LAYOUTS))
+@pytest.mark.parametrize('n', [33, 42, 64])
+def test_tiled_emulation_matches_plain(layout, n):
+    """The tiled body's algebra at f64 against the plain versions, relative 1e-12."""
+    lay = LAYOUTS[layout]
+    nu = _layout_rows(lay, n)[0]
+    rng = np.random.default_rng(n)
+    B, K, D = 1, 2, 2
+    a = np.eye(n) + 0.3 / n**0.5 * rng.normal(size=(B, D, n, n))
+    inv = np.linalg.inv(a)
+    ja = rng.normal(size=(B, K, D, n, n))
+    la = rng.normal(size=(B, D, n, n))
+    t = torch.as_tensor
+    if lay == fl_slogdet.FLAT:
+        got = _tiled_traces(lay, inv, ja, None, nu)
+        ju, jd = (t(np.ascontiguousarray(np.swapaxes(j, 2, 3)).reshape(B, K, -1, D * n))
+                  for j in (ja[..., :nu, :], ja[..., nu:, :]))
+        want = fl_slogdet.slogdet_traces_plain(t(inv), ju, jd)
+    else:
+        got = _tiled_traces(lay, inv, ja, la, nu)
+        want = fl_slogdet.square_traces_plain(t(inv), t(ja), t(la))
+    for g, w in zip(got, want):
+        scale = max(1.0, np.abs(w.numpy()).max())
+        np.testing.assert_allclose(g, w.numpy(), rtol=1e-12, atol=1e-12 * scale)
