@@ -50,7 +50,25 @@ Phases, each with a start and an end line and its own time budget:
    each), square row blocks (``slogdet_rows``: the square split kernel) and
    square whole (``slogdet``: the square kernel).  Signs must be equal, and
    log|det|, J and L within the local energy's tolerance rule of float64
-   (below), of the plain version in float32 on the card and of each other.
+   (below), of the plain version in float32 on the card and of each other;
+7. train path: 6 KFAC training steps of the same model (fresh seed-0 weights)
+   through ``deepqmc_tpu_torch.train`` on the per-op path: 2048 walkers,
+   decorr 10, ``median_log_squeeze_and_mask`` clipping, KFAC as the JAX
+   package's bench.py sets it (lr 0.05 / (1 + n / 10000), damping 1e-3, norm
+   constraint 1e-3, inverses every 5 steps, so refreshed at steps 0 and 5).
+   Every step must be finite, change the parameters and launch the attention
+   kernel 4 times, the flat slogdet kernel once and the block kernel never
+   (all from the local energy).  It prints the median step time of steps 1-5,
+   5 more steps split by CUDA events into sampling, local energy, gradient and
+   taps, KFAC update and psi refresh (the same calls the step makes), and the
+   peak device memory.  On 64 of the last walkers the VMC gradient (float32,
+   card, kernels) and one KFAC update from the run's optimizer state (as it
+   is, with carried inverses, and moved to a refresh step) are held to the
+   float64 plain path on the CPU by the local energy's rule, as global L2
+   norms over all parameters, and the gradient once more with
+   ``block_kernel=True``.  Then 2 training steps with
+   ``block_kernel=True``: 4 block launches, 1 flat slogdet launch and no
+   attention launch per step, finite, parameters changing.
 
 Each path's launch counts are read from a run that starts with every count
 at 0.  It prints a ``{"kernels": [...]}`` line, and as its last line
@@ -71,7 +89,7 @@ import time
 WATCHDOG_S = 1100  # the whole run, build included; the run's limit is 1200 s
 PHASE_BUDGET_S = {
     'device': 60, 'build': 240, 'kernels': 300, 'main_path': 300, 'block_path': 180,
-    'square_path': 120,
+    'square_path': 120, 'train_path': 240,
 }
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
@@ -264,6 +282,29 @@ def eloc_rel_errors(hamil, wf, r64, R, plain_wfs):
     rel = {k: ((e_path[k].double().cpu() - ref).abs() / scale).max().item()
            for k in ('card', 'plain_f32')}
     return rel, e_path['card'], scale
+
+
+def kfac_state_to(opt_state, dtype, device, step=None):
+    """A copy of a KFAC state in ``dtype`` on ``device`` (its step moved to ``step``)."""
+    return {
+        'step': opt_state['step'] if step is None else step,
+        'ema_weight': opt_state['ema_weight'],
+        **{key: {p: tuple(t.to(device=device, dtype=dtype) for t in pair)
+                 for p, pair in opt_state[key].items()}
+           for key in ('factors', 'inverses')},
+    }
+
+
+def flat_params(wf):
+    import torch
+
+    return torch.cat([p.detach().flatten() for p in wf.parameters()])
+
+
+def rel_l2(got, ref):
+    """|got - ref| / |ref|, both flat, in float64 on the CPU."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return ((got - ref).norm() / ref.norm()).item()
 
 
 def main() -> int:
@@ -717,6 +758,156 @@ def main() -> int:
                 if not (e <= t and p <= BLOCK_VS_PER_OP_FACTOR * t
                         and f <= BLOCK_VS_PER_OP_FACTOR * t):
                     raise SystemExit(f'square path: {name} disagrees on {lb}')
+
+    with Phase('train_path'):
+        from deepqmc_tpu_torch.fit import DEFAULT_OPT_KWARGS
+        from deepqmc_tpu_torch.kfac import KFAC
+        from deepqmc_tpu_torch.loss import create_loss_fn, median_log_squeeze_and_mask
+        from deepqmc_tpu_torch.sampling import DecorrSampler, MetropolisSampler
+
+        per_op_step = dict.fromkeys(counters, 0) | {'fl_attention': 4, 'fl_slogdet_traces': 1}
+        block_step = dict.fromkeys(counters, 0) | {'fl_block': 4, 'fl_slogdet_traces': 1}
+
+        def run_training(wf, steps, want):
+            """``steps`` KFAC steps of 2048 walkers from zeroed counts, each checked;
+            (step times, last train state)."""
+            zero_counts()
+            step_s, before, seen = [], flat_params(wf), counts()
+            t0 = time.monotonic()
+            for step, state, E_loc, stats in dq.train(hamil, wf, n_walkers=2048, steps=steps,
+                                                      decorr=10, seed=0, optimizer='kfac'):
+                torch.cuda.synchronize()
+                step_s.append(time.monotonic() - t0)
+                now, after = counts(), flat_params(wf)
+                launches = {k: now[k] - seen[k] for k in now}
+                loss = stats['local_energy/mean'].item()  # unit weights: the loss
+                print(f'train step {step}: loss {loss:.6f} E_loc std '
+                      f'{stats["local_energy/std"].item():.6f} acceptance '
+                      f'{stats["sampling/acceptance"].item():.4f} lr {stats["opt/lr"].item():.3e} '
+                      f'norm scale {stats["opt/norm_scale"].item():.4f} update norm '
+                      f'{stats["opt/update_norm"].item():.3e} time {step_s[-1]:.3f} s; '
+                      f'launches {launches}', flush=True)
+                if not (math.isfinite(loss) and torch.isfinite(E_loc).all()
+                        and E_loc.shape == (2048,)
+                        and all(torch.isfinite(v).all() for v in stats.values())):
+                    raise SystemExit(f'train step {step}: loss, E_loc or stats not finite, or '
+                                     f'E_loc of shape {tuple(E_loc.shape)}')
+                if torch.equal(after, before):
+                    raise SystemExit(f'train step {step} left the parameters unchanged')
+                if launches != want:
+                    raise SystemExit(f'train step {step} launched {launches}, want {want}')
+                seen, before = now, after
+                t0 = time.monotonic()
+            return step_s, state
+
+        wf_train = dq.psiformer_ansatz(hamil, seed=0).cuda()
+        torch.cuda.reset_peak_memory_stats()
+        step_s, state = run_training(wf_train, 6, per_op_step)
+        train_ms = 1e3 * sorted(step_s[1:])[2]
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        print(f'{smi} | training step (per-op path, KFAC, 2048 walkers): median of steps 1-5 '
+              f'{train_ms:.1f} ms (steps {", ".join(f"{1e3 * t:.1f}" for t in step_s)} ms; '
+              f'inverses refreshed at steps 0 and 5)', flush=True)
+        print(f'{smi} | training peak device memory {peak_gib:.2f} GiB', flush=True)
+
+        # the step split by CUDA events: the calls train_step makes, one by one
+        # (KFAC.step is loss.value_grad_and_taps, i.e. terms + grad_and_taps, then update)
+        sampler = DecorrSampler(length=10).wrap(MetropolisSampler(hamil, wf_train))
+        loss = create_loss_fn(hamil, wf_train, median_log_squeeze_and_mask)
+        kfac = KFAC(loss, **DEFAULT_OPT_KWARGS['kfac'])
+        kfac.init(sampler.phys_conf(R, state.sampler['r']))
+        smpl_state, opt_state = state.sampler, state.opt
+        split_gen = torch.Generator('cuda').manual_seed(7)
+        weight = torch.ones(2048, device='cuda')
+        stages = ('sampling', 'local energy', 'gradient and taps', 'KFAC update', 'psi refresh')
+        splits = []
+        for _ in range(5):  # steps 6-10 of the run: inverses carried, then refreshed at 10
+            refresh = opt_state['step'] % kfac.inverse_update_period == 0
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+            t0 = time.monotonic()
+            ev[0].record()
+            with torch.no_grad():
+                smpl_state, pc, _ = sampler.sample(split_gen, smpl_state, R)
+            ev[1].record()
+            _, E_loc, _ = loss.terms(pc, weight)
+            ev[2].record()
+            grads, taps = loss.grad_and_taps(pc, weight, E_loc, taps=True)
+            ev[3].record()
+            opt_state, _ = kfac.update(opt_state, grads, taps, 2048)
+            ev[4].record()
+            with torch.no_grad():
+                smpl_state = sampler.update(smpl_state, R)
+            ev[5].record()
+            ev[5].synchronize()
+            host_ms = 1e3 * (time.monotonic() - t0)
+            ms = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+            splits.append((refresh, ms, host_ms))
+            print(f'split step {opt_state["step"] - 1} (inverses '
+                  f'{"refreshed" if refresh else "carried"}): '
+                  + ', '.join(f'{n} {t:.2f} ms' for n, t in zip(stages, ms))
+                  + f'; sum {sum(ms):.2f} ms, host {host_ms:.2f} ms', flush=True)
+            del grads, taps
+        carried = [ms for refresh, ms, _ in splits if not refresh]
+        medians = [sorted(col)[len(col) // 2] for col in zip(*carried)]
+        refresh_kfac = [ms[3] for refresh, ms, _ in splits if refresh]
+        print(f'{smi} | training step split by CUDA events (median of the {len(carried)} '
+              'steps with carried inverses): '
+              + ', '.join(f'{n} {t:.2f} ms' for n, t in zip(stages, medians))
+              + f'; sum {sum(medians):.2f} ms; KFAC update on a refresh step '
+              + ', '.join(f'{t:.2f}' for t in refresh_kfac) + ' ms', flush=True)
+        del loss, kfac, sampler
+
+        # gradient and KFAC update on 64 walkers: card (f32, kernels) against the
+        # CPU plain path in f64, the bar set by the CPU plain path in f32
+        r64 = smpl_state['r'][:64]
+        weights = {k: v.cpu() for k, v in wf_train.state_dict().items()}
+
+        def replica(dtype, device, block_kernel=False):
+            wf_r = dq.psiformer_ansatz(hamil, seed=0, block_kernel=block_kernel).to(
+                device=device, dtype=dtype)
+            wf_r.load_state_dict({k: v.to(dtype) for k, v in weights.items()})
+            pc_r = dq.PhysicalConfiguration(R.to(device, dtype), r64.to(device, dtype),
+                                            torch.zeros(64, dtype=torch.long, device=device))
+            return wf_r, create_loss_fn(hamil, wf_r, median_log_squeeze_and_mask), pc_r
+
+        paths = {'card': (torch.float32, 'cuda'), 'plain_f64': (torch.float64, 'cpu'),
+                 'plain_f32': (torch.float32, 'cpu')}
+        grads, deltas = {}, {}
+        for name, (dtype, device) in [*paths.items(), ('card_block', (torch.float32, 'cuda'))]:
+            wf_r, loss_r, pc_r = replica(dtype, device, block_kernel=name == 'card_block')
+            ones = torch.ones(64, dtype=dtype, device=device)
+            _, g = loss_r.value_and_grad(pc_r, ones)
+            grads[name] = torch.cat([t.flatten() for t in g.values()])
+            if name == 'card_block':
+                continue
+            for label, step in (('carried', None), ('refreshed', 10)):
+                wf_r.load_state_dict({k: v.to(dtype) for k, v in weights.items()})
+                kfac_r = KFAC(loss_r, **DEFAULT_OPT_KWARGS['kfac'])
+                kfac_r.init(pc_r)
+                before = flat_params(wf_r)
+                kfac_r.step(kfac_state_to(opt_state, dtype, device, step), pc_r, ones)
+                deltas[name, label] = flat_params(wf_r) - before
+        checks = [('gradient', grads),
+                  ('gradient (block path)', grads | {'card': grads['card_block']})] + [
+            (f'KFAC update ({label} inverses)', {n: deltas[n, label] for n in paths})
+            for label in ('carried', 'refreshed')
+        ]
+        for what, vals in checks:
+            rel = {n: rel_l2(vals[n], vals['plain_f64']) for n in ('card', 'plain_f32')}
+            tol = ELOC_FACTOR * rel['plain_f32'] + ELOC_FLOOR
+            ok = rel['card'] <= tol
+            print(f'{what} on 64 walkers against the plain path in f64 (CPU), global L2: card '
+                  f'(f32, kernels) rel err {rel["card"]:.3e}; plain path (f32, CPU) rel err '
+                  f'{rel["plain_f32"]:.3e}; tol {tol:.3e} {"ok" if ok else "FAIL"}', flush=True)
+            if not ok:
+                raise SystemExit(f'the {what} on the card disagrees with the plain path')
+
+        wf_block_train = dq.psiformer_ansatz(hamil, seed=0, block_kernel=True).cuda()
+        block_s, _ = run_training(wf_block_train, 2, block_step)
+        print(f'{smi} | training step (block path, KFAC, 2048 walkers): steps '
+              f'{", ".join(f"{1e3 * t:.1f}" for t in block_s)} ms', flush=True)
+        del wf_train, wf_block_train
+        torch.cuda.empty_cache()
 
     print(json.dumps({'kernels': kernels}), flush=True)
     print(f'{smi} | whole run {time.monotonic() - _T0:.1f} s', flush=True)

@@ -1,13 +1,14 @@
 """deepqmc_tpu_torch: the PyTorch/CUDA port of deepqmc_tpu.
 
 It runs the evaluation step of the PsiFormer ansatz (Metropolis sampling,
-the forward-Laplacian local energy, energy statistics and EWM) with
-hand-written CUDA kernels for the forward-Laplacian attention core, the fused
-PsiFormer layer and the log-determinant traces (flat and square layouts).  It
-imports torch, numpy and the standard library only.
+the forward-Laplacian local energy, energy statistics and EWM) and its
+training step (the clipped VMC gradient, KFAC or Adam, the sampler's psi
+refresh), with hand-written CUDA kernels for the forward-Laplacian attention
+core, the fused PsiFormer layer and the log-determinant traces (flat and
+square layouts).  It imports torch, numpy and the standard library only.
 """
 
-from .fit import eval_step, evaluate  # noqa: F401
+from .fit import eval_step, evaluate, train  # noqa: F401
 from .hamil import MolecularHamiltonian  # noqa: F401
 from .molecule import Molecule  # noqa: F401
 from .presets import psiformer_ansatz  # noqa: F401

@@ -1,8 +1,9 @@
-"""JAX parameters -> the port's ``state_dict``.
+"""JAX parameters -> the port's ``state_dict``; JAX KFAC state -> the port's.
 
 The JAX package keeps parameters as ``{module/path: {name: array}}``; the port
 records each parameter's JAX address (``nn.core.jax_param_paths``), so the
-conversion is a lookup.  Weights share the JAX layout (``[in, out]``).
+conversion is a lookup.  Weights share the JAX layout (``[in, out]``), and so
+do the KFAC factors and inverses, which both packages key by the layer's path.
 """
 
 import numpy as np
@@ -10,7 +11,7 @@ import torch
 
 from .nn import jax_param_paths
 
-__all__ = ['state_dict_from_jax']
+__all__ = ['kfac_state_from_jax', 'state_dict_from_jax']
 
 
 def state_dict_from_jax(params, module: torch.nn.Module, dtype=torch.float64) -> dict:
@@ -31,4 +32,29 @@ def state_dict_from_jax(params, module: torch.nn.Module, dtype=torch.float64) ->
     extra = {(p, n) for p, bundle in params.items() for n in bundle} - used
     if extra:
         raise KeyError(f'JAX parameters unknown to the port: {sorted(extra)}')
+    return out
+
+
+def kfac_state_from_jax(opt_state, metas, module: torch.nn.Module) -> dict:
+    """The port's KFAC state (``kfac.KFAC.init``'s layout) from a JAX KFAC state
+    of one electronic state as numpy-convertible arrays; ``metas`` are the
+    port's discovered layers, ``module`` gives the dtype and device."""
+    ref = next(module.parameters())
+    if len(opt_state['factors']) != 1:
+        raise NotImplementedError('the port takes one electronic state')
+    paths = [m.path for m in metas]
+    out = {'step': int(np.asarray(opt_state['step'])),
+           'ema_weight': float(np.asarray(opt_state['ema_weight']))}
+    for key in ('factors', 'inverses'):
+        state = opt_state[key][0]
+        if sorted(state) != sorted(paths):
+            raise KeyError(f'JAX KFAC {key} are for other layers: {sorted(set(state) ^ set(paths))}')
+        out[key] = {}
+        for m in metas:
+            pair = tuple(torch.tensor(np.asarray(x), dtype=ref.dtype, device=ref.device)
+                         for x in state[m.path])
+            want = ((m.in_dim + m.has_bias,) * 2, (m.out_dim,) * 2)
+            if tuple(tuple(x.shape) for x in pair) != want:
+                raise ValueError(f'{key} of {m.path}: shapes {[x.shape for x in pair]}, want {want}')
+            out[key][m.path] = pair
     return out

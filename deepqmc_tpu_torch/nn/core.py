@@ -9,13 +9,25 @@ carries the path segment of its JAX counterpart in ``jax_name``, and
 
 The initialisers draw from an explicit ``torch.Generator`` with the same
 families as the JAX package (haiku-style variance scaling).
+
+The dense layers (``Linear`` and the output product of ``MultiHeadAttention``)
+call :meth:`Module.tag_dense` after their product, the counterpart of the JAX
+package's ``tag_dense``/``apply_instrumented``: inside :func:`instrumented`
+each call records its input and its output tensor, from which KFAC takes the
+activation factor and (by the gradient with respect to the output) the
+sensitivity factor.  Outside that context, in evaluation and in the
+forward-Laplacian pass, the tag does nothing.
 """
 
+import contextlib
 import math
 
 import torch
 
-__all__ = ['Module', 'jax_param_paths', 'variance_scaling']
+__all__ = [
+    'DenseTaps', 'Module', 'dense_layer_paths', 'instrumented', 'jax_param_paths',
+    'variance_scaling',
+]
 
 TRUNCATED_NORMAL_STDDEV_FACTOR = 0.87962566103423978
 
@@ -24,10 +36,55 @@ class Module(torch.nn.Module):
     """A ``torch.nn.Module`` that knows its JAX path segment."""
 
     jax_name: str = ''
+    taps: 'DenseTaps | None' = None  # set only inside ``instrumented``
 
     def __init__(self, jax_name: str):
         super().__init__()
         self.jax_name = jax_name
+
+    def tag_dense(self, x, out):
+        """Record ``(x, out)`` of this dense layer's call while instrumented; ``out``."""
+        if self.taps is not None:
+            self.taps.record(self, x, out)
+        return out
+
+
+class DenseTaps:
+    """What the dense layers saw in one instrumented forward: per layer, per
+    call, the input (detached) and the output (still in the autograd graph)."""
+
+    def __init__(self):
+        self.calls: dict[torch.nn.Module, list[tuple[torch.Tensor, torch.Tensor]]] = {}
+
+    def record(self, module, x, out):
+        if not (isinstance(x, torch.Tensor) and isinstance(out, torch.Tensor)):
+            raise TypeError('an instrumented forward takes plain tensors, not FL triples')
+        self.calls.setdefault(module, []).append((x.detach(), out))
+
+
+@contextlib.contextmanager
+def instrumented(root: torch.nn.Module):
+    """Within the context, each dense layer of ``root`` records its calls in
+    the yielded :class:`DenseTaps`; on exit the layers are plain again."""
+    taps = DenseTaps()
+    modules = [m for m in root.modules() if isinstance(m, Module)]
+    for m in modules:
+        m.taps = taps
+    try:
+        yield taps
+    finally:
+        for m in modules:
+            del m.taps
+
+
+def dense_layer_paths(root: torch.nn.Module) -> dict[torch.nn.Module, str]:
+    """Each module of ``root`` that holds a dense weight ``w`` -> the JAX path of it."""
+    paths = jax_param_paths(root)
+    return {
+        mod: paths[f'{name}.w' if name else 'w'][0]
+        for name, mod in root.named_modules()
+        if isinstance(getattr(mod, 'w', None), torch.nn.Parameter)
+    }
 
 
 def jax_param_paths(root: torch.nn.Module) -> dict[str, tuple[str, str]]:

@@ -47,7 +47,7 @@ class Linear(Module):
 
     def forward(self, x):
         out = x @ self.w
-        return out if self.b is None else out + self.b
+        return self.tag_dense(x, out if self.b is None else out + self.b)
 
 
 class MLP(Module):
@@ -88,6 +88,7 @@ class MultiHeadAttention(Module):
 
     The projections are head-flat ``[token, H*dh]``; the softmax core is
     :func:`fwdlap.mha_core`, which on FL operands runs the attention kernel.
+    The output product ``attended @ w`` is a dense layer for KFAC, as in JAX.
     """
 
     def __init__(self, in_dim: int, num_heads: int, key_size: int, *, gen: torch.Generator,
@@ -103,7 +104,7 @@ class MultiHeadAttention(Module):
 
     def forward(self, q, k, v):
         attended = fl.mha_core(self.query(q), self.key(k), self.value(v), self.num_heads)
-        return attended @ self.w
+        return self.tag_dense(attended, attended @ self.w)
 
 
 class ResidualConnection:

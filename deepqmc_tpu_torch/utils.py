@@ -1,8 +1,13 @@
-"""Helpers shared by the port's entry points."""
+"""Helpers shared by the port's entry points, and its copies of the numeric
+helpers of ``deepqmc_tpu/utils.py`` that the training step needs
+(``log_squeeze``, ``masked_mean`` and the learning-rate schedules)."""
 
 import torch
 
-__all__ = ['cuda_median_ms', 'resolve_device']
+__all__ = [
+    'ConstantSchedule', 'InverseSchedule', 'cuda_median_ms', 'log_squeeze', 'masked_mean',
+    'resolve_device', 'tree_norm',
+]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -39,3 +44,28 @@ def cuda_median_ms(fn, runs=20, warmup=3):
         times.append(start.elapsed_time(stop))
     times.sort()
     return times[len(times) // 2]
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` where ``mask`` holds over the count of such entries."""
+    return torch.where(mask, x, torch.zeros_like(x)).sum() / mask.sum()
+
+
+def log_squeeze(x: torch.Tensor) -> torch.Tensor:
+    """Soft, sign-preserving log-like squashing: the identity near 0, logarithmic far out."""
+    sgn, x = torch.sign(x), x.abs()
+    return sgn * torch.log1p((x + x**2 / 2 + x**3) / (1 + x**2))
+
+
+def InverseSchedule(init_value, decay_rate):
+    """lr(n) = init / (1 + n / decay)."""
+    return lambda n: init_value / (1 + n / decay_rate)
+
+
+def ConstantSchedule(value):
+    return lambda n: value
+
+
+def tree_norm(tensors) -> torch.Tensor:
+    """The sum of the L2 norms of ``tensors`` (``deepqmc_tpu.utils.tree_norm``)."""
+    return sum(torch.linalg.vector_norm(t) for t in tensors)

@@ -56,8 +56,9 @@ def test_evaluate_needs_cuda_unless_told():
     hamil = dqt.MolecularHamiltonian(mol=dqt.Molecule.from_name('H2'))
     wf = dqt.psiformer_ansatz(hamil, n_determinants=1, embedding_dim=8, n_interactions=1,
                               num_heads=2)
-    with pytest.raises(RuntimeError, match='CUDA'):
-        next(dqt.evaluate(hamil, wf, n_walkers=4, steps=1))
+    for entry_point in (dqt.evaluate, dqt.train):
+        with pytest.raises(RuntimeError, match='CUDA'):
+            next(entry_point(hamil, wf, n_walkers=4, steps=1))
 
 
 def test_source_files_are_small():

@@ -91,3 +91,29 @@ def torch_phys_conf(hamil_torch, r: np.ndarray):
 
     R = torch.as_tensor(hamil_torch.mol.coords, dtype=torch.float64)
     return PhysicalConfiguration(R, torch.tensor(r), torch.zeros(len(r), dtype=torch.long))
+
+
+def jax_batch(hamil_jax, r: np.ndarray):
+    """(phys_conf, weight, data) of one molecule and one state, batch shape
+    [1, 1, B], as the JAX loss and optimizers take it; unit weights."""
+    import jax.numpy as jnp
+
+    pc = jax.tree_util.tree_map(lambda x: x[None, None], jax_phys_conf(hamil_jax, r))
+    return pc, jnp.ones((1, 1, len(r))), {}
+
+
+def assert_close(got, want, rel: float, what: str = ''):
+    """max |got - want| <= rel * max |want| (a tensor or array of any shape)."""
+    got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    err, scale = np.abs(got - want).max(initial=0.0), np.abs(want).max(initial=0.0)
+    assert err <= rel * scale, f'{what}: max err {err:.3e} > {rel:.0e} x {scale:.3e}'
+
+
+def grads_by_jax_path(grads: dict, wf) -> dict:
+    """The port's ``{state_dict key: tensor}`` as ``{(JAX path, name): tensor}``."""
+    from deepqmc_tpu_torch.nn import jax_param_paths
+
+    paths = jax_param_paths(wf)
+    return {paths[k]: v for k, v in grads.items()}
