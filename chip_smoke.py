@@ -68,7 +68,27 @@ Phases, each with a start and an end line and its own time budget:
    norms over all parameters, and the gradient once more with
    ``block_kernel=True``.  Then 2 training steps with
    ``block_kernel=True``: 4 block launches, 1 flat slogdet launch and no
-   attention launch per step, finite, parameters changing.
+   attention launch per step, finite, parameters changing;
+8. sampling path: the same model (fresh seed-0 weights), 2048 walkers, per-op
+   path.  ``train(sampler='decorr_langevin', max_eq_steps=60)`` equilibrates
+   (10 Langevin moves a call, early stopping allowed; no kernel launches) and
+   takes 3 KFAC steps (each finite, changing the parameters, 4 attention
+   launches, 1 flat slogdet launch, no block launch); it prints the calls
+   taken, their median time, tau and the acceptance at the end, and the
+   median step time.  The cleaned Langevin force of 64 equilibrated walkers
+   (float32, card) is held to the float64 plain path on the CPU by the local
+   energy's rule (global L2, relative to max(1, |F|)).  The log|det| of the
+   Slater matrices of those walkers by ``torch.linalg.slogdet`` on the strided
+   view ``slogdet_flat`` builds and on a contiguous copy, each against
+   float64.  One sample call of each recipe (``bench.py``'s Metropolis at
+   decorr 10 and the four of ``sampling.RECIPES``), the median of 3 after a
+   warm-up.  Then two geometries (the stored H2O and the same with both O-H
+   bonds 10 % longer), one per step, sampled by
+   ``chain(ResampledSampler(period=3), DecorrSampler(length=10),
+   MetropolisSampler(max_age=20))``: 4 KFAC steps through ``fit.train_step``,
+   each leaving the other molecule's walkers and EWM row bit-equal, with
+   finite, positive walker weights of unit mean; it prints the largest weight,
+   the effective sample size and the peak device memory of the phase.
 
 Each path's launch counts are read from a run that starts with every count
 at 0.  It prints a ``{"kernels": [...]}`` line, and as its last line
@@ -89,7 +109,7 @@ import time
 WATCHDOG_S = 1100  # the whole run, build included; the run's limit is 1200 s
 PHASE_BUDGET_S = {
     'device': 60, 'build': 240, 'kernels': 300, 'main_path': 300, 'block_path': 180,
-    'square_path': 120, 'train_path': 240,
+    'square_path': 120, 'train_path': 240, 'sampling_path': 240,
 }
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
@@ -307,6 +327,212 @@ def rel_l2(got, ref):
     return ((got - ref).norm() / ref.norm()).item()
 
 
+def force_rel_errors(hamil, wf, r64, tau, R):
+    """The cleaned Langevin force of ``wf`` (card) and of the float32 plain path
+    (CPU) on the walkers ``r64``, each against the float64 plain path (CPU):
+    |F - F_64| / max(1, |F_64|), global L2 norms."""
+    import torch
+
+    import deepqmc_tpu_torch as dq
+    from deepqmc_tpu_torch.sampling import LangevinSampler
+
+    weights = {k: v.cpu() for k, v in wf.state_dict().items()}
+    forces = {}
+    for name, dtype, device in (('card', torch.float32, 'cuda'),
+                                ('plain_f64', torch.float64, 'cpu'),
+                                ('plain_f32', torch.float32, 'cpu')):
+        wf_r = dq.psiformer_ansatz(hamil, seed=0).to(device=device, dtype=dtype)
+        wf_r.load_state_dict({k: v.to(dtype) for k, v in weights.items()})
+        state = {'r': r64.to(device, dtype), 'age': torch.zeros(len(r64), dtype=torch.long),
+                 'tau': tau.to(device, dtype)}
+        with torch.no_grad():
+            forces[name] = LangevinSampler(hamil, wf_r).update(state, R.to(device, dtype))['force']
+    ref = forces['plain_f64'].double().cpu()
+    scale = max(1.0, ref.norm().item())
+    return {k: (forces[k].double().cpu() - ref).norm().item() / scale
+            for k in ('card', 'plain_f32')}
+
+
+def sampling_path(dq, hamil, R, smi, counts, zero_counts, per_op_step):
+    """Phase 8: equilibration and training with a recipe, the force against
+    float64, the slogdet layouts, a sample call per recipe, two geometries."""
+    import torch
+
+    from deepqmc_tpu_torch.ewm import init_multi_mol_multi_state_ewm
+    from deepqmc_tpu_torch.fit import (
+        DEFAULT_OPT_KWARGS,
+        TrainState,
+        molecule_state,
+        train_step,
+        walker_weights,
+    )
+    from deepqmc_tpu_torch.loss import create_loss_fn, median_log_squeeze_and_mask
+    from deepqmc_tpu_torch.ops.slogdet import unflatten_dets
+    from deepqmc_tpu_torch.optimizer import KFACOptimizer
+    from deepqmc_tpu_torch.sampling import (
+        RECIPES,
+        DecorrSampler,
+        MetropolisSampler,
+        ResampledSampler,
+        chain,
+        initialize_sampler_state,
+        initialize_sampling,
+    )
+    from deepqmc_tpu_torch.utils import cuda_median_ms
+
+    torch.cuda.reset_peak_memory_stats()
+    wf = dq.psiformer_ansatz(hamil, seed=0).cuda()
+    zero_counts()
+    seen, before = counts(), flat_params(wf)
+    eq_s, step_s, last_eq = [], [], None
+    t0 = time.monotonic()
+    for step, state, E_loc, stats in dq.train(hamil, wf, n_walkers=2048, steps=3, seed=0,
+                                              sampler='decorr_langevin', max_eq_steps=60):
+        torch.cuda.synchronize()
+        (eq_s if E_loc is None else step_s).append(time.monotonic() - t0)
+        now, after = counts(), flat_params(wf)
+        launches = {k: now[k] - seen[k] for k in now}
+        if E_loc is None:
+            last_eq = (step, stats, state.sampler)
+            if any(launches.values()):
+                raise SystemExit(f'equilibration call {step} launched {launches}')
+        else:
+            loss = stats['local_energy/mean'].item()
+            print(f'langevin train step {step}: loss {loss:.6f} acceptance '
+                  f'{stats["sampling/acceptance"].item():.4f} tau '
+                  f'{stats["sampling/tau"].item():.4f} time {step_s[-1]:.3f} s; launches '
+                  f'{launches}', flush=True)
+            if not (math.isfinite(loss) and torch.isfinite(E_loc).all()
+                    and all(torch.isfinite(v).all() for v in stats.values())):
+                raise SystemExit(f'langevin train step {step} not finite')
+            if torch.equal(after, before):
+                raise SystemExit(f'langevin train step {step} left the parameters unchanged')
+            if launches != per_op_step:
+                raise SystemExit(f'langevin train step {step} launched {launches}, '
+                                 f'want {per_op_step}')
+        seen, before = now, after
+        t0 = time.monotonic()
+    eq_step, eq_stats, eq_state = last_eq
+    eq_median = sorted(eq_s)[len(eq_s) // 2]
+    print(f'{smi} | equilibration (decorr_langevin, 2048 walkers, at most 60 calls, early '
+          f'stopping on): {len(eq_s)} calls, median {eq_median:.4f} s a call (first '
+          f'{eq_s[0]:.3f} s, all {sum(eq_s):.2f} s); at the end tau '
+          f'{eq_stats["sampling/tau"].item():.4f}, acceptance '
+          f'{eq_stats["sampling/acceptance"].item():.4f}', flush=True)
+    print(f'{smi} | training step (decorr_langevin, KFAC, 2048 walkers): median of 3 '
+          f'{1e3 * sorted(step_s)[1]:.1f} ms (steps '
+          f'{", ".join(f"{1e3 * t:.1f}" for t in step_s)} ms)', flush=True)
+
+    # the cleaned force of 64 equilibrated walkers against float64
+    _, elec = molecule_state(eq_state)
+    rel = force_rel_errors(hamil, wf, elec['r'][:64], elec['tau'], R)
+    tol = ELOC_FACTOR * rel['plain_f32'] + ELOC_FLOOR
+    ok = rel['card'] <= tol
+    print(f'Langevin force on 64 walkers against the plain path in f64 (CPU), global L2 '
+          f'relative to max(1, |F|): card (f32) {rel["card"]:.3e}; plain path (f32, CPU) '
+          f'{rel["plain_f32"]:.3e}; tol {tol:.3e} {"ok" if ok else "FAIL"}', flush=True)
+    if not ok:
+        raise SystemExit('the Langevin force on the card disagrees with the plain path')
+
+    # log|det| of the equilibrated walkers' Slater matrices: strided view and copy
+    with torch.no_grad():
+        pc = dq.PhysicalConfiguration(R, elec['r'], torch.zeros(2048, dtype=torch.long,
+                                                                device='cuda'))
+        a_flat = torch.cat(wf._spin_orbitals(pc), -2)
+        view = unflatten_dets(a_flat, wf.n_det)
+        ref = torch.linalg.slogdet(view.double())[1]
+        for label, a in (('strided view', view), ('contiguous copy', view.contiguous())):
+            err = (torch.linalg.slogdet(a)[1].double() - ref).abs()
+            rel_det = err / ref.abs().clamp(min=1.0)
+            print(f'{smi} | slogdet of the {label} (f32, card, stride {tuple(a.stride())}) '
+                  f'against f64: log|det| max abs err {err.max().item():.3e}, median '
+                  f'{err.median().item():.3e}, max rel (to max(1, |ref|)) '
+                  f'{rel_det.max().item():.3e}', flush=True)
+        del pc, a_flat, view
+
+    # one sample call of each recipe at 2048 walkers, from the equilibrated walkers
+    recipes = {'bench.py Metropolis (decorr 10)':
+               lambda hamil, wf: DecorrSampler(length=10).wrap(MetropolisSampler(hamil, wf)),
+               **RECIPES}
+    gen = torch.Generator('cuda').manual_seed(3)
+    for name, factory in recipes.items():
+        sampler = factory(hamil=hamil, wf=wf)
+        with torch.no_grad():
+            state = sampler.update({'r': elec['r'], 'age': torch.zeros_like(elec['age']),
+                                    'tau': torch.tensor(sampler.initial_tau, device='cuda')}, R)
+            ms = cuda_median_ms(lambda: sampler.sample(gen, state, R), runs=3, warmup=1)
+        print(f'{smi} | sample call of {name} ({sampler.length} moves, 2048 walkers): '
+              f'{ms:.2f} ms', flush=True)
+        del state
+
+    # two geometries, one molecule a step, walkers weighted by ResampledSampler
+    coords = hamil.mol.coords
+    stretched = coords.copy()
+    stretched[1:] = coords[0] + 1.1 * (coords[1:] - coords[0])
+    mols = [hamil.mol, dq.Molecule(coords=stretched, charges=hamil.mol.charges,
+                                   charge=hamil.mol.charge, spin=hamil.mol.spin)]
+    wf2 = dq.psiformer_ansatz(hamil, seed=0).cuda()
+    factory = lambda hamil, wf: chain(  # noqa: E731
+        ResampledSampler(period=3), DecorrSampler(length=10),
+        MetropolisSampler(hamil, wf, max_age=20))
+    idx_sampler, sampler = initialize_sampling(torch.Generator().manual_seed(2), hamil, wf2,
+                                               mols, 1, 1, elec_sampler=factory)
+    with torch.no_grad():
+        state = initialize_sampler_state(torch.Generator().manual_seed(0), sampler, 2048, mols,
+                                         dtype=torch.float32, device='cuda')
+    opt = KFACOptimizer(create_loss_fn(hamil, wf2, median_log_squeeze_and_mask),
+                        **DEFAULT_OPT_KWARGS['kfac'])
+    R0, elec0 = molecule_state(state)
+    train_state = TrainState(state, opt.init(MetropolisSampler.phys_conf(R0, elec0['r'])))
+    ewm, update_ewm = init_multi_mol_multi_state_ewm((2, 1), device='cuda')
+    std_ewm = ewm
+    gen = torch.Generator('cuda').manual_seed(1)
+    zero_counts()
+    seen, before, two_s = counts(), flat_params(wf2), []
+    for step in range(4):
+        mol_idxs = idx_sampler.sample()
+        i = mol_idxs.item()
+        prev, prev_ewm = train_state.sampler, ewm
+        t0 = time.monotonic()
+        train_state, ewm, std_ewm, E_loc, stats = train_step(
+            gen, sampler, opt, train_state, mol_idxs, ewm, std_ewm, update_ewm)
+        torch.cuda.synchronize()
+        two_s.append(time.monotonic() - t0)
+        now, after = counts(), flat_params(wf2)
+        launches = {k: now[k] - seen[k] for k in now}
+        weight = walker_weights(train_state.sampler, mol_idxs)
+        ess = stats['sampling/effective sample size'].item()
+        print(f'two geometries, step {step}: molecule {i}, E_loc mean '
+              f'{stats["local_energy/mean"].item():.6f}, largest weight '
+              f'{weight.max().item():.4f}, effective sample size {ess:.1f} of 2048, time '
+              f'{two_s[-1]:.3f} s; launches {launches}', flush=True)
+        new = train_state.sampler
+        if not all(torch.equal(new['elec'][k][1 - i], prev['elec'][k][1 - i])
+                   for k in ('r', 'age', 'tau', 'step')):
+            raise SystemExit(f'step {step} on molecule {i} changed the other molecule\'s walkers')
+        if torch.equal(new['elec']['r'][i], prev['elec']['r'][i]):
+            raise SystemExit(f'step {step} left the walkers of molecule {i} where they were')
+        if not all(torch.allclose(a[1 - i], b[1 - i], rtol=0, atol=0, equal_nan=True)
+                   for a, b in zip(ewm, prev_ewm)) or torch.equal(ewm.buffer[i],
+                                                                  prev_ewm.buffer[i]):
+            raise SystemExit(f'step {step} updated the EWM grid outside molecule {i}')
+        if not (torch.isfinite(weight).all() and (weight > 0).all()
+                and abs(weight.mean().item() - 1) < 1e-5):
+            raise SystemExit(f'step {step}: the walker weights are not finite, positive and '
+                             'of unit mean')
+        if not (torch.isfinite(E_loc).all() and not torch.equal(after, before)
+                and launches == per_op_step):
+            raise SystemExit(f'step {step}: not finite, parameters unchanged or launches '
+                             f'{launches}, want {per_op_step}')
+        seen, before = now, after
+    print(f'{smi} | two geometries (ResampledSampler, decorr 10, max_age 20, KFAC): steps '
+          f'{", ".join(f"{1e3 * t:.1f}" for t in two_s)} ms', flush=True)
+    print(f'{smi} | sampling path peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB', flush=True)
+    del wf, wf2, train_state, state, opt
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -334,6 +560,7 @@ def main() -> int:
             square_traces_plain,
         )
         from deepqmc_tpu_torch.ops.slogdet import unflatten_dets
+        from deepqmc_tpu_torch.fit import molecule_state
         from deepqmc_tpu_torch.utils import cuda_median_ms
     except ImportError as e:
         print(f'chip_smoke: the package deepqmc_tpu_torch is missing ({e}); run from the '
@@ -561,7 +788,7 @@ def main() -> int:
                   f'{stats["energy/ewm"].item():.6f} time {step_s[-1]:.3f} s', flush=True)
             if not torch.isfinite(E_loc).all() or E_loc.shape != (2048,):
                 raise SystemExit(f'step {step}: E_loc not finite or of shape {tuple(E_loc.shape)}')
-            last = state
+            last = molecule_state(state)[1]  # the one molecule's electron sampler state
             t0 = time.monotonic()
         return step_s, last, counts()
 
@@ -815,8 +1042,8 @@ def main() -> int:
         sampler = DecorrSampler(length=10).wrap(MetropolisSampler(hamil, wf_train))
         loss = create_loss_fn(hamil, wf_train, median_log_squeeze_and_mask)
         kfac = KFAC(loss, **DEFAULT_OPT_KWARGS['kfac'])
-        kfac.init(sampler.phys_conf(R, state.sampler['r']))
-        smpl_state, opt_state = state.sampler, state.opt
+        smpl_state, opt_state = molecule_state(state.sampler)[1], state.opt
+        kfac.init(sampler.phys_conf(R, smpl_state['r']))
         split_gen = torch.Generator('cuda').manual_seed(7)
         weight = torch.ones(2048, device='cuda')
         stages = ('sampling', 'local energy', 'gradient and taps', 'KFAC update', 'psi refresh')
@@ -908,6 +1135,9 @@ def main() -> int:
               f'{", ".join(f"{1e3 * t:.1f}" for t in block_s)} ms', flush=True)
         del wf_train, wf_block_train
         torch.cuda.empty_cache()
+
+    with Phase('sampling_path'):
+        sampling_path(dq, hamil, R, smi, counts, zero_counts, per_op_step)
 
     print(json.dumps({'kernels': kernels}), flush=True)
     print(f'{smi} | whole run {time.monotonic() - _T0:.1f} s', flush=True)

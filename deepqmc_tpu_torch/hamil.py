@@ -40,10 +40,11 @@ class MolecularHamiltonian:
     # --- walker initialisation ------------------------------------------------
 
     def init_sample(
-        self, gen: torch.Generator, n: int, elec_std: Optional[float] = None,
+        self, gen: torch.Generator, n: int, R=None, elec_std: Optional[float] = None,
         dtype=torch.float64,
     ) -> PhysicalConfiguration:
-        """Heuristic initial electron positions for ``n`` walkers.
+        """Heuristic initial electron positions for ``n`` walkers around the
+        nuclei ``R`` ``[n_nuc, 3]`` (None: the molecule's own geometry).
 
         The same heuristic as the JAX package (integer seats per nucleus,
         per-atom spin split with a nearest-neighbour bond walk, Gaussian
@@ -51,7 +52,7 @@ class MolecularHamiltonian:
         drawn from ``gen`` (on the generator's device).
         """
         dev = gen.device
-        R = torch.as_tensor(self.mol.coords, dtype=dtype, device=dev)
+        R = torch.as_tensor(self.mol.coords if R is None else R, dtype=dtype, device=dev)
         charges = torch.as_tensor(self.mol.charges, dtype=dtype, device=dev)
         seats = self._seat_electrons(gen, n, dev)
         up, down = self._distribute_spins(gen, R, seats)

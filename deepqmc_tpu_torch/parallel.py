@@ -1,5 +1,6 @@
 """Reductions over the walker batch (counterpart of the single-process
-``all_device_*`` helpers of ``deepqmc_tpu/parallel.py``).
+``all_device_*`` helpers and ``pexp_normalize_mean`` of
+``deepqmc_tpu/parallel.py``).
 
 The JAX package computes these over the globally sharded walker axis; here the
 batch lives on one device, so each is the plain reduction over all of it.  ``jnp.median`` and
@@ -11,7 +12,7 @@ interpolation, as the quantile is.
 
 import torch
 
-__all__ = ['all_device_mean', 'all_device_median', 'all_device_quantile']
+__all__ = ['all_device_mean', 'all_device_median', 'all_device_quantile', 'pexp_normalize_mean']
 
 
 def all_device_mean(x: torch.Tensor) -> torch.Tensor:
@@ -25,3 +26,13 @@ def all_device_quantile(x: torch.Tensor, q) -> torch.Tensor:
 
 def all_device_median(x: torch.Tensor) -> torch.Tensor:
     return all_device_quantile(x, 0.5)
+
+
+def pexp_normalize_mean(log_w: torch.Tensor, dim=None) -> torch.Tensor:
+    """``exp(log_w)`` normalised to unit mean (over ``dim``, or all of it),
+    computed after shifting by the maximum."""
+    if dim is None:
+        w = torch.exp(log_w - log_w.max())
+        return w / w.mean()
+    w = torch.exp(log_w - log_w.amax(dim, keepdim=True))
+    return w / w.mean(dim, keepdim=True)

@@ -26,6 +26,13 @@ def pairwise_self_distance(coords):
     return norm_safe(coords[..., i, :] - coords[..., j, :])
 
 
+def pairwise_diffs(c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
+    """Difference vectors ``c1_i - c2_j`` ``[..., i, j, 4]`` with the squared
+    norm appended as a fourth channel."""
+    d = c1[..., :, None, :] - c2[..., None, :, :]
+    return torch.cat([d, (d * d).sum(-1, keepdim=True)], -1)
+
+
 def pairwise_distance(c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(c1[..., :, None, :] - c2[..., None, :, :], dim=-1)
 

@@ -28,7 +28,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import Molecule, MolecularHamiltonian, evaluate, psiformer_ansatz, train
-from .fit import DEFAULT_OPT_KWARGS
+from .fit import DEFAULT_OPT_KWARGS, molecule_state
 from .kfac import KFAC
 from .loss import create_loss_fn, median_log_squeeze_and_mask
 from .sampling import DecorrSampler, MetropolisSampler
@@ -70,7 +70,7 @@ def main(argv=None) -> int:
         _profile_training(hamil, wf)
         return 0
     *_, (_, state, _, _) = evaluate(hamil, wf, n_walkers=2048, steps=1, seed=0)
-    R = torch.as_tensor(hamil.mol.coords, dtype=torch.float32, device='cuda')
+    R, state = molecule_state(state)
     sampler = DecorrSampler(length=10).wrap(MetropolisSampler(hamil, wf))
     gen = torch.Generator('cuda').manual_seed(2)
     with torch.inference_mode():
@@ -83,10 +83,10 @@ def main(argv=None) -> int:
 
 def _profile_training(hamil, wf):
     *_, (_, state, _, _) = train(hamil, wf, n_walkers=2048, steps=6, seed=0)
-    R = torch.as_tensor(hamil.mol.coords, dtype=torch.float32, device='cuda')
+    R, elec = molecule_state(state.sampler)
     loss = create_loss_fn(hamil, wf, median_log_squeeze_and_mask)
     kfac = KFAC(loss, **DEFAULT_OPT_KWARGS['kfac'])
-    pc = MetropolisSampler.phys_conf(R, state.sampler['r'])
+    pc = MetropolisSampler.phys_conf(R, elec['r'])
     kfac.init(pc)
     opt_state, weight = state.opt, torch.ones(2048, device='cuda')
     _, E_loc, _ = loss.terms(pc, weight)

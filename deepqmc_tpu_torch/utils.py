@@ -1,12 +1,15 @@
 """Helpers shared by the port's entry points, and its copies of the numeric
-helpers of ``deepqmc_tpu/utils.py`` that the training step needs
-(``log_squeeze``, ``masked_mean`` and the learning-rate schedules)."""
+helpers of ``deepqmc_tpu/utils.py`` that the training step and the samplers
+need (``log_squeeze``, ``masked_mean``, ``multinomial_resampling`` and the
+learning-rate schedules), with the two tree helpers of the sampler states
+(dicts of tensors and ``Psi`` tuples)."""
 
 import torch
 
 __all__ = [
     'ConstantSchedule', 'InverseSchedule', 'cuda_median_ms', 'log_squeeze', 'masked_mean',
-    'resolve_device', 'tree_norm',
+    'multinomial_resampling', 'resolve_device', 'set_rows', 'tree_map', 'tree_norm',
+    'tree_stack',
 ]
 
 
@@ -69,3 +72,35 @@ def ConstantSchedule(value):
 def tree_norm(tensors) -> torch.Tensor:
     """The sum of the L2 norms of ``tensors`` (``deepqmc_tpu.utils.tree_norm``)."""
     return sum(torch.linalg.vector_norm(t) for t in tensors)
+
+
+def multinomial_resampling(weights: torch.Tensor, uniforms: torch.Tensor) -> torch.Tensor:
+    """Walker indices drawn in proportion to ``weights`` ``[B]``, one per entry
+    of ``uniforms`` (draws on [0, 1)), by inverting the normalised cumulative sum."""
+    cum = torch.cumsum(weights, 0)
+    cum = cum / cum[-1]
+    return torch.searchsorted(cum, uniforms, right=True).clamp(0, len(weights) - 1)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` applied leaf by leaf to trees of one structure: dicts and named
+    tuples (``Psi``) are nodes, anything else a leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(tree_map(fn, *leaves) for leaves in zip(tree, *rest)))
+    return fn(tree, *rest)
+
+
+def tree_stack(trees):
+    """Trees of one structure stacked leaf by leaf along a new leading axis."""
+    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
+
+
+def set_rows(full: torch.Tensor, idxs: list, rows) -> torch.Tensor:
+    """A copy of ``full`` with ``full[idxs[j]] = rows[j]``; the indices are host
+    integers, so no index tensor is copied to the device."""
+    full = full.clone()
+    for i, row in zip(idxs, rows):
+        full[i] = row
+    return full

@@ -56,9 +56,12 @@ def test_evaluate_needs_cuda_unless_told():
     hamil = dqt.MolecularHamiltonian(mol=dqt.Molecule.from_name('H2'))
     wf = dqt.psiformer_ansatz(hamil, n_determinants=1, embedding_dim=8, n_interactions=1,
                               num_heads=2)
+    sampling = dict(sampler='decorr_langevin', mols=[hamil.mol], max_eq_steps=2,
+                    eq_allow_early_stopping=False)
     for entry_point in (dqt.evaluate, dqt.train):
-        with pytest.raises(RuntimeError, match='CUDA'):
-            next(entry_point(hamil, wf, n_walkers=4, steps=1))
+        for kwargs in ({}, sampling):
+            with pytest.raises(RuntimeError, match='CUDA'):
+                next(entry_point(hamil, wf, n_walkers=4, steps=1, **kwargs))
 
 
 def test_source_files_are_small():
@@ -94,7 +97,7 @@ def test_main_path_operands_pass_the_kernel_checks(monkeypatch):
     assert seen == (['fl_attention'] * 2 + ['fl_slogdet']) * 2
     for _, state, E_loc, stats in out:
         assert E_loc.dtype == torch.float32 and torch.isfinite(E_loc).all()
-        assert state['r'].shape == (8, 10, 3)
+        assert state['elec']['r'].shape == (1, 1, 8, 10, 3)  # [molecule, state, walker, ...]
         assert set(stats) >= {'local_energy/mean', 'energy/ewm', 'sampling/acceptance'}
 
 

@@ -27,6 +27,7 @@ from deepqmc_tpu.loss import median_log_squeeze_and_mask as jax_clip
 from deepqmc_tpu.optimizer import OptaxOptimizer
 from deepqmc_tpu.sampling.electron_samplers import MetropolisSampler as JaxMetropolis
 from deepqmc_tpu.utils import tree_stack, tree_unstack
+from deepqmc_tpu_torch.fit import molecule_state
 from deepqmc_tpu_torch.loss import create_loss_fn, median_log_squeeze_and_mask
 from deepqmc_tpu_torch.nn import jax_param_paths
 from deepqmc_tpu_torch.optimizer import AdamOptimizer
@@ -134,10 +135,9 @@ def test_train_lowers_the_energy_of_h2():
     energies = np.array(energies)
     assert energies[-10:].mean() < energies[:5].mean() - 0.03
     assert -1.5 < energies[-10:].mean() < -0.7
-    smpl = train_state.sampler
+    R, smpl = molecule_state(train_state.sampler)
     with torch.no_grad():
-        fresh = wf(MetropolisSampler.phys_conf(torch.as_tensor(hamil.mol.coords).float(),
-                                               smpl['r']))
+        fresh = wf(MetropolisSampler.phys_conf(R, smpl['r']))
     assert torch.equal(smpl['psi'].log, fresh.log)
     assert train_state.opt['step'] == 40
 

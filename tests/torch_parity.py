@@ -12,6 +12,7 @@ from their geometry in both packages (no molecule data is added to either):
 the Li atom (2 up, 1 down) and triplet H2 (2 up, 0 down).
 """
 
+import functools
 from pathlib import Path
 
 import jax
@@ -117,3 +118,56 @@ def grads_by_jax_path(grads: dict, wf) -> dict:
 
     paths = jax_param_paths(wf)
     return {paths[k]: v for k, v in grads.items()}
+
+
+def feed_draws(monkeypatch, normals, uniforms):
+    """Both packages' samplers draw ``normals`` and ``uniforms`` in turn (each
+    list cycles): the JAX package through ``jax.random.normal`` and
+    ``uniform``, the port through its sampler helpers ``normal`` and ``uniform``."""
+    import jax.numpy as jnp
+
+    from deepqmc_tpu_torch.sampling import electron_samplers
+
+    taken = {}
+
+    def take(kind, values):
+        i = taken.get(kind, 0)
+        taken[kind] = i + 1
+        return values[i % len(values)]
+
+    monkeypatch.setattr(jax.random, 'normal',
+                        lambda key, shape, dtype=None: jnp.asarray(take('jn', normals)))
+    monkeypatch.setattr(jax.random, 'uniform',
+                        lambda key, shape=(), *a, **k: jnp.asarray(take('ju', uniforms)))
+    monkeypatch.setattr(electron_samplers, 'normal',
+                        lambda gen, like: torch.tensor(take('tn', normals)))
+    monkeypatch.setattr(electron_samplers, 'uniform',
+                        lambda gen, n, like: torch.tensor(take('tu', uniforms)))
+
+
+def assert_sampler_states(got, want, keys, rel=1e-12):
+    """Ages and signs equal; the entries ``keys`` (``psi`` by its log) to ``rel``."""
+    np.testing.assert_array_equal(got['age'].numpy(), np.asarray(want['age']))
+    np.testing.assert_array_equal(got['psi'].sign.numpy(), np.asarray(want['psi'].sign))
+    for key in keys:
+        g = got[key].log if key == 'psi' else got[key]
+        w = want[key].log if key == 'psi' else want[key]
+        assert_close(g, w, rel, key)
+
+
+def assert_stats(got, want, rel=1e-12):
+    """The same stats keys, each value to ``rel`` (absolute 1e-14 near 0)."""
+    assert set(got) == set(want)
+    for key, value in want.items():
+        np.testing.assert_allclose(np.asarray(got[key]), np.asarray(value), rtol=rel,
+                                   atol=1e-14, err_msg=key)
+
+
+@functools.cache
+def models(mol_name: str, seed: int = 0):
+    """(JAX hamiltonian, ansatz, params; port hamiltonian, wave function;
+    16 walkers from ``init_sample``), built once per process: callers must
+    not change them."""
+    hamil_j, ansatz, params = jax_model(mol_name, seed=seed)
+    hamil_t, wf = torch_model(mol_name, params)
+    return hamil_j, ansatz, params, hamil_t, wf, walkers(hamil_j, 'init_sample', n=16, seed=seed)
