@@ -11,8 +11,8 @@ Phases, each with a start and an end line and its own time budget:
 2. build: the CUDA kernels from ``deepqmc_tpu_torch/csrc`` into an empty
    ``deepqmc_tpu_torch/_build/`` (``nvcc``, one process per source);
 3. kernels: each kernel against its plain PyTorch version on the same inputs
-   on the card, at B = 256 and at the main path's B = 2048, with the stated
-   tolerances; the kernel's and the plain version's times (median of 20 runs,
+   on the card, at B = 256, at the run path's B = 4096 and at the main
+   path's B = 2048, with the stated tolerances; the kernel's and the plain version's times (median of 20 runs,
    CUDA events, after a warm-up); then at other shapes, among them the three
    slogdet kernels at n = 5 (rows split 3/2), n = 2 with no down rows, n = 42
    and n = 64, each with the body it took (staged or tiled) on a line, and the
@@ -89,6 +89,26 @@ Phases, each with a start and an end line and its own time budget:
    each leaving the other molecule's walkers and EWM row bit-equal, with
    finite, positive walker weights of unit mean; it prints the largest weight,
    the effective sample size and the peak device memory of the phase.
+9. run path: ``deepqmc_tpu_torch.train.train``, the JAX package's ``train``
+   with ``train_psiformer.yaml``'s settings: the same model (fresh seed-0
+   weights), 4096 walkers, ``decorr_metropolis_psiformer``, KFAC as
+   ``opt/kfac_psiformer.yaml`` (lr 0.05 / (1 + n / 100000), damping 1e-3,
+   norm constraint 1e-3, inverses every 5), ``median_clip_and_mask(clip_width=5,
+   median_center=True)``, SCF pretraining with LAMB (lr 3e-4, b1 0.9, b2 0.999,
+   basis 'sto-6g'); cut to 40 pretraining steps, 20 equilibration calls, 8 fit
+   steps and a checkpoint every 4 steps, in the git-ignored ``runs/run_path``
+   (removed at the end), with metric and HDF5 sinks of its own (tensorboardX
+   and h5py are optional and not needed here).  The pretraining MSE must be finite and fall (the
+   mean of the last 10 steps below that of the first 10); pretraining and
+   equilibration launch no kernel; each fit step launches the attention
+   kernel 4 times and the flat slogdet kernel once; ``chkpt-0.pt``,
+   ``chkpt-4.pt`` and ``chkpt-8.pt`` are written, and the last one loads the
+   run's parameters and walkers bit for bit.  Then 3 evaluation steps from it
+   (``opt=None``, its walkers kept): finite, the same launches a step, the
+   parameters bit-equal.  It prints the SCF seconds, the median pretraining
+   step, the equilibration calls and their median, the median fit step, the
+   checkpoint's bytes and its write and read times, the median evaluation
+   step and the peak device memory.
 
 Each path's launch counts are read from a run that starts with every count
 at 0.  It prints a ``{"kernels": [...]}`` line, and as its last line
@@ -109,7 +129,7 @@ import time
 WATCHDOG_S = 1100  # the whole run, build included; the run's limit is 1200 s
 PHASE_BUDGET_S = {
     'device': 60, 'build': 240, 'kernels': 300, 'main_path': 300, 'block_path': 180,
-    'square_path': 120, 'train_path': 240, 'sampling_path': 240,
+    'square_path': 120, 'train_path': 240, 'sampling_path': 240, 'run_path': 300,
 }
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
@@ -386,7 +406,7 @@ def sampling_path(dq, hamil, R, smi, counts, zero_counts, per_op_step):
     seen, before = counts(), flat_params(wf)
     eq_s, step_s, last_eq = [], [], None
     t0 = time.monotonic()
-    for step, state, E_loc, stats in dq.train(hamil, wf, n_walkers=2048, steps=3, seed=0,
+    for step, state, E_loc, stats in dq.fit.train(hamil, wf, n_walkers=2048, steps=3, seed=0,
                                               sampler='decorr_langevin', max_eq_steps=60):
         torch.cuda.synchronize()
         (eq_s if E_loc is None else step_s).append(time.monotonic() - t0)
@@ -483,7 +503,8 @@ def sampling_path(dq, hamil, R, smi, counts, zero_counts, per_op_step):
     opt = KFACOptimizer(create_loss_fn(hamil, wf2, median_log_squeeze_and_mask),
                         **DEFAULT_OPT_KWARGS['kfac'])
     R0, elec0 = molecule_state(state)
-    train_state = TrainState(state, opt.init(MetropolisSampler.phys_conf(R0, elec0['r'])))
+    train_state = TrainState(state, wf2.state_dict(),
+                             opt.init(MetropolisSampler.phys_conf(R0, elec0['r'])))
     ewm, update_ewm = init_multi_mol_multi_state_ewm((2, 1), device='cuda')
     std_ewm = ewm
     gen = torch.Generator('cuda').manual_seed(1)
@@ -531,6 +552,211 @@ def sampling_path(dq, hamil, R, smi, counts, zero_counts, per_op_step):
           f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB', flush=True)
     del wf, wf2, train_state, state, opt
     torch.cuda.empty_cache()
+
+
+# The run path's cuts of train_psiformer.yaml (its settings otherwise): 4096
+# walkers, pretraining 40 steps of 20,000, equilibration 20 calls of 1000,
+# the fit 8 steps of 200,000, a checkpoint every 4 steps (of 1000); then 3
+# evaluation steps from the last checkpoint
+RUN_WALKERS, RUN_PRETRAIN_STEPS, RUN_EQ_STEPS, RUN_FIT_STEPS = 4096, 40, 20, 8
+RUN_CHKPT_INTERVAL, RUN_EVAL_STEPS = 4, 3
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def run_path(dq, hamil, smi, counts, zero_counts, per_op_step):
+    """Phase 9: ``train.train`` as ``train_psiformer.yaml`` sets it (cut in
+    depth), then an evaluation from its last checkpoint; returns the kernel
+    launches of both runs."""
+    import logging
+    from functools import partial
+
+    import numpy as np
+    import torch
+
+    from deepqmc_tpu_torch.fit import TrainState
+    from deepqmc_tpu_torch.log import CheckpointStore
+    from deepqmc_tpu_torch.loss import create_loss_fn, median_clip_and_mask
+    from deepqmc_tpu_torch.optimizer import KFACOptimizer
+    from deepqmc_tpu_torch.sampling import RECIPES, initialize_sampling
+    from deepqmc_tpu_torch.train import train
+    from deepqmc_tpu_torch.utils import ConstantSchedule, InverseSchedule, flatten_dict
+
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'runs', 'run_path')
+    shutil.rmtree(workdir, ignore_errors=True)
+    print(f'run path: train_psiformer.yaml at full width, {RUN_WALKERS} walkers, cut: '
+          f'pretraining {RUN_PRETRAIN_STEPS} steps (of 20000), equilibration {RUN_EQ_STEPS} '
+          f'calls (of 1000), fit {RUN_FIT_STEPS} steps (of 200000), checkpoint interval '
+          f'{RUN_CHKPT_INTERVAL} (of 1000); workdir {workdir}', flush=True)
+    records, rows, writes, scf = [], [], [], []
+
+    class Metrics:
+        """The run's metric sink: the time, launch counts and stats of each update."""
+
+        def __init__(self, workdir, n_mol):
+            pass
+
+        def update(self, step, stats, multi_stats, mol_idxs, prefix=None):
+            torch.cuda.synchronize()
+            records.append(dict(t=time.monotonic(), prefix=prefix, step=step, counts=counts(),
+                                stats={**multi_stats, **stats}))
+
+        def close(self):
+            pass
+
+    class Results:
+        """The run's stand-in for ``H5Logger`` (h5py is optional): the keys it
+        would write, a row each update."""
+
+        def __init__(self, workdir, keys, *, init_step=0, aux_data=None):
+            self.keys = ['local_energy', *keys]
+
+        def update(self, data):
+            rows.append({k for k in flatten_dict(data) if any(p in k for p in self.keys)})
+
+        def close(self):
+            pass
+
+    class TimedStore(CheckpointStore):
+        def dump(self):
+            t0 = time.monotonic()
+            super().dump()
+            path = self.chkpts[-1].path
+            writes.append((path.name, path.stat().st_size, 1e3 * (time.monotonic() - t0)))
+
+    class ScfTime(logging.Handler):
+        def emit(self, record):
+            if hasattr(record, 'scf_seconds'):
+                scf.append(record.scf_seconds)
+
+    logger = logging.getLogger('deepqmc_tpu_torch.train')
+    handler, level = ScfTime(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    sinks = dict(metric_logger_constructor=Metrics, h5_logger_constructor=Results, device='cuda',
+                 loss_function_factory=partial(create_loss_fn, clip_mask_fn=partial(
+                     median_clip_and_mask, clip_width=5, median_center=True)))
+    sampler_factory = partial(initialize_sampling,
+                              elec_sampler=RECIPES['decorr_metropolis_psiformer'])
+    opt = partial(KFACOptimizer, learning_rate_schedule=InverseSchedule(0.05, 100000),
+                  damping_schedule=ConstantSchedule(1e-3), norm_constraint=1e-3,
+                  inverse_update_period=5)
+    torch.cuda.reset_peak_memory_stats()
+    wf = dq.psiformer_ansatz(hamil, seed=0).cuda()
+    zero_counts()
+    t0 = time.monotonic()
+    state = train(
+        hamil, wf, opt, sampler_factory, steps=RUN_FIT_STEPS, seed=0,
+        electron_batch_size=RUN_WALKERS, workdir=workdir, max_eq_steps=RUN_EQ_STEPS,
+        pretrain_steps=RUN_PRETRAIN_STEPS,
+        pretrain_kwargs=dict(opt='lamb', opt_kwargs=dict(learning_rate=3e-4, b1=0.9, b2=0.999),
+                             scf_kwargs=dict(basis='sto-6g')),
+        chkpt_constructor=partial(TimedStore, interval=RUN_CHKPT_INTERVAL), **sinks,
+    )
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    logger.removeHandler(handler)
+    logger.setLevel(level)
+    train_launches = counts()
+
+    pre, eq, fit = ([r for r in records if r['prefix'] == p]
+                    for p in ('pretraining', 'equilibration', None))
+    print(f'run path: {len(pre)} pretraining steps, {len(eq)} equilibration calls, {len(fit)} '
+          f'fit steps in {run_s:.1f} s; launches {train_launches}', flush=True)
+    if len(pre) != RUN_PRETRAIN_STEPS or len(fit) != RUN_FIT_STEPS or not eq or len(scf) != 1:
+        raise SystemExit('the run did not take the phases it was given')
+    mse = [float(np.mean(r['stats']['MSE'])) for r in pre]
+    first, last = float(np.mean(mse[:10])), float(np.mean(mse[-10:]))
+    print(f'pretraining MSE: first {mse[0]:.4e}, mean of the first 10 {first:.4e}, of the last '
+          f'10 {last:.4e}, last {mse[-1]:.4e}', flush=True)
+    if not (all(math.isfinite(m) for m in mse) and last < first):
+        raise SystemExit('pretraining: the MSE is not finite or did not fall')
+    if any(eq[-1]['counts'].values()):
+        raise SystemExit(f'pretraining and equilibration launched {eq[-1]["counts"]}')
+    prev = eq[-1]['counts']
+    for r in fit:
+        launches = {k: r['counts'][k] - prev[k] for k in prev}
+        prev = r['counts']
+        e = r['stats']['local_energy/mean']
+        print(f'run fit step {r["step"]}: E_loc mean {float(np.mean(e)):.6f} std '
+              f'{float(np.mean(r["stats"]["local_energy/std"])):.6f} step time '
+              f'{r["stats"]["perf/step_time"]:.3f} s; launches {launches}', flush=True)
+        if launches != per_op_step:
+            raise SystemExit(f'run fit step {r["step"]} launched {launches}, want {per_op_step}')
+        if not all(np.isfinite(v).all() for v in r['stats'].values()):
+            raise SystemExit(f'run fit step {r["step"]}: stats not finite')
+    if state.opt['step'] != RUN_FIT_STEPS or len(rows) != RUN_FIT_STEPS or not all(
+            {'local_energy/samples', 'psi/samples/log'} <= row for row in rows):
+        raise SystemExit('the fit did not take its steps or record its samples')
+    run_dir = os.path.join(workdir, 'training')
+    names = sorted(f for f in os.listdir(run_dir) if f.startswith('chkpt-'))
+    want = {f'chkpt-{i}.pt' for i in range(0, RUN_FIT_STEPS + 1, RUN_CHKPT_INTERVAL)}
+    print(f'checkpoints {names}; written {writes}', flush=True)
+    if set(names) != want:
+        raise SystemExit(f'checkpoints {names}, want {sorted(want)}')
+    path = os.path.join(run_dir, f'chkpt-{RUN_FIT_STEPS}.pt')
+    t0 = time.monotonic()
+    step, loaded = CheckpointStore.load(path, 'cuda')
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.monotonic() - t0)
+    if step != RUN_FIT_STEPS or not (
+            all(torch.equal(loaded.params[k], v) for k, v in wf.state_dict().items())
+            and torch.equal(loaded.sampler['elec']['r'], state.sampler['elec']['r'])):
+        raise SystemExit('the last checkpoint does not hold the run\'s parameters and walkers')
+
+    records.clear()
+    rows.clear()
+    before = {k: v.clone() for k, v in wf.state_dict().items()}
+    zero_counts()
+    train(hamil, wf, None, sampler_factory, steps=RUN_EVAL_STEPS, seed=0,
+          electron_batch_size=RUN_WALKERS, workdir=workdir,
+          train_state=TrainState(loaded.sampler, loaded.params, None), **sinks)
+    torch.cuda.synchronize()
+    ev = [r for r in records if r['prefix'] is None]
+    prev = dict.fromkeys(prev, 0)
+    for r in ev:
+        launches = {k: r['counts'][k] - prev[k] for k in prev}
+        prev = r['counts']
+        e = r['stats']['local_energy/mean']
+        print(f'run evaluation step {r["step"]}: E_loc mean {float(np.mean(e)):.6f} step time '
+              f'{r["stats"]["perf/step_time"]:.3f} s; launches {launches}', flush=True)
+        if launches != per_op_step or not np.isfinite(e).all():
+            raise SystemExit(f'run evaluation step {r["step"]}: launches {launches} or E_loc '
+                             'not finite')
+    if len(ev) != RUN_EVAL_STEPS or len(rows) != RUN_EVAL_STEPS or records[0]['prefix']:
+        raise SystemExit('the evaluation did not take its steps, or equilibrated')
+    if not all(torch.equal(v, before[k]) for k, v in wf.state_dict().items()):
+        raise SystemExit('the evaluation changed the parameters')
+
+    pre_s = [b['t'] - a['t'] for a, b in zip(pre, pre[1:])]
+    eq_s = [b['t'] - a['t'] for a, b in zip(eq, eq[1:])]
+    size = _median([b for _, b, _ in writes])
+    print(f'{smi} | run path SCF (H2O, sto-6g, host numpy) {scf[0]:.2f} s', flush=True)
+    print(f'{smi} | run path pretraining step (LAMB, {RUN_WALKERS} walkers, 30 moves): median '
+          f'{1e3 * _median(pre_s):.1f} ms of {len(pre_s)} (first step to the second '
+          f'{1e3 * pre_s[0]:.1f} ms)', flush=True)
+    print(f'{smi} | run path equilibration: {len(eq)} calls, median {1e3 * _median(eq_s):.1f} '
+          f'ms a call', flush=True)
+    fit_s = [r['stats']['perf/step_time'] for r in fit]
+    print(f'{smi} | run path fit step (KFAC, {RUN_WALKERS} walkers): median '
+          f'{1e3 * _median(fit_s):.1f} ms (steps {", ".join(f"{1e3 * t:.1f}" for t in fit_s)} '
+          'ms)', flush=True)
+    print(f'{smi} | run path checkpoint {size / 1e6:.2f} MB, written in '
+          f'{", ".join(f"{ms:.1f}" for *_, ms in writes)} ms, read in {load_ms:.1f} ms',
+          flush=True)
+    ev_s = [r['stats']['perf/step_time'] for r in ev]
+    print(f'{smi} | run path evaluation step ({RUN_WALKERS} walkers): median '
+          f'{1e3 * _median(ev_s):.1f} ms (steps {", ".join(f"{1e3 * t:.1f}" for t in ev_s)} ms)',
+          flush=True)
+    print(f'{smi} | run path peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB', flush=True)
+    del wf, state, loaded
+    torch.cuda.empty_cache()
+    shutil.rmtree(workdir)  # four checkpoints of 34 MB each
+    return {k: train_launches[k] + prev[k] for k in prev}
 
 
 def main() -> int:
@@ -614,7 +840,9 @@ def main() -> int:
         ]
         for name, kernel, plain, inputs, outs, bound, source, replaces in cases:
             worst = 0.0
-            for B in (256, 2048):
+            # the run path's 4096 walkers too; the main path's 2048 last, as
+            # its inputs are the ones timed below
+            for B in (256, 4096, 2048):
                 args = inputs(gen, B)
                 got = kernel(*args)
                 torch.cuda.synchronize()
@@ -772,7 +1000,7 @@ def main() -> int:
         for c in counters.values():
             c.launches = 0
 
-    def run_path(wf):
+    def eval_run(wf):
         """3 evaluation steps of 2048 walkers from zeroed counts; (step times,
         last sampler state, launches during the run)."""
         zero_counts()
@@ -807,7 +1035,7 @@ def main() -> int:
         R = torch.as_tensor(hamil.mol.coords, dtype=torch.float32, device='cuda')
         wf = dq.psiformer_ansatz(hamil, seed=0)  # full width: the preset's defaults
         torch.cuda.reset_peak_memory_stats()
-        step_s, last, launches = run_path(wf)
+        step_s, last, launches = eval_run(wf)
         print(f'launches during the main path: {launches}', flush=True)
         for name in ('fl_attention', 'fl_slogdet_traces'):
             by_name[name]['launches'] = launches[name]
@@ -844,7 +1072,7 @@ def main() -> int:
         wf_block = dq.psiformer_ansatz(hamil, seed=0, block_kernel=True).cuda()
         wf_block.load_state_dict(wf.state_dict())
         torch.cuda.reset_peak_memory_stats()
-        step_s, last, launches = run_path(wf_block)
+        step_s, last, launches = eval_run(wf_block)
         print(f'launches during the block path: {launches}', flush=True)
         by_name['fl_block']['launches'] = launches['fl_block']
         if launches['fl_block'] != 4 * 3 or launches['fl_attention']:
@@ -1001,7 +1229,7 @@ def main() -> int:
             zero_counts()
             step_s, before, seen = [], flat_params(wf), counts()
             t0 = time.monotonic()
-            for step, state, E_loc, stats in dq.train(hamil, wf, n_walkers=2048, steps=steps,
+            for step, state, E_loc, stats in dq.fit.train(hamil, wf, n_walkers=2048, steps=steps,
                                                       decorr=10, seed=0, optimizer='kfac'):
                 torch.cuda.synchronize()
                 step_s.append(time.monotonic() - t0)
@@ -1138,6 +1366,11 @@ def main() -> int:
 
     with Phase('sampling_path'):
         sampling_path(dq, hamil, R, smi, counts, zero_counts, per_op_step)
+
+    with Phase('run_path'):
+        run_launches = run_path(dq, hamil, smi, counts, zero_counts, per_op_step)
+        for name, n in run_launches.items():
+            by_name[name]['run_launches'] = n
 
     print(json.dumps({'kernels': kernels}), flush=True)
     print(f'{smi} | whole run {time.monotonic() - _T0:.1f} s', flush=True)

@@ -6,11 +6,15 @@ step (the clipped, weighted VMC gradient, KFAC or Adam, the sampler's psi
 refresh), with the JAX package's sampler recipes (Metropolis, Langevin,
 resampling, equilibration) over geometries of one molecule, and hand-written
 CUDA kernels for the forward-Laplacian attention core, the fused PsiFormer
-layer and the log-determinant traces (flat and square layouts).  It imports
-torch, numpy and the standard library only.
+layer and the log-determinant traces (flat and square layouts).  Around
+them, the training run of ``deepqmc_tpu/train.py`` (:mod:`.train`: SCF
+pretraining, equilibration, the fit loop, checkpoints with NaN rewinds,
+evaluation from a checkpoint).  It imports torch, numpy and the standard
+library only (h5py and tensorboardX inside the two optional sinks).
 """
 
-from .fit import eval_step, evaluate, train  # noqa: F401
+from . import train  # noqa: F401  (the module: train.train is the run, fit.train the step loop)
+from .fit import eval_step, evaluate  # noqa: F401
 from .hamil import MolecularHamiltonian  # noqa: F401
 from .molecule import Molecule  # noqa: F401
 from .presets import psiformer_ansatz  # noqa: F401

@@ -28,9 +28,9 @@ class EWMState(NamedTuple):
 MAX_ALPHA, DECAY_ALPHA = 0.999, 10.0
 
 
-def _init(shape, window_size, dtype, device):
+def _init(shape, window_size, dtype, device, decay_alpha=DECAY_ALPHA):
     if window_size is None:
-        window_size = ceil(DECAY_ALPHA * (1 / (1 - MAX_ALPHA) - 2))
+        window_size = ceil(decay_alpha * (1 / (1 - MAX_ALPHA) - 2))
     nan = torch.full(shape, float('nan'), dtype=dtype, device=device)
     state = EWMState(
         step=torch.zeros(shape, dtype=torch.long, device=device),
@@ -44,7 +44,7 @@ def _init(shape, window_size, dtype, device):
         dtype = state.buffer.dtype
         x = torch.as_tensor(x, dtype=dtype, device=state.buffer.device)
         buffer = torch.cat([x[..., None], state.buffer[..., :-1]], -1)
-        head = torch.clamp(1 / (2 + state.step.to(dtype) / DECAY_ALPHA), min=1 - MAX_ALPHA)
+        head = torch.clamp(1 / (2 + state.step.to(dtype) / decay_alpha), min=1 - MAX_ALPHA)
         shifted = torch.cat([head[..., None], state.alpha[..., :-1]], -1)
         # once the window is full the alphas stay frozen
         frozen = (state.step + 1 >= window_size)[..., None]
@@ -63,18 +63,20 @@ def _init(shape, window_size, dtype, device):
     return state, update
 
 
-def init_ewm(window_size: Optional[int] = None, *, dtype=torch.float64, device=None):
+def init_ewm(window_size: Optional[int] = None, *, dtype=torch.float64, device=None,
+             decay_alpha: float = DECAY_ALPHA):
     """An EWM state of one value and its pure update function ``(x, state) -> state``."""
-    return _init((), window_size, dtype, device)
+    return _init((), window_size, dtype, device, decay_alpha)
 
 
 def init_multi_mol_multi_state_ewm(shape: tuple, window_size: Optional[int] = None, *,
-                                   dtype=torch.float64, device=None):
+                                   dtype=torch.float64, device=None,
+                                   decay_alpha: float = DECAY_ALPHA):
     """An EWM grid of ``shape`` (molecules, states) and its update function
     ``(x, state, sub_idxs=None) -> state``: ``x`` has the grid's shape, or with
     ``sub_idxs`` (molecule indices, a CPU tensor) that of the rows it names,
     which alone change."""
-    state, update = _init(tuple(shape), window_size, dtype, device)
+    state, update = _init(tuple(shape), window_size, dtype, device, decay_alpha)
 
     def multi_update(x, state: EWMState, sub_idxs=None) -> EWMState:
         if sub_idxs is None:

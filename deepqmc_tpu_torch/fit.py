@@ -23,7 +23,10 @@ weights); and the same statistics, shaped ``[1, 1]`` (molecule, state) as the
 JAX package's.
 """
 
-from collections.abc import Iterator
+import contextlib
+import itertools
+import time
+from collections.abc import Generator, Iterable, Iterator
 from typing import NamedTuple
 
 import numpy as np
@@ -43,10 +46,17 @@ from .sampling import (
     initialize_sampling,
 )
 from .types import PhysicalConfiguration
-from .utils import ConstantSchedule, InverseSchedule, resolve_device, set_true_fp32, tree_map
+from .utils import (
+    ConstantSchedule,
+    InverseSchedule,
+    resolve_device,
+    set_true_fp32,
+    split_dict,
+    tree_map,
+)
 
 __all__ = [
-    'TrainState', 'eval_step', 'evaluate', 'molecule_conf', 'molecule_state', 'train',
+    'TrainState', 'eval_step', 'evaluate', 'fit_wf', 'molecule_conf', 'molecule_state', 'train',
     'train_step',
 ]
 
@@ -62,9 +72,13 @@ EQ_BLOCK_SIZE = 10  # the equilibration's early-stopping blocks (train.py:257)
 
 
 class TrainState(NamedTuple):
-    """The sampler's state and the optimizer's; the parameters live in the wave function."""
+    """The sampler's state, the parameters and the optimizer's state
+    (``deepqmc_tpu/types.py:69-74``).  ``params`` is the wave function's
+    ``state_dict``: its tensors share the module's storage, so they follow its
+    in-place updates, and a restart loads them into the module."""
 
     sampler: dict
+    params: object
     opt: object
 
 
@@ -143,7 +157,7 @@ def train_step(gen, sampler, opt, train_state: TrainState, mol_idxs, ewm, std_ew
     ewm, std_ewm, stats = _energy_stats(
         E_loc, {**stats, **smpl_stats}, mol_idxs, ewm, std_ewm, update_ewm
     )
-    return TrainState(smpl_state, opt_state), ewm, std_ewm, E_loc, stats
+    return TrainState(smpl_state, train_state.params, opt_state), ewm, std_ewm, E_loc, stats
 
 
 def _electron_sampler(sampler, decorr: int):
@@ -156,6 +170,14 @@ def _electron_sampler(sampler, decorr: int):
             raise ValueError(f'unknown sampler recipe {sampler!r} (the port has {sorted(RECIPES)})')
         return RECIPES[sampler]
     return sampler
+
+
+def sampling_grad_mode(sampler, inference: bool):
+    """The grad mode to sample in with the combined ``sampler``: inference mode
+    where ``inference`` asks for it, unless the sampler's force needs autograd,
+    which inference mode forbids; else ``no_grad``."""
+    uses_autograd = getattr(sampler.elec.sampler, 'uses_autograd', False)
+    return torch.inference_mode if inference and not uses_autograd else torch.no_grad
 
 
 def _sampling(hamil, wf, *, sampler, decorr, mols, molecule_batch_size, n_walkers, seed,
@@ -174,9 +196,7 @@ def _sampling(hamil, wf, *, sampler, decorr, mols, molecule_batch_size, n_walker
         torch.Generator().manual_seed(seed + 2), hamil, wf, mols, 1, molecule_batch_size,
         elec_sampler=_electron_sampler(sampler, decorr),
     )
-    # a force sampler needs autograd, which inference mode forbids
-    uses_autograd = getattr(smpl.elec.sampler, 'uses_autograd', False)
-    grad_mode = torch.inference_mode if inference and not uses_autograd else torch.no_grad
+    grad_mode = sampling_grad_mode(smpl, inference)
     with grad_mode():
         state = initialize_sampler_state(torch.Generator().manual_seed(seed), smpl, n_walkers,
                                          mols, dtype=torch.float32, device=device)
@@ -185,7 +205,7 @@ def _sampling(hamil, wf, *, sampler, decorr, mols, molecule_batch_size, n_walker
 
 def _equilibration(gen, idx_sampler, sampler, state, grad_mode, max_eq_steps,
                    allow_early_stopping):
-    """Yields ``(step, state, stats)`` of up to ``max_eq_steps`` sample calls,
+    """Yields ``(step, state, mol_idxs, stats)`` of up to ``max_eq_steps`` sample calls,
     each under ``grad_mode``, with early stopping on the mean electron distance
     and the spread of log|psi| (``train.py:243-272``)."""
     steps = equilibrate(
@@ -197,8 +217,7 @@ def _equilibration(gen, idx_sampler, sampler, state, grad_mode, max_eq_steps,
             item = next(steps, None)
         if item is None:
             return
-        step, state, _, stats = item
-        yield step, state, stats
+        yield item
 
 
 def evaluate(
@@ -229,8 +248,8 @@ def evaluate(
         hamil, wf, sampler=sampler, decorr=decorr, mols=mols, molecule_batch_size=1,
         n_walkers=n_walkers, seed=seed, device=device, inference=True,
     )
-    for step, state, stats in _equilibration(gen, idx_sampler, sampler, state, grad_mode,
-                                             max_eq_steps, eq_allow_early_stopping):
+    for step, state, _, stats in _equilibration(gen, idx_sampler, sampler, state, grad_mode,
+                                                max_eq_steps, eq_allow_early_stopping):
         yield step, state, None, stats
     ewm, update_ewm = init_multi_mol_multi_state_ewm((idx_sampler.n_mols, 1), device=device)
     std_ewm = ewm
@@ -257,7 +276,7 @@ def train(
     recipe, ``partial(median_clip_and_mask, clip_width=5, median_center=True)``).
     ``sampler``, ``mols``, ``max_eq_steps`` and ``eq_allow_early_stopping`` are
     as :func:`evaluate`'s; the equilibration's calls come first, each as
-    ``(step, TrainState(sampler_state, None), None, sampler_stats)``.  A step
+    ``(step, TrainState(sampler_state, params, None), None, sampler_stats)``.  A step
     takes one molecule (``molecule_batch_size`` 1).  Runs on ``device``
     (``None`` means CUDA, and raises where it is absent) in float32 with TF32
     off; ``wf`` is moved there and its parameters are updated in place.
@@ -278,18 +297,130 @@ def train(
         molecule_batch_size=molecule_batch_size, n_walkers=n_walkers, seed=seed, device=device,
         inference=False,
     )
-    for step, smpl_state, stats in _equilibration(gen, idx_sampler, sampler, smpl_state,
-                                                  grad_mode, max_eq_steps,
-                                                  eq_allow_early_stopping):
-        yield step, TrainState(smpl_state, None), None, stats
+    for step, smpl_state, _, stats in _equilibration(gen, idx_sampler, sampler, smpl_state,
+                                                     grad_mode, max_eq_steps,
+                                                     eq_allow_early_stopping):
+        yield step, TrainState(smpl_state, wf.state_dict(), None), None, stats
     loss = create_loss_fn(hamil, wf, clip_mask_fn)
     opt = OPTIMIZERS[optimizer](loss, **(DEFAULT_OPT_KWARGS[optimizer] | opt_kwargs))
-    ewm, update_ewm = init_multi_mol_multi_state_ewm((idx_sampler.n_mols, 1), device=device)
-    std_ewm = ewm
-    R, elec = molecule_state(smpl_state)
-    train_state = TrainState(smpl_state, opt.init(MetropolisSampler.phys_conf(R, elec['r'])))
-    for step in range(steps):
-        train_state, ewm, std_ewm, E_loc, stats = train_step(
-            gen, sampler, opt, train_state, idx_sampler.sample(), ewm, std_ewm, update_ewm
-        )
+    for step, train_state, _, E_loc, stats in _fit_steps(
+        gen, sampler, opt, TrainState(smpl_state, wf.state_dict(), None), idx_sampler,
+        range(steps),
+    ):
         yield step, train_state, E_loc, stats
+
+
+def _fit_steps(gen, sampler, opt, train_state: TrainState, molecule_idx_sampler,
+               steps: Iterable, grad_mode=None):
+    """The steps of :func:`train` and :func:`fit_wf`: initialises the EWM grids
+    and, where ``train_state.opt`` is None, the optimizer's state; returns a
+    generator of ``(step, train_state, mol_idxs, E_loc, stats)``, one
+    :func:`train_step` each, under ``grad_mode`` where one is given."""
+    smpl_state, params, opt_state = train_state
+    r = smpl_state['elec']['r']
+    ewm, update_ewm = init_multi_mol_multi_state_ewm((molecule_idx_sampler.n_mols, r.shape[1]),
+                                                     device=r.device)
+    if opt_state is None:
+        R, elec = molecule_state(smpl_state)
+        opt_state = opt.init(MetropolisSampler.phys_conf(R, elec['r']))
+
+    def run(train_state, ewm, std_ewm):
+        for step in steps:
+            mol_idxs = molecule_idx_sampler.sample()
+            with grad_mode() if grad_mode else contextlib.nullcontext():
+                train_state, ewm, std_ewm, E_loc, stats = train_step(
+                    gen, sampler, opt, train_state, mol_idxs, ewm, std_ewm, update_ewm)
+            yield step, train_state, mol_idxs, E_loc, stats
+
+    return run(TrainState(smpl_state, params, opt_state), ewm, ewm)
+
+
+def _to_host(tree):
+    """``tree`` (dicts and named tuples) with its tensors as numpy arrays, in
+    one copy per dtype."""
+    leaves = []
+    tree_map(lambda x: leaves.append(x) if isinstance(x, torch.Tensor) else None, tree)
+    by_dtype: dict = {}
+    for t in leaves:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    host = {}
+    for ts in by_dtype.values():
+        flat = torch.cat([t.detach().reshape(-1) for t in ts]).cpu().numpy()
+        offset = 0
+        for t in ts:
+            host[id(t)] = flat[offset:offset + t.numel()].reshape(tuple(t.shape))
+            offset += t.numel()
+    return tree_map(lambda x: host[id(x)] if isinstance(x, torch.Tensor) else x, tree)
+
+
+def _state_conf(smpl_state: dict, mol_idxs) -> PhysicalConfiguration:
+    """The walkers of the molecules ``mol_idxs`` as the sampler left them: the
+    configuration the step's local energy was taken on."""
+    idxs = mol_idxs.tolist()
+    r = _rows(smpl_state['elec']['r'], idxs)
+    mol_idx = torch.tensor(idxs, device=r.device)[:, None, None].expand(r.shape[:3])
+    return PhysicalConfiguration(_rows(smpl_state['nuc']['R'], idxs), r, mol_idx)
+
+
+def fit_wf(
+    gen, hamil, wf, optimizer_factory, molecule_idx_sampler, sampler, steps: Iterable,
+    train_state: TrainState, loss_function_factory, observable_monitors: list,
+    block_size: int = 1, grad_mode=torch.no_grad,
+) -> Generator[tuple[int, TrainState, np.ndarray, dict, dict], None, None]:
+    """The fit loop of ``deepqmc_tpu/fit.py:48-378`` over :func:`train_step`:
+    yields ``(step, train_state, mol_idxs, stats, observable_samples)`` with
+    stats and samples as numpy arrays.
+
+    ``optimizer_factory(loss)`` makes the optimizer (``NoOptimizer`` for an
+    evaluation, whose steps run under ``grad_mode``); ``loss_function_factory
+    (hamil, wf)`` the loss.  ``train_state.params``, where given, is loaded
+    into ``wf``; an optimizer state of None is initialised.  ``block_size``
+    steps run between two reads of their outputs on the host; the energy and
+    wave-function statistics (``local_energy/*``, ``energy/*``, the samples
+    ``local_energy/samples`` and ``psi/samples``) come from every step, other
+    monitors run on the last step of a block.  ``perf/step_time`` is the
+    block's wall time over its steps.
+    """
+    from .observable import EnergyMonitor, WaveFunctionMonitor
+
+    opt = optimizer_factory(loss_function_factory(hamil, wf))
+    is_evaluation = isinstance(opt, NoOptimizer)
+    observable_monitors = [m for m in observable_monitors
+                           if not isinstance(m, (EnergyMonitor, WaveFunctionMonitor))]
+    if train_state.params is not None:
+        wf.load_state_dict(train_state.params)
+    run = _fit_steps(gen, sampler, opt, train_state._replace(params=wf.state_dict()),
+                     molecule_idx_sampler, steps, grad_mode if is_evaluation else None)
+    r = train_state.sampler['elec']['r']
+    n_walkers = int(np.prod(r.shape[:3]))
+    while True:
+        start, block, outputs = time.perf_counter(), [], []
+        for step, train_state, mol_idxs, E_loc, stats in itertools.islice(run, block_size):
+            block.append(step)
+            psi = train_state.sampler['elec']['psi']
+            # the loss's means of the Hamiltonian's terms as the JAX loss gives
+            # them, per (molecule, state) of the step
+            stats = {k: v[None, None] if k.startswith('hamil/') and v.ndim == 0 else v
+                     for k, v in stats.items()}
+            outputs.append((mol_idxs, E_loc[None, None], psi, {
+                'stats': {k: torch.as_tensor(v, dtype=torch.float32, device=r.device)
+                          for k, v in stats.items()},
+                'E_loc': E_loc[None, None], 'psi_sign': psi.sign, 'psi_log': psi.log,
+            }))
+        if not block:
+            return
+        host = _to_host(dict(enumerate(out for *_, out in outputs))).values()
+        step_time = (time.perf_counter() - start) / len(block)
+        for b, (step, (mol_idxs, E_loc, psi, _), out) in enumerate(zip(block, outputs, host)):
+            stats = {**out['stats'], 'perf/step_time': step_time,
+                     'perf/walker_steps_per_sec': n_walkers / step_time}
+            samples = {'local_energy/samples': out['E_loc'],
+                       'psi/samples': {'sign': out['psi_sign'], 'log': out['psi_log']}}
+            if b == len(block) - 1:
+                for monitor in observable_monitors:
+                    extra = monitor(step, train_state.params,
+                                    _state_conf(train_state.sampler, mol_idxs), psi, E_loc, None)
+                    extra_samples, extra_stats = split_dict(extra, lambda key: 'samples' in key)
+                    stats |= _to_host(extra_stats)
+                    samples |= _to_host(extra_samples)
+            yield step, train_state, mol_idxs.numpy(), stats, samples

@@ -6,14 +6,95 @@ Each takes the VMC loss (:class:`~.loss.VMCLoss`), whose wave function holds
 the parameters; ``init(phys_conf)`` gives the optimizer state and
 ``step(opt_state, phys_conf, weight)`` updates the parameters in place and
 returns ``(opt_state, E_loc, stats)``.
+
+The gradient transformations :func:`adam` and :func:`lamb` compute what
+``optax.adam`` and ``optax.lamb`` compute, on dicts of tensors keyed as
+``named_parameters()``: ``init(params)`` gives the state and
+``update(grads, state, params)`` the updates (to add) and the new state.
+Pretraining takes them by name (``PRETRAIN_OPTIMIZERS``).
 """
+
+from typing import NamedTuple
 
 import torch
 
 from .kfac import KFAC
 from .utils import tree_norm
 
-__all__ = ['AdamOptimizer', 'KFACOptimizer', 'NoOptimizer']
+__all__ = [
+    'AdamOptimizer', 'GradientTransformation', 'KFACOptimizer', 'NoOptimizer',
+    'PRETRAIN_OPTIMIZERS', 'adam', 'lamb',
+]
+
+
+class GradientTransformation(NamedTuple):
+    init: object
+    update: object
+
+
+def _scale_by_adam(b1, b2, eps, eps_root=0.0):
+    """``optax.scale_by_adam``: bias-corrected moments, ``eps`` outside the root."""
+
+    def init(params):
+        zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}  # noqa: E731
+        return {'count': 0, 'mu': zeros(), 'nu': zeros()}
+
+    def update(grads, state, params=None):
+        count = state['count'] + 1
+        mu = {k: (1 - b1) * g + b1 * state['mu'][k] for k, g in grads.items()}
+        nu = {k: (1 - b2) * g**2 + b2 * state['nu'][k] for k, g in grads.items()}
+        c1, c2 = 1 - b1**count, 1 - b2**count
+        updates = {k: (mu[k] / c1) / (torch.sqrt(nu[k] / c2 + eps_root) + eps) for k in grads}
+        return updates, {'count': count, 'mu': mu, 'nu': nu}
+
+    return init, update
+
+
+def _learning_rate(learning_rate, count):
+    return learning_rate(count) if callable(learning_rate) else learning_rate
+
+
+def adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0) -> GradientTransformation:
+    """``optax.adam``: Adam's moments, then ``-learning_rate`` (a number or a
+    schedule of the step count)."""
+    init, scale = _scale_by_adam(b1, b2, eps, eps_root)
+
+    def update(grads, state, params=None):
+        lr = _learning_rate(learning_rate, state['count'])
+        updates, state = scale(grads, state)
+        return {k: u * -lr for k, u in updates.items()}, state
+
+    return GradientTransformation(init, update)
+
+
+def _norm(t):
+    return torch.linalg.vector_norm(t)
+
+
+def lamb(learning_rate, b1=0.9, b2=0.999, eps=1e-6, eps_root=0.0,
+         weight_decay=0.0) -> GradientTransformation:
+    """``optax.lamb``: Adam's moments, plus ``weight_decay * param``, scaled per
+    parameter by the trust ratio |param| / |update| (1 where either norm is
+    zero), then by ``-learning_rate``."""
+    init, scale = _scale_by_adam(b1, b2, eps, eps_root)
+
+    def update(grads, state, params):
+        lr = _learning_rate(learning_rate, state['count'])
+        updates, state = scale(grads, state)
+        out = {}
+        for k, u in updates.items():
+            if weight_decay:
+                u = u + weight_decay * params[k]
+            p_norm, u_norm = _norm(params[k]), _norm(u)
+            ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
+                                p_norm / u_norm)
+            out[k] = u * ratio * -lr
+        return out, state
+
+    return GradientTransformation(init, update)
+
+
+PRETRAIN_OPTIMIZERS = {'adam': adam, 'lamb': lamb}
 
 
 class NoOptimizer:
@@ -34,26 +115,15 @@ class AdamOptimizer:
     """``optax.adam(lr)``: bias-corrected first and second moments with optax's
     defaults, ``eps`` added outside the square root."""
 
-    B1, B2, EPS = 0.9, 0.999, 1e-8
-
     def __init__(self, loss, lr: float = 1e-3):
-        self.loss, self.lr = loss, lr
+        self.loss, self.adam = loss, adam(lr)
 
     def init(self, phys_conf):
-        params = dict(self.loss.wf.named_parameters())
-        zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}  # noqa: E731
-        return {'count': 0, 'mu': zeros(), 'nu': zeros()}
+        return self.adam.init(dict(self.loss.wf.named_parameters()))
 
     def step(self, opt_state, phys_conf, weight):
         (_, (E_loc, _, stats)), grads = self.loss.value_and_grad(phys_conf, weight)
-        count = opt_state['count'] + 1
-        b1, b2 = self.B1, self.B2
-        mu = {k: (1 - b1) * g + b1 * opt_state['mu'][k] for k, g in grads.items()}
-        nu = {k: (1 - b2) * g**2 + b2 * opt_state['nu'][k] for k, g in grads.items()}
-        c1, c2 = 1 - b1**count, 1 - b2**count
-        updates = {
-            k: -self.lr * (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + self.EPS) for k in grads
-        }
+        updates, opt_state = self.adam.update(grads, opt_state)
         params = dict(self.loss.wf.named_parameters())
         stats = {
             'opt/param_norm': tree_norm(p.detach() for p in params.values()),
@@ -64,7 +134,7 @@ class AdamOptimizer:
         with torch.no_grad():
             for k, p in params.items():
                 p.add_(updates[k])
-        return {'count': count, 'mu': mu, 'nu': nu}, E_loc, stats
+        return opt_state, E_loc, stats
 
 
 class KFACOptimizer:

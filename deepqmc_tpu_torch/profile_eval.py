@@ -27,8 +27,8 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import Molecule, MolecularHamiltonian, evaluate, psiformer_ansatz, train
-from .fit import DEFAULT_OPT_KWARGS, molecule_state
+from . import Molecule, MolecularHamiltonian, evaluate, psiformer_ansatz
+from .fit import DEFAULT_OPT_KWARGS, molecule_state, train
 from .kfac import KFAC
 from .loss import create_loss_fn, median_log_squeeze_and_mask
 from .sampling import DecorrSampler, MetropolisSampler

@@ -7,9 +7,9 @@ learning-rate schedules), with the two tree helpers of the sampler states
 import torch
 
 __all__ = [
-    'ConstantSchedule', 'InverseSchedule', 'cuda_median_ms', 'log_squeeze', 'masked_mean',
-    'multinomial_resampling', 'resolve_device', 'set_rows', 'tree_map', 'tree_norm',
-    'tree_stack',
+    'ConstantSchedule', 'InverseSchedule', 'cuda_median_ms', 'flatten_dict', 'log_squeeze',
+    'masked_mean', 'multinomial_resampling', 'resolve_device', 'set_rows', 'split_dict',
+    'tree_map', 'tree_norm', 'tree_stack',
 ]
 
 
@@ -104,3 +104,21 @@ def set_rows(full: torch.Tensor, idxs: list, rows) -> torch.Tensor:
     for i, row in zip(idxs, rows):
         full[i] = row
     return full
+
+
+def flatten_dict(dictionary: dict, parent_key: str = '', separator: str = '/') -> dict:
+    """Nested dicts as one dict of ``separator``-joined keys."""
+    items: list = []
+    for key, value in dictionary.items():
+        new_key = parent_key + separator + key if parent_key else key
+        if isinstance(value, dict):
+            items.extend(flatten_dict(value, new_key, separator=separator).items())
+        else:
+            items.append((new_key, value))
+    return dict(items)
+
+
+def split_dict(dictionary: dict, cond) -> tuple[dict, dict]:
+    """(the entries whose key meets ``cond``, the others)."""
+    return ({k: v for k, v in dictionary.items() if cond(k)},
+            {k: v for k, v in dictionary.items() if not cond(k)})

@@ -42,8 +42,15 @@ class NeuralNetworkWaveFunction(nn.Module):
         env_up, env_down = self.envelope(r, R)
         return env_up * fs_up, env_down * fs_down
 
-    def forward(self, phys_conf: PhysicalConfiguration) -> Psi:
-        sign, log_psi = self._determinant_mix(*self._spin_orbitals(phys_conf))
+    def forward(self, phys_conf: PhysicalConfiguration, return_mos: bool = False):
+        """``Psi``, or with ``return_mos`` the orbitals of each spin unpacked
+        from the flat det-major layout into ``[B, n_det, n_spin, n_orb]``
+        (the pretraining targets' layout, as the JAX package's cold path)."""
+        orb_up, orb_down = self._spin_orbitals(phys_conf)
+        if return_mos:
+            return tuple(o.unflatten(-1, (self.n_det, -1)).movedim(-2, -3)
+                         for o in (orb_up, orb_down))
+        sign, log_psi = self._determinant_mix(orb_up, orb_down)
         if self.cusp_electrons is not None:
             log_psi = log_psi + self.cusp_electrons(phys_conf.r)
         return Psi(sign, log_psi)

@@ -122,7 +122,7 @@ def _weighted_step():
     ewm, update_ewm = init_multi_mol_multi_state_ewm((1, 1))
     with pytest.MonkeyPatch.context() as mp:
         feed_draws(mp, [rng.normal(size=r.shape)], [rng.uniform(size=len(r))])
-        out = train_step(None, sampler, Recording(), TrainState(state, None),
+        out = train_step(None, sampler, Recording(), TrainState(state, None, None),
                          torch.tensor([0]), ewm, ewm, update_ewm)
     return log_weight, seen, out
 
@@ -175,7 +175,7 @@ def test_train_and_evaluate_with_langevin_and_equilibration():
     steps; training changes the parameters, evaluation does not, and sampling
     leaves no ``.grad`` on them."""
     hamil, wf = _h2()
-    out = list(dqt.train(hamil, wf, n_walkers=16, steps=3, sampler='decorr_langevin',
+    out = list(dqt.fit.train(hamil, wf, n_walkers=16, steps=3, sampler='decorr_langevin',
                          max_eq_steps=8, eq_allow_early_stopping=False, device='cpu'))
     assert [(step, E is None) for step, _, E, _ in out] == \
         [(i, True) for i in range(8)] + [(i, False) for i in range(3)]
@@ -197,7 +197,7 @@ def test_train_and_evaluate_with_langevin_and_equilibration():
 def test_train_changes_the_parameters_with_langevin():
     hamil, wf = _h2()
     before = _flat(wf)
-    for _, _, E_loc, _ in dqt.train(hamil, wf, n_walkers=8, steps=2, device='cpu',
+    for _, _, E_loc, _ in dqt.fit.train(hamil, wf, n_walkers=8, steps=2, device='cpu',
                                     sampler='decorr_langevin', optimizer='adam'):
         after = _flat(wf)
         assert not torch.equal(after, before) and torch.isfinite(E_loc).all()
@@ -207,7 +207,7 @@ def test_train_changes_the_parameters_with_langevin():
 @pytest.mark.parametrize('name', sorted(RECIPES))
 def test_train_reaches_each_recipe(name):
     hamil, wf = _h2()
-    (_, state, E_loc, stats), = dqt.train(hamil, wf, n_walkers=8, steps=1, sampler=name,
+    (_, state, E_loc, stats), = dqt.fit.train(hamil, wf, n_walkers=8, steps=1, sampler=name,
                                           device='cpu')
     elec = state.sampler['elec']
     assert torch.isfinite(E_loc).all() and torch.isfinite(stats['sampling/tau']).all()
@@ -223,7 +223,7 @@ def test_train_takes_the_clipping_function():
         calls.append(len(x))
         return median_clip_and_mask(x, clip_width=5, median_center=True)
 
-    list(dqt.train(hamil, wf, n_walkers=8, steps=2, decorr=2, clip_mask_fn=clip,
+    list(dqt.fit.train(hamil, wf, n_walkers=8, steps=2, decorr=2, clip_mask_fn=clip,
                    device='cpu'))
     assert calls == [8, 8]
 
@@ -240,7 +240,7 @@ def test_train_on_two_geometries_with_walker_weights():
         ResampledSampler(period=3), DecorrSampler(length=2),
         MetropolisSampler(hamil, wf, max_age=20))
     prev, moved = None, []
-    for _, state, E_loc, stats in dqt.train(hamil, wf, n_walkers=16, steps=4, sampler=factory,
+    for _, state, E_loc, stats in dqt.fit.train(hamil, wf, n_walkers=16, steps=4, sampler=factory,
                                             mols=mols, molecule_batch_size=1, device='cpu'):
         elec = state.sampler['elec']
         assert elec['r'].shape == (2, 1, 16, 2, 3) and elec['tau'].shape == (2, 1)
@@ -258,9 +258,9 @@ def test_train_on_two_geometries_with_walker_weights():
 def test_train_checks_its_molecules():
     hamil, wf = _h2()
     with pytest.raises(NotImplementedError, match='molecule_batch_size'):
-        next(dqt.train(hamil, wf, n_walkers=4, steps=1, molecule_batch_size=2, device='cpu'))
+        next(dqt.fit.train(hamil, wf, n_walkers=4, steps=1, molecule_batch_size=2, device='cpu'))
     other = dqt.Molecule.from_name('LiH')
     with pytest.raises(ValueError, match='charges'):
-        next(dqt.train(hamil, wf, n_walkers=4, steps=1, mols=[hamil.mol, other], device='cpu'))
+        next(dqt.fit.train(hamil, wf, n_walkers=4, steps=1, mols=[hamil.mol, other], device='cpu'))
     with pytest.raises(ValueError, match='recipe'):
         next(dqt.evaluate(hamil, wf, n_walkers=4, steps=1, sampler='langevin', device='cpu'))

@@ -1,16 +1,21 @@
-"""Rules the port keeps: no JAX, no JAX package and no YAML on its path; entry
-points run on CUDA unless told otherwise; small source files; and the main
-path hands its kernels operands their input checks accept."""
+"""Rules the port keeps: no JAX, no JAX package and no YAML on its path, and
+no scipy, h5py, tensorboardX or tqdm at import (optional packages, which a
+GPU host may lack); entry points run on CUDA unless told otherwise; ``train`` is the
+module of the run; small source files; and the main path hands its kernels
+operands their input checks accept."""
 
 import ast
 import subprocess
 import sys
+import types
+from functools import partial
 from pathlib import Path
 
 import pytest
 import torch
 
 import deepqmc_tpu_torch as dqt
+from deepqmc_tpu_torch.optimizer import AdamOptimizer
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / 'deepqmc_tpu_torch'
@@ -40,7 +45,8 @@ def test_imports_with_jax_and_yaml_blocked():
     )
     code = (
         'import sys\n'
-        'for name in ("jax", "jaxlib", "yaml", "deepqmc_tpu", "scipy"):\n'
+        'for name in ("jax", "jaxlib", "yaml", "deepqmc_tpu", "scipy", "h5py", "tensorboardX",'
+        ' "tqdm"):\n'
         '    sys.modules[name] = None\n'
         f'import importlib\nfor m in {modules!r}:\n    importlib.import_module(m)\n'
     )
@@ -58,10 +64,29 @@ def test_evaluate_needs_cuda_unless_told():
                               num_heads=2)
     sampling = dict(sampler='decorr_langevin', mols=[hamil.mol], max_eq_steps=2,
                     eq_allow_early_stopping=False)
-    for entry_point in (dqt.evaluate, dqt.train):
+    for entry_point in (dqt.evaluate, dqt.fit.train):
         for kwargs in ({}, sampling):
             with pytest.raises(RuntimeError, match='CUDA'):
                 next(entry_point(hamil, wf, n_walkers=4, steps=1, **kwargs))
+    from deepqmc_tpu_torch.sampling import RECIPES, initialize_sampling
+
+    factory = partial(initialize_sampling, elec_sampler=RECIPES['decorr_metropolis'])
+    for opt in (None, partial(AdamOptimizer)):
+        with pytest.raises(RuntimeError, match='CUDA'):
+            dqt.train.train(hamil, wf, opt, factory, steps=1, seed=0, electron_batch_size=4)
+
+
+def test_train_is_the_module_of_the_run():
+    """``deepqmc_tpu_torch.train`` is the module (as ``deepqmc_tpu.train``) and
+    ``train.train`` the run; the step loop is ``fit.train``."""
+    import importlib
+
+    from deepqmc_tpu_torch import fit
+
+    module = importlib.import_module('deepqmc_tpu_torch.train')
+    assert dqt.train is module and isinstance(dqt.train, types.ModuleType)
+    assert callable(module.train) and module.train.__module__ == 'deepqmc_tpu_torch.train'
+    assert fit.train.__module__ == 'deepqmc_tpu_torch.fit' and fit.train is not module.train
 
 
 def test_source_files_are_small():

@@ -108,7 +108,7 @@ def test_training_step_launches_through_the_kernel_wrappers(monkeypatch):
     hamil = dqt.MolecularHamiltonian(mol=dqt.Molecule.from_name('H2O'))
     wf = dqt.psiformer_ansatz(hamil, n_determinants=2, embedding_dim=32, n_interactions=4,
                               num_heads=2)
-    for _, state, E_loc, stats in dqt.train(hamil, wf, n_walkers=8, steps=2, decorr=2,
+    for _, state, E_loc, stats in dqt.fit.train(hamil, wf, n_walkers=8, steps=2, decorr=2,
                                             device='cpu'):
         assert seen == ['fl_attention'] * 4 + ['fl_slogdet']
         seen.clear()
@@ -124,7 +124,7 @@ def test_train_lowers_the_energy_of_h2():
     hamil = dqt.MolecularHamiltonian(mol=dqt.Molecule.from_name('H2'))
     wf = dqt.psiformer_ansatz(hamil, **SMALL)
     energies, before = [], None
-    for step, train_state, E_loc, stats in dqt.train(hamil, wf, n_walkers=128, steps=40,
+    for step, train_state, E_loc, stats in dqt.fit.train(hamil, wf, n_walkers=128, steps=40,
                                                      decorr=3, device='cpu'):
         params = torch.cat([p.detach().flatten() for p in wf.parameters()])
         assert before is None or not torch.equal(params, before), f'step {step}'
@@ -150,4 +150,4 @@ def test_train_needs_cuda_unless_told(optimizer):
     wf = dqt.psiformer_ansatz(hamil, n_determinants=1, embedding_dim=8, n_interactions=1,
                               num_heads=2)
     with pytest.raises(RuntimeError, match='CUDA'):
-        next(dqt.train(hamil, wf, n_walkers=4, steps=1, optimizer=optimizer))
+        next(dqt.fit.train(hamil, wf, n_walkers=4, steps=1, optimizer=optimizer))
