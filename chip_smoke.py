@@ -109,6 +109,28 @@ Phases, each with a start and an end line and its own time budget:
    step, the equilibration calls and their median, the median fit step, the
    checkpoint's bytes and its write and read times, the median evaluation
    step and the peak device memory.
+10. zoo path: the FermiNet and PauliNet-style ``default`` presets at full
+   width (FermiNet: 16 determinants, embedding 256, 4 layers, two-particle
+   width 32; ``default``: 16, 128, 3, 32; seed-0 weights) on H2O.  FermiNet's
+   evaluation at 2048 walkers, 3 steps of ``decorr_metropolis_ferminet``
+   through ``deepqmc_tpu_torch.evaluate``, with full determinants (one launch
+   of the flat slogdet kernel a local energy) and with per-spin determinants
+   (two); each step finite and launching just that; E_loc on 64 walkers held to
+   the float64 plain path by the local energy's rule.  Then
+   ``train_ferminet.yaml`` (4096 walkers, ``decorr_metropolis_ferminet``, KFAC
+   as ``opt/kfac.yaml``: lr 0.05 / (1 + n / 10000), damping and norm
+   constraint 1e-3, inverses every 5; ``median_clip_and_mask(clip_width=5,
+   median_center=False)``) and ``train.yaml`` with the ``default`` preset
+   (1000 walkers, ``decorr_langevin``, the same KFAC,
+   ``median_log_squeeze_and_mask`` and ``alpha=4.0``), both with Adam
+   pretraining (lr 3e-4) on the 'sto-6g' SCF, through ``train.train``, cut to
+   10 pretraining steps, 10 equilibration calls, 6 fit steps and a checkpoint
+   every 3 steps in the git-ignored ``runs/zoo_path`` (removed after each
+   run).  Pretraining and equilibration launch no kernel; each fit step must
+   be finite, change the parameters and launch the flat slogdet kernel once
+   and nothing else.  It prints the median evaluation step and local-energy
+   time, the median pretraining step, equilibration call and fit step of each
+   run, and the peak device memory.
 
 Each path's launch counts are read from a run that starts with every count
 at 0.  It prints a ``{"kernels": [...]}`` line, and as its last line
@@ -130,6 +152,7 @@ WATCHDOG_S = 1100  # the whole run, build included; the run's limit is 1200 s
 PHASE_BUDGET_S = {
     'device': 60, 'build': 240, 'kernels': 300, 'main_path': 300, 'block_path': 180,
     'square_path': 120, 'train_path': 240, 'sampling_path': 240, 'run_path': 300,
+    'zoo_path': 300,
 }
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
@@ -567,50 +590,31 @@ def _median(xs):
     return xs[len(xs) // 2]
 
 
-def run_path(dq, hamil, smi, counts, zero_counts, per_op_step):
-    """Phase 9: ``train.train`` as ``train_psiformer.yaml`` sets it (cut in
-    depth), then an evaluation from its last checkpoint; returns the kernel
-    launches of both runs."""
-    import logging
-    from functools import partial
-
-    import numpy as np
+def _recording_sinks(counts, wf):
+    """Stand-ins for a run's metric sink and ``H5Logger`` (h5py is optional):
+    ``records`` gets each update's time, launch counts, stats and (fit and
+    evaluation steps) the parameters after it; ``rows`` the keys each results
+    row would write."""
     import torch
 
-    from deepqmc_tpu_torch.fit import TrainState
-    from deepqmc_tpu_torch.log import CheckpointStore
-    from deepqmc_tpu_torch.loss import create_loss_fn, median_clip_and_mask
-    from deepqmc_tpu_torch.optimizer import KFACOptimizer
-    from deepqmc_tpu_torch.sampling import RECIPES, initialize_sampling
-    from deepqmc_tpu_torch.train import train
-    from deepqmc_tpu_torch.utils import ConstantSchedule, InverseSchedule, flatten_dict
+    from deepqmc_tpu_torch.utils import flatten_dict
 
-    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'runs', 'run_path')
-    shutil.rmtree(workdir, ignore_errors=True)
-    print(f'run path: train_psiformer.yaml at full width, {RUN_WALKERS} walkers, cut: '
-          f'pretraining {RUN_PRETRAIN_STEPS} steps (of 20000), equilibration {RUN_EQ_STEPS} '
-          f'calls (of 1000), fit {RUN_FIT_STEPS} steps (of 200000), checkpoint interval '
-          f'{RUN_CHKPT_INTERVAL} (of 1000); workdir {workdir}', flush=True)
-    records, rows, writes, scf = [], [], [], []
+    records, rows = [], []
 
     class Metrics:
-        """The run's metric sink: the time, launch counts and stats of each update."""
-
         def __init__(self, workdir, n_mol):
             pass
 
         def update(self, step, stats, multi_stats, mol_idxs, prefix=None):
             torch.cuda.synchronize()
             records.append(dict(t=time.monotonic(), prefix=prefix, step=step, counts=counts(),
-                                stats={**multi_stats, **stats}))
+                                stats={**multi_stats, **stats},
+                                params=None if prefix else flat_params(wf)))
 
         def close(self):
             pass
 
     class Results:
-        """The run's stand-in for ``H5Logger`` (h5py is optional): the keys it
-        would write, a row each update."""
-
         def __init__(self, workdir, keys, *, init_step=0, aux_data=None):
             self.keys = ['local_energy', *keys]
 
@@ -619,6 +623,30 @@ def run_path(dq, hamil, smi, counts, zero_counts, per_op_step):
 
         def close(self):
             pass
+
+    return records, rows, Metrics, Results
+
+
+def _cut_run(smi, hamil, wf, opt, sampler_factory, loss_function_factory, *, label, walkers,
+             pretrain_steps, pretrain_kwargs, eq_steps, fit_steps, chkpt_interval, workdir,
+             counts, zero_counts, per_step):
+    """``train.train`` on the card, cut in depth, with the checks every cut run
+    shares: the phases it was given and one SCF, a finite pretraining MSE, no
+    launch before the fit, per fit step the launches ``per_step``, finite
+    stats and changed parameters, the samples recorded and a checkpoint every
+    ``chkpt_interval`` steps.  Prints each phase's median; returns the run's
+    state and its pretraining records."""
+    import logging
+    from functools import partial
+
+    import numpy as np
+    import torch
+
+    from deepqmc_tpu_torch.log import CheckpointStore
+    from deepqmc_tpu_torch.train import train
+
+    records, rows, Metrics, Results = _recording_sinks(counts, wf)
+    writes, scf = [], []
 
     class TimedStore(CheckpointStore):
         def dump(self):
@@ -632,13 +660,107 @@ def run_path(dq, hamil, smi, counts, zero_counts, per_op_step):
             if hasattr(record, 'scf_seconds'):
                 scf.append(record.scf_seconds)
 
+    shutil.rmtree(workdir, ignore_errors=True)
     logger = logging.getLogger('deepqmc_tpu_torch.train')
     handler, level = ScfTime(), logger.level
     logger.addHandler(handler)
     logger.setLevel(logging.INFO)
-    sinks = dict(metric_logger_constructor=Metrics, h5_logger_constructor=Results, device='cuda',
-                 loss_function_factory=partial(create_loss_fn, clip_mask_fn=partial(
-                     median_clip_and_mask, clip_width=5, median_center=True)))
+    before = flat_params(wf)
+    zero_counts()
+    t0 = time.monotonic()
+    try:
+        state = train(
+            hamil, wf, opt, sampler_factory, steps=fit_steps, seed=0,
+            electron_batch_size=walkers, workdir=workdir, max_eq_steps=eq_steps,
+            pretrain_steps=pretrain_steps, pretrain_kwargs=pretrain_kwargs,
+            chkpt_constructor=partial(TimedStore, interval=chkpt_interval),
+            metric_logger_constructor=Metrics, h5_logger_constructor=Results,
+            loss_function_factory=loss_function_factory, device='cuda',
+        )
+        torch.cuda.synchronize()
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    run_s = time.monotonic() - t0
+
+    pre, eq, fit = ([r for r in records if r['prefix'] == p]
+                    for p in ('pretraining', 'equilibration', None))
+    print(f'{label}: {len(pre)} pretraining steps, {len(eq)} equilibration calls, {len(fit)} '
+          f'fit steps in {run_s:.1f} s; launches {counts()}', flush=True)
+    if (len(pre) != pretrain_steps or len(eq) != eq_steps or len(fit) != fit_steps
+            or state.opt['step'] != fit_steps or len(scf) != 1):
+        raise SystemExit(f'{label}: the run did not take the phases it was given')
+    if not all(math.isfinite(float(np.mean(r['stats']['MSE']))) for r in pre):
+        raise SystemExit(f'{label}: the pretraining MSE is not finite')
+    if any(eq[-1]['counts'].values()):
+        raise SystemExit(f'{label}: pretraining and equilibration launched {eq[-1]["counts"]}')
+    prev, prev_params = eq[-1]['counts'], before
+    for r in fit:
+        launches = {k: r['counts'][k] - prev[k] for k in prev}
+        prev = r['counts']
+        e = r['stats']['local_energy/mean']
+        print(f'{label} fit step {r["step"]}: E_loc mean {float(np.mean(e)):.6f} std '
+              f'{float(np.mean(r["stats"]["local_energy/std"])):.6f} step time '
+              f'{r["stats"]["perf/step_time"]:.3f} s; launches {launches}', flush=True)
+        if launches != per_step:
+            raise SystemExit(f'{label} fit step {r["step"]} launched {launches}, want {per_step}')
+        if not all(np.isfinite(v).all() for v in r['stats'].values()):
+            raise SystemExit(f'{label} fit step {r["step"]}: stats not finite')
+        if torch.equal(r['params'], prev_params):
+            raise SystemExit(f'{label} fit step {r["step"]} left the parameters unchanged')
+        prev_params = r['params']
+    if len(rows) != fit_steps or not all(
+            {'local_energy/samples', 'psi/samples/log'} <= row for row in rows):
+        raise SystemExit(f'{label}: the fit did not record its samples')
+    names = sorted(f for f in os.listdir(os.path.join(workdir, 'training'))
+                   if f.startswith('chkpt-'))
+    want = {f'chkpt-{i}.pt' for i in range(0, fit_steps + 1, chkpt_interval)}
+    print(f'{label} checkpoints {names}; written {writes}', flush=True)
+    if set(names) != want:
+        raise SystemExit(f'{label}: checkpoints {names}, want {sorted(want)}')
+
+    pre_s = [b['t'] - a['t'] for a, b in zip(pre, pre[1:])]
+    eq_s = [b['t'] - a['t'] for a, b in zip(eq, eq[1:])]
+    fit_s = [r['stats']['perf/step_time'] for r in fit]
+    print(f'{smi} | {label} SCF (H2O, {pretrain_kwargs["scf_kwargs"]["basis"]}, host numpy) '
+          f'{scf[0]:.2f} s', flush=True)
+    print(f'{smi} | {label} pretraining step ({pretrain_kwargs["opt"]}, {walkers} walkers): '
+          f'median {1e3 * _median(pre_s):.1f} ms of {len(pre_s)} (first step to the second '
+          f'{1e3 * pre_s[0]:.1f} ms)', flush=True)
+    print(f'{smi} | {label} equilibration: {len(eq)} calls, median {1e3 * _median(eq_s):.1f} '
+          'ms a call', flush=True)
+    print(f'{smi} | {label} fit step (KFAC, {walkers} walkers): median '
+          f'{1e3 * _median(fit_s):.1f} ms (steps {", ".join(f"{1e3 * t:.1f}" for t in fit_s)} '
+          f'ms); launches a step {per_step}', flush=True)
+    print(f'{smi} | {label} checkpoint {_median([b for _, b, _ in writes]) / 1e6:.2f} MB, '
+          f'written in {", ".join(f"{ms:.1f}" for *_, ms in writes)} ms', flush=True)
+    return state, pre
+
+
+def run_path(dq, hamil, smi, counts, zero_counts, per_op_step):
+    """Phase 9: ``train.train`` as ``train_psiformer.yaml`` sets it (cut in
+    depth), then an evaluation from its last checkpoint; returns the kernel
+    launches of both runs."""
+    from functools import partial
+
+    import numpy as np
+    import torch
+
+    from deepqmc_tpu_torch.fit import TrainState
+    from deepqmc_tpu_torch.log import CheckpointStore
+    from deepqmc_tpu_torch.loss import create_loss_fn, median_clip_and_mask
+    from deepqmc_tpu_torch.optimizer import KFACOptimizer
+    from deepqmc_tpu_torch.sampling import RECIPES, initialize_sampling
+    from deepqmc_tpu_torch.train import train
+    from deepqmc_tpu_torch.utils import ConstantSchedule, InverseSchedule
+
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'runs', 'run_path')
+    print(f'run path: train_psiformer.yaml at full width, {RUN_WALKERS} walkers, cut: '
+          f'pretraining {RUN_PRETRAIN_STEPS} steps (of 20000), equilibration {RUN_EQ_STEPS} '
+          f'calls (of 1000), fit {RUN_FIT_STEPS} steps (of 200000), checkpoint interval '
+          f'{RUN_CHKPT_INTERVAL} (of 1000); workdir {workdir}', flush=True)
+    loss = partial(create_loss_fn, clip_mask_fn=partial(
+        median_clip_and_mask, clip_width=5, median_center=True))
     sampler_factory = partial(initialize_sampling,
                               elec_sampler=RECIPES['decorr_metropolis_psiformer'])
     opt = partial(KFACOptimizer, learning_rate_schedule=InverseSchedule(0.05, 100000),
@@ -646,77 +768,43 @@ def run_path(dq, hamil, smi, counts, zero_counts, per_op_step):
                   inverse_update_period=5)
     torch.cuda.reset_peak_memory_stats()
     wf = dq.psiformer_ansatz(hamil, seed=0).cuda()
-    zero_counts()
-    t0 = time.monotonic()
-    state = train(
-        hamil, wf, opt, sampler_factory, steps=RUN_FIT_STEPS, seed=0,
-        electron_batch_size=RUN_WALKERS, workdir=workdir, max_eq_steps=RUN_EQ_STEPS,
+    state, pre = _cut_run(
+        smi, hamil, wf, opt, sampler_factory, loss, label='run path', walkers=RUN_WALKERS,
         pretrain_steps=RUN_PRETRAIN_STEPS,
         pretrain_kwargs=dict(opt='lamb', opt_kwargs=dict(learning_rate=3e-4, b1=0.9, b2=0.999),
                              scf_kwargs=dict(basis='sto-6g')),
-        chkpt_constructor=partial(TimedStore, interval=RUN_CHKPT_INTERVAL), **sinks,
+        eq_steps=RUN_EQ_STEPS, fit_steps=RUN_FIT_STEPS, chkpt_interval=RUN_CHKPT_INTERVAL,
+        workdir=workdir, counts=counts, zero_counts=zero_counts, per_step=per_op_step,
     )
-    torch.cuda.synchronize()
-    run_s = time.monotonic() - t0
-    logger.removeHandler(handler)
-    logger.setLevel(level)
     train_launches = counts()
-
-    pre, eq, fit = ([r for r in records if r['prefix'] == p]
-                    for p in ('pretraining', 'equilibration', None))
-    print(f'run path: {len(pre)} pretraining steps, {len(eq)} equilibration calls, {len(fit)} '
-          f'fit steps in {run_s:.1f} s; launches {train_launches}', flush=True)
-    if len(pre) != RUN_PRETRAIN_STEPS or len(fit) != RUN_FIT_STEPS or not eq or len(scf) != 1:
-        raise SystemExit('the run did not take the phases it was given')
     mse = [float(np.mean(r['stats']['MSE'])) for r in pre]
     first, last = float(np.mean(mse[:10])), float(np.mean(mse[-10:]))
     print(f'pretraining MSE: first {mse[0]:.4e}, mean of the first 10 {first:.4e}, of the last '
           f'10 {last:.4e}, last {mse[-1]:.4e}', flush=True)
-    if not (all(math.isfinite(m) for m in mse) and last < first):
-        raise SystemExit('pretraining: the MSE is not finite or did not fall')
-    if any(eq[-1]['counts'].values()):
-        raise SystemExit(f'pretraining and equilibration launched {eq[-1]["counts"]}')
-    prev = eq[-1]['counts']
-    for r in fit:
-        launches = {k: r['counts'][k] - prev[k] for k in prev}
-        prev = r['counts']
-        e = r['stats']['local_energy/mean']
-        print(f'run fit step {r["step"]}: E_loc mean {float(np.mean(e)):.6f} std '
-              f'{float(np.mean(r["stats"]["local_energy/std"])):.6f} step time '
-              f'{r["stats"]["perf/step_time"]:.3f} s; launches {launches}', flush=True)
-        if launches != per_op_step:
-            raise SystemExit(f'run fit step {r["step"]} launched {launches}, want {per_op_step}')
-        if not all(np.isfinite(v).all() for v in r['stats'].values()):
-            raise SystemExit(f'run fit step {r["step"]}: stats not finite')
-    if state.opt['step'] != RUN_FIT_STEPS or len(rows) != RUN_FIT_STEPS or not all(
-            {'local_energy/samples', 'psi/samples/log'} <= row for row in rows):
-        raise SystemExit('the fit did not take its steps or record its samples')
-    run_dir = os.path.join(workdir, 'training')
-    names = sorted(f for f in os.listdir(run_dir) if f.startswith('chkpt-'))
-    want = {f'chkpt-{i}.pt' for i in range(0, RUN_FIT_STEPS + 1, RUN_CHKPT_INTERVAL)}
-    print(f'checkpoints {names}; written {writes}', flush=True)
-    if set(names) != want:
-        raise SystemExit(f'checkpoints {names}, want {sorted(want)}')
-    path = os.path.join(run_dir, f'chkpt-{RUN_FIT_STEPS}.pt')
+    if not last < first:
+        raise SystemExit('pretraining: the MSE did not fall')
+    path = os.path.join(workdir, 'training', f'chkpt-{RUN_FIT_STEPS}.pt')
     t0 = time.monotonic()
     step, loaded = CheckpointStore.load(path, 'cuda')
     torch.cuda.synchronize()
     load_ms = 1e3 * (time.monotonic() - t0)
+    print(f'{smi} | run path checkpoint read in {load_ms:.1f} ms', flush=True)
     if step != RUN_FIT_STEPS or not (
             all(torch.equal(loaded.params[k], v) for k, v in wf.state_dict().items())
             and torch.equal(loaded.sampler['elec']['r'], state.sampler['elec']['r'])):
         raise SystemExit('the last checkpoint does not hold the run\'s parameters and walkers')
 
-    records.clear()
-    rows.clear()
+    records, rows, Metrics, Results = _recording_sinks(counts, wf)
     before = {k: v.clone() for k, v in wf.state_dict().items()}
     zero_counts()
     train(hamil, wf, None, sampler_factory, steps=RUN_EVAL_STEPS, seed=0,
           electron_batch_size=RUN_WALKERS, workdir=workdir,
-          train_state=TrainState(loaded.sampler, loaded.params, None), **sinks)
+          train_state=TrainState(loaded.sampler, loaded.params, None),
+          metric_logger_constructor=Metrics, h5_logger_constructor=Results, device='cuda',
+          loss_function_factory=loss)
     torch.cuda.synchronize()
     ev = [r for r in records if r['prefix'] is None]
-    prev = dict.fromkeys(prev, 0)
+    prev = dict.fromkeys(train_launches, 0)
     for r in ev:
         launches = {k: r['counts'][k] - prev[k] for k in prev}
         prev = r['counts']
@@ -731,22 +819,6 @@ def run_path(dq, hamil, smi, counts, zero_counts, per_op_step):
     if not all(torch.equal(v, before[k]) for k, v in wf.state_dict().items()):
         raise SystemExit('the evaluation changed the parameters')
 
-    pre_s = [b['t'] - a['t'] for a, b in zip(pre, pre[1:])]
-    eq_s = [b['t'] - a['t'] for a, b in zip(eq, eq[1:])]
-    size = _median([b for _, b, _ in writes])
-    print(f'{smi} | run path SCF (H2O, sto-6g, host numpy) {scf[0]:.2f} s', flush=True)
-    print(f'{smi} | run path pretraining step (LAMB, {RUN_WALKERS} walkers, 30 moves): median '
-          f'{1e3 * _median(pre_s):.1f} ms of {len(pre_s)} (first step to the second '
-          f'{1e3 * pre_s[0]:.1f} ms)', flush=True)
-    print(f'{smi} | run path equilibration: {len(eq)} calls, median {1e3 * _median(eq_s):.1f} '
-          f'ms a call', flush=True)
-    fit_s = [r['stats']['perf/step_time'] for r in fit]
-    print(f'{smi} | run path fit step (KFAC, {RUN_WALKERS} walkers): median '
-          f'{1e3 * _median(fit_s):.1f} ms (steps {", ".join(f"{1e3 * t:.1f}" for t in fit_s)} '
-          'ms)', flush=True)
-    print(f'{smi} | run path checkpoint {size / 1e6:.2f} MB, written in '
-          f'{", ".join(f"{ms:.1f}" for *_, ms in writes)} ms, read in {load_ms:.1f} ms',
-          flush=True)
     ev_s = [r['stats']['perf/step_time'] for r in ev]
     print(f'{smi} | run path evaluation step ({RUN_WALKERS} walkers): median '
           f'{1e3 * _median(ev_s):.1f} ms (steps {", ".join(f"{1e3 * t:.1f}" for t in ev_s)} ms)',
@@ -757,6 +829,147 @@ def run_path(dq, hamil, smi, counts, zero_counts, per_op_step):
     torch.cuda.empty_cache()
     shutil.rmtree(workdir)  # four checkpoints of 34 MB each
     return {k: train_launches[k] + prev[k] for k in prev}
+
+
+# zoo path: the FermiNet evaluation at 2048 walkers (3 steps, full and
+# per-spin determinants); train_ferminet.yaml at 4096 walkers and train.yaml
+# (the default ansatz) at 1000, each cut to 10 pretraining steps (of 1000 and
+# 100), 10 equilibration calls (of 1000) and 6 fit steps (of 100,000 and
+# 1000), a checkpoint every 3 steps
+ZOO_EVAL_WALKERS, ZOO_EVAL_STEPS = 2048, 3
+ZOO_RUNS = {  # preset -> (task, walkers, recipe, pretraining and fit steps of the task)
+    'ferminet': ('train_ferminet.yaml', 4096, 'decorr_metropolis_ferminet', 1000, 100000),
+    'default': ('train.yaml', 1000, 'decorr_langevin', 100, 1000),
+}
+ZOO_PRETRAIN_STEPS, ZOO_EQ_STEPS, ZOO_FIT_STEPS, ZOO_CHKPT_INTERVAL = 10, 10, 6, 3
+
+
+def zoo_path(dq, hamil, R, smi, counts, zero_counts):
+    """Phase 10: the FermiNet and default presets at full width. FermiNet's
+    evaluation with full and per-spin determinants (kernel 2 once and twice a
+    local energy), then a cut training run of each preset through
+    ``train.train``; after each, E_loc of 64 of its walkers against float64.
+    Returns the kernel launches of the phase."""
+    from functools import partial
+
+    import torch
+
+    from deepqmc_tpu_torch.fit import molecule_state
+    from deepqmc_tpu_torch.loss import (
+        create_loss_fn,
+        median_clip_and_mask,
+        median_log_squeeze_and_mask,
+    )
+    from deepqmc_tpu_torch.optimizer import KFACOptimizer
+    from deepqmc_tpu_torch.sampling import RECIPES, initialize_sampling
+    from deepqmc_tpu_torch.utils import ConstantSchedule, InverseSchedule, cuda_median_ms
+
+    total = dict.fromkeys(counts(), 0)
+    peak = []
+
+    def take(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    def slogdet_only(n):
+        return dict.fromkeys(total, 0) | {'fl_slogdet_traces': n}
+
+    def check_eloc(label, wf, make_wf, r):
+        """E_loc of ``wf`` on the card against float64 copies on the CPU, on 64 walkers."""
+        weights = {k: v.cpu() for k, v in wf.state_dict().items()}
+        plain_wfs = {}
+        for name, dtype in (('plain_f64', torch.float64), ('plain_f32', torch.float32)):
+            plain_wfs[name] = make_wf().to(dtype)
+            plain_wfs[name].load_state_dict({k: v.to(dtype) for k, v in weights.items()})
+        rel, _, _ = eloc_rel_errors(hamil, wf, r[:64], R, plain_wfs)
+        tol = ELOC_FACTOR * rel['plain_f32'] + ELOC_FLOOR
+        print(f'{label}: E_loc on 64 walkers against the plain path in f64 (CPU): kernel path '
+              f'(f32, card) max rel err {rel["card"]:.3e}; plain path (f32, CPU) max rel err '
+              f'{rel["plain_f32"]:.3e}; tol {tol:.3e}', flush=True)
+        if not rel['card'] <= tol:
+            raise SystemExit(f'{label}: the kernel-path local energy disagrees with the plain path')
+
+    torch.cuda.reset_peak_memory_stats()
+    for full in (True, False):
+        label = f'ferminet ({"full" if full else "per-spin"} determinants)'
+        per_eloc = slogdet_only(1 if full else 2)
+        make_wf = partial(dq.ferminet_ansatz, hamil, seed=0, full_determinant=full)
+        wf = make_wf()
+        zero_counts()
+        seen, step_s, last = counts(), [], None
+        t0 = time.monotonic()
+        for step, state, E_loc, stats in dq.evaluate(
+                hamil, wf, n_walkers=ZOO_EVAL_WALKERS, steps=ZOO_EVAL_STEPS,
+                sampler='decorr_metropolis_ferminet', seed=0):
+            torch.cuda.synchronize()
+            step_s.append(time.monotonic() - t0)
+            now = counts()
+            launches = {k: now[k] - seen[k] for k in now}
+            seen = now
+            print(f'{label} step {step}: E_loc mean {stats["local_energy/mean"].item():.6f} std '
+                  f'{stats["local_energy/std"].item():.6f} acceptance '
+                  f'{stats["sampling/acceptance"].item():.4f} time {step_s[-1]:.3f} s; '
+                  f'launches {launches}', flush=True)
+            if not torch.isfinite(E_loc).all() or E_loc.shape != (ZOO_EVAL_WALKERS,):
+                raise SystemExit(f'{label} step {step}: E_loc not finite or of shape '
+                                 f'{tuple(E_loc.shape)}')
+            if launches != per_eloc:
+                raise SystemExit(f'{label} step {step} launched {launches}, want {per_eloc}')
+            last = molecule_state(state)[1]
+            t0 = time.monotonic()
+        take(counts())
+        with torch.inference_mode():
+            pc = dq.PhysicalConfiguration(
+                R, last['r'], torch.zeros(ZOO_EVAL_WALKERS, dtype=torch.long, device='cuda'))
+            eloc_ms = cuda_median_ms(lambda: hamil.local_energy(wf, pc), runs=3, warmup=1)
+        print(f'{smi} | zoo path {label}, {ZOO_EVAL_WALKERS} walkers: median evaluation step '
+              f'{_median(step_s):.3f} s (steps {", ".join(f"{t:.3f}" for t in step_s)} s); local '
+              f'energy alone {eloc_ms:.1f} ms; kernel 2 launches a local energy '
+              f'{per_eloc["fl_slogdet_traces"]}', flush=True)
+        check_eloc(label, wf, make_wf, last['r'])
+        del wf, pc, last, state
+        torch.cuda.empty_cache()
+    peak.append(torch.cuda.max_memory_allocated() / 2**30)
+    print(f'{smi} | zoo path FermiNet evaluation peak device memory {peak[-1]:.2f} GiB',
+          flush=True)
+
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'runs', 'zoo_path')
+    opt = partial(KFACOptimizer, learning_rate_schedule=InverseSchedule(0.05, 10000),
+                  damping_schedule=ConstantSchedule(1e-3), norm_constraint=1e-3,
+                  inverse_update_period=5)
+    losses = {
+        'ferminet': partial(create_loss_fn, clip_mask_fn=partial(
+            median_clip_and_mask, clip_width=5.0, median_center=False)),
+        'default': partial(create_loss_fn, clip_mask_fn=median_log_squeeze_and_mask, alpha=4.0),
+    }
+    for preset, (task, walkers, recipe, task_pre, task_fit) in ZOO_RUNS.items():
+        label = f'zoo path {preset} run'
+        print(f'zoo path: {task} ({preset} at full width), {walkers} walkers, {recipe}, cut: '
+              f'pretraining {ZOO_PRETRAIN_STEPS} steps (of {task_pre}), equilibration '
+              f'{ZOO_EQ_STEPS} calls (of 1000), fit {ZOO_FIT_STEPS} steps (of {task_fit}), '
+              f'checkpoint interval {ZOO_CHKPT_INTERVAL}; workdir {workdir}', flush=True)
+        make_wf = partial(dq.ansatz_preset(preset, seed=0), hamil)
+        wf = make_wf().cuda()
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = _cut_run(
+            smi, hamil, wf, opt, partial(initialize_sampling, elec_sampler=RECIPES[recipe]),
+            losses[preset], label=label, walkers=walkers, pretrain_steps=ZOO_PRETRAIN_STEPS,
+            pretrain_kwargs=dict(opt='adam', opt_kwargs=dict(learning_rate=3e-4, b1=0.9,
+                                                             b2=0.999),
+                                 scf_kwargs=dict(basis='sto-6g')),
+            eq_steps=ZOO_EQ_STEPS, fit_steps=ZOO_FIT_STEPS, chkpt_interval=ZOO_CHKPT_INTERVAL,
+            workdir=workdir, counts=counts, zero_counts=zero_counts, per_step=slogdet_only(1),
+        )
+        take(counts())
+        peak.append(torch.cuda.max_memory_allocated() / 2**30)
+        print(f'{smi} | {label} peak device memory {peak[-1]:.2f} GiB', flush=True)
+        check_eloc(f'{label} (trained weights, last walkers)', wf, make_wf,
+                   molecule_state(state.sampler)[1]['r'])
+        del wf, state
+        torch.cuda.empty_cache()
+        shutil.rmtree(workdir)
+    print(f'{smi} | zoo path peak device memory {max(peak):.2f} GiB', flush=True)
+    return total
 
 
 def main() -> int:
@@ -912,6 +1125,11 @@ def main() -> int:
             (5, dict(K=6, D=4, nu=2, nd=0)),
             (256, dict(K=126, D=16, nu=21, nd=21)),
             (64, dict(K=192, D=4, nu=32, nd=32)),
+            # the zoo path's own launches: FermiNet's per-spin determinants
+            # (n = 5 split 3/2) at its evaluation walkers, the default run's
+            # walkers (its full determinants)
+            (ZOO_EVAL_WALKERS, dict(K=30, D=16, nu=3, nd=2)),
+            (ZOO_RUNS['default'][1], dict(K=30, D=16, nu=5, nd=5)),
         )
         for B, kw in slogdet_shapes:
             for name, kernel, plain, make in slogdet_kernels:
@@ -1371,6 +1589,15 @@ def main() -> int:
         run_launches = run_path(dq, hamil, smi, counts, zero_counts, per_op_step)
         for name, n in run_launches.items():
             by_name[name]['run_launches'] = n
+
+    with Phase('zoo_path'):
+        zoo_launches = zoo_path(dq, hamil, R, smi, counts, zero_counts)
+        print(f'launches during the zoo path: {zoo_launches}', flush=True)
+        if zoo_launches['fl_slogdet_traces'] == 0 or any(
+                n for k, n in zoo_launches.items() if k != 'fl_slogdet_traces'):
+            raise SystemExit('the zoo path did not run on kernel 2 alone')
+        for name, n in zoo_launches.items():
+            by_name[name]['zoo_launches'] = n
 
     print(json.dumps({'kernels': kernels}), flush=True)
     print(f'{smi} | whole run {time.monotonic() - _T0:.1f} s', flush=True)

@@ -160,7 +160,7 @@ def train_step(gen, sampler, opt, train_state: TrainState, mol_idxs, ewm, std_ew
     return TrainState(smpl_state, train_state.params, opt_state), ewm, std_ewm, E_loc, stats
 
 
-def _electron_sampler(sampler, decorr: int):
+def electron_sampler(sampler, decorr: int):
     """A factory ``(hamil, wf) -> electron sampler``: a recipe by name, the
     factory given, or for None bench.py's Metropolis at ``decorr`` moves."""
     if sampler is None:
@@ -172,12 +172,18 @@ def _electron_sampler(sampler, decorr: int):
     return sampler
 
 
-def sampling_grad_mode(sampler, inference: bool):
-    """The grad mode to sample in with the combined ``sampler``: inference mode
-    where ``inference`` asks for it, unless the sampler's force needs autograd,
-    which inference mode forbids; else ``no_grad``."""
-    uses_autograd = getattr(sampler.elec.sampler, 'uses_autograd', False)
+def electron_grad_mode(elec_sampler, inference: bool):
+    """The grad mode to sample in with the electron sampler ``elec_sampler``
+    (wrappers included): inference mode where ``inference`` asks for it,
+    unless the sampler's force needs autograd, which inference mode forbids;
+    else ``no_grad``."""
+    uses_autograd = getattr(elec_sampler, 'uses_autograd', False)
     return torch.inference_mode if inference and not uses_autograd else torch.no_grad
+
+
+def sampling_grad_mode(sampler, inference: bool):
+    """:func:`electron_grad_mode` of the combined ``sampler``'s electron sampler."""
+    return electron_grad_mode(sampler.elec.sampler, inference)
 
 
 def _sampling(hamil, wf, *, sampler, decorr, mols, molecule_batch_size, n_walkers, seed,
@@ -194,7 +200,7 @@ def _sampling(hamil, wf, *, sampler, decorr, mols, molecule_batch_size, n_walker
                              'of hamil.mol')
     idx_sampler, smpl = initialize_sampling(
         torch.Generator().manual_seed(seed + 2), hamil, wf, mols, 1, molecule_batch_size,
-        elec_sampler=_electron_sampler(sampler, decorr),
+        elec_sampler=electron_sampler(sampler, decorr),
     )
     grad_mode = sampling_grad_mode(smpl, inference)
     with grad_mode():

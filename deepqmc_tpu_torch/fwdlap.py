@@ -125,6 +125,9 @@ class FL:
     # --- structure ------------------------------------------------------------
 
     def __getitem__(self, idx):
+        """Feature-axis indexing after a leading ``...``: slices, ``None`` and
+        integer index tensors (a gather, such as the off-diagonal senders of
+        ``gnn.graph``), applied alike to the three channels."""
         if not isinstance(idx, tuple):
             idx = (idx,)
         if idx[0] is not Ellipsis:
@@ -135,6 +138,12 @@ class FL:
         dim = _neg(dim)
         return FL(
             self.x.sum(dim, keepdim), self.jac.sum(dim, keepdim), self.lap.sum(dim, keepdim)
+        )
+
+    def mean(self, dim: int, keepdim: bool = False) -> 'FL':
+        dim = _neg(dim)
+        return FL(
+            self.x.mean(dim, keepdim), self.jac.mean(dim, keepdim), self.lap.mean(dim, keepdim)
         )
 
     def squeeze(self, dim: int) -> 'FL':
@@ -301,6 +310,19 @@ def cat(values: Sequence, dim: int):
         torch.cat([p.jac for p in parts], dim),
         torch.cat([p.lap for p in parts], dim),
     )
+
+
+def tile(v, dim: int, n: int):
+    """Repeat the size-1 feature axis ``dim`` ``n`` times (``jnp.tile`` of a
+    kept reduction), as a broadcast view of each channel."""
+    dim = _neg(dim)
+
+    def expand(t):
+        shape = list(t.shape)
+        shape[dim] = n
+        return t.expand(shape)
+
+    return FL(expand(v.x), expand(v.jac), expand(v.lap)) if is_fl(v) else expand(v)
 
 
 def primal(v) -> torch.Tensor:

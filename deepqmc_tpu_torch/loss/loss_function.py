@@ -13,11 +13,15 @@ plain forward of the walkers.  For KFAC the same graph is instrumented
 (:func:`nn.instrumented`) and a second backward with the all-ones cotangent
 gives each dense layer's output sensitivities.
 
-Not ported yet: the overlap and spin penalties and more than one electronic
-state (ROADMAP.md, queue 1 item 7), and the walker chunking of the pullback
-and of the local energy (``DEEPQMC_TPU_GRAD_WALKER_CHUNK``,
-``DEEPQMC_TPU_ELOC_WALKER_CHUNK``).
+The overlap penalty's options (``alpha``, ``clip_mask_overlap_fn``, ...)
+are taken and kept as the JAX package keeps them, which uses them only with
+more than one electronic state.  Not ported yet: the spin penalty and more
+than one electronic state (ROADMAP.md, queue 1 item 7), and the walker
+chunking of the pullback and of the local energy
+(``DEEPQMC_TPU_GRAD_WALKER_CHUNK``, ``DEEPQMC_TPU_ELOC_WALKER_CHUNK``).
 """
+
+from typing import Optional
 
 import torch
 
@@ -36,8 +40,9 @@ class VMCLoss:
     layers' taps as well.
     """
 
-    def __init__(self, hamil, wf, clip_mask_fn):
+    def __init__(self, hamil, wf, clip_mask_fn, **overlap_options):
         self.hamil, self.wf, self.clip_mask_fn = hamil, wf, clip_mask_fn
+        self.overlap_options = overlap_options  # read only with several states
         self.dense_paths = dense_layer_paths(wf)
 
     def terms(self, phys_conf, weight):
@@ -95,12 +100,25 @@ class VMCLoss:
         }
 
 
-def create_loss_fn(hamil, wf, clip_mask_fn, **penalties) -> VMCLoss:
-    """Build the VMC loss.  The JAX package's penalty options (``alpha``,
-    ``spin_penalty``, ``clip_mask_overlap_fn``, ...) raise unless None."""
-    if any(v is not None for v in penalties.values()):
+def create_loss_fn(
+    hamil,
+    wf,
+    clip_mask_fn,
+    clip_mask_overlap_fn=None,
+    alpha: Optional[float] = None,
+    spin_penalty: Optional[float] = None,
+    scale_overlap_by: Optional[str] = None,
+    sort_states_by: Optional[str] = None,
+    min_gap_scale_factor: float = 0.1,
+) -> VMCLoss:
+    """Build the VMC loss, with the JAX package's signature.  With one
+    electronic state the overlap options are stored and never called, as in
+    the JAX package; ``spin_penalty`` raises unless None."""
+    if spin_penalty is not None:
         raise NotImplementedError(
-            f'{sorted(penalties)}: the overlap and spin penalties and more than one '
-            'electronic state are not ported yet (ROADMAP.md, queue 1 item 7)'
+            'spin_penalty: the spin penalty and more than one electronic state are not '
+            'ported yet (ROADMAP.md, queue 1 item 7)'
         )
-    return VMCLoss(hamil, wf, clip_mask_fn)
+    return VMCLoss(hamil, wf, clip_mask_fn, clip_mask_overlap_fn=clip_mask_overlap_fn,
+                   alpha=alpha, scale_overlap_by=scale_overlap_by, sort_states_by=sort_states_by,
+                   min_gap_scale_factor=min_gap_scale_factor)

@@ -15,4 +15,5 @@ from .modules import (  # noqa: F401
     MultiHeadAttention,
     ResidualConnection,
     SumPool,
+    ones_init,
 )

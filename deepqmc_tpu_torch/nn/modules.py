@@ -5,6 +5,7 @@ plain tensors or :class:`~deepqmc_tpu_torch.fwdlap.FL` triples.  Weights keep
 the JAX layout ``[in, out]``, so ``y = x @ w + b``.
 """
 
+import math
 from collections.abc import Callable
 from functools import partial
 from typing import Optional
@@ -14,11 +15,18 @@ import torch
 from .. import fwdlap as fl
 from .core import Module, variance_scaling
 
-__all__ = ['Linear', 'MLP', 'MultiHeadAttention', 'ResidualConnection', 'SumPool', 'Identity']
+__all__ = [
+    'Linear', 'MLP', 'MultiHeadAttention', 'ResidualConnection', 'SumPool', 'Identity', 'ones_init',
+]
 
 
 def _zeros(gen, shape, dtype=torch.float32):
     return torch.zeros(shape, dtype=dtype)
+
+
+def ones_init(gen, shape, dtype=torch.float32):
+    """All ones (``nn.core.ones_init``), e.g. the trainable determinant mix."""
+    return torch.ones(shape, dtype=dtype)
 
 
 _W_INITS = {
@@ -108,10 +116,22 @@ class MultiHeadAttention(Module):
 
 
 class ResidualConnection:
-    """Shape-gated residual: adds only when shapes match (``normalize=False``)."""
+    """Shape-gated residual: adds only when shapes match, then divides by
+    sqrt(2) with ``normalize``.  On a dict of edge containers (``gnn.graph``)
+    it acts leaf by leaf, as the JAX package's ``tree_map`` does."""
+
+    def __init__(self, *, normalize: bool = False):
+        self.normalize = normalize
 
     def __call__(self, inp, update):
-        return inp + update if inp.shape == update.shape else update
+        if isinstance(update, dict):
+            return {k: self(inp[k], v) for k, v in update.items()}
+        if hasattr(update, 'leaves'):
+            return update.from_leaves([self(a, b) for a, b in zip(inp.leaves(), update.leaves())])
+        if inp.shape != update.shape:
+            return update
+        out = inp + update
+        return out / math.sqrt(2) if self.normalize else out
 
 
 class SumPool:

@@ -1,13 +1,15 @@
 """Where an evaluation or a training step's time goes on the card.
 
     python -m deepqmc_tpu_torch.profile_eval [--block-kernel] [--train]
+        [--ansatz psiformer|ferminet|default] [--walkers N] [--sampler RECIPE]
 
-Builds the H2O PsiFormer at full width with seeded weights (with
-``--block-kernel``, each layer's forward Laplacian is one launch of the fused
-block kernel instead of the per-op rules), equilibrates
-2048 walkers with one evaluation step, then profiles one step's two halves
-separately with ``torch.profiler``: the 10 Metropolis moves (plain forwards)
-and the forward-Laplacian local energy.  For each half it prints the wall
+Builds the H2O PsiFormer (or ``--ansatz``'s preset) at full width with
+seeded weights (with ``--block-kernel``, each PsiFormer layer's forward
+Laplacian is one launch of the fused block kernel instead of the per-op
+rules), equilibrates 2048 walkers (``--walkers``) with one evaluation step,
+then profiles one step's two halves separately with ``torch.profiler``: a
+sample call (bench.py's 10 Metropolis moves, or the ``sampling.RECIPES``
+entry ``--sampler``) and the forward-Laplacian local energy.  For each half it prints the wall
 time (CUDA-synchronised), the summed device time of its kernels, the device's
 idle share (1 - device time / wall time) and the kernels that take the most
 device time.
@@ -27,11 +29,17 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import Molecule, MolecularHamiltonian, evaluate, psiformer_ansatz
-from .fit import DEFAULT_OPT_KWARGS, molecule_state, train
+from . import Molecule, MolecularHamiltonian, ansatz_preset, evaluate
+from .fit import (
+    DEFAULT_OPT_KWARGS,
+    electron_grad_mode,
+    electron_sampler,
+    molecule_state,
+    train,
+)
 from .kfac import KFAC
 from .loss import create_loss_fn, median_log_squeeze_and_mask
-from .sampling import DecorrSampler, MetropolisSampler
+from .sampling import MetropolisSampler
 
 __all__ = ['main']
 
@@ -59,43 +67,51 @@ def main(argv=None) -> int:
                         help="one fused kernel launch per layer's forward Laplacian")
     parser.add_argument('--train', action='store_true',
                         help='profile the parts a KFAC training step adds')
+    parser.add_argument('--ansatz', default='psiformer', choices=['psiformer', 'ferminet',
+                                                                  'default'])
+    parser.add_argument('--walkers', type=int, default=2048)
+    parser.add_argument('--sampler', default=None, help='a sampling.RECIPES name')
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print('profile_eval: needs a GPU', file=sys.stderr)
         return 1
     print(torch.cuda.get_device_name(0), flush=True)
     hamil = MolecularHamiltonian(mol=Molecule.from_name('H2O'))
-    wf = psiformer_ansatz(hamil, seed=0, block_kernel=args.block_kernel)
+    kwargs = {'block_kernel': True} if args.block_kernel else {}
+    wf = ansatz_preset(args.ansatz, seed=0, **kwargs)(hamil)
+    n = args.walkers
     if args.train:
-        _profile_training(hamil, wf)
+        _profile_training(hamil, wf, n, args.sampler)
         return 0
-    *_, (_, state, _, _) = evaluate(hamil, wf, n_walkers=2048, steps=1, seed=0)
+    *_, (_, state, _, _) = evaluate(hamil, wf, n_walkers=n, steps=1, seed=0, sampler=args.sampler)
     R, state = molecule_state(state)
-    sampler = DecorrSampler(length=10).wrap(MetropolisSampler(hamil, wf))
+    sampler = electron_sampler(args.sampler, 10)(hamil, wf)
     gen = torch.Generator('cuda').manual_seed(2)
-    with torch.inference_mode():
+    with electron_grad_mode(sampler, inference=True)():
         _, pc, _ = sampler.sample(gen, state, R)
+        _profiled(f'sampling ({args.sampler or "10 Metropolis moves"})',
+                  lambda: sampler.sample(gen, state, R))
+    with torch.inference_mode():
         hamil.local_energy(wf, pc)  # warm-up of this shape
-        _profiled('sampling (10 Metropolis moves)', lambda: sampler.sample(gen, state, R))
         _profiled('local energy (forward Laplacian)', lambda: hamil.local_energy(wf, pc))
     return 0
 
 
-def _profile_training(hamil, wf):
-    *_, (_, state, _, _) = train(hamil, wf, n_walkers=2048, steps=6, seed=0)
+def _profile_training(hamil, wf, n, sampler):
+    *_, (_, state, _, _) = train(hamil, wf, n_walkers=n, steps=6, seed=0, sampler=sampler)
     R, elec = molecule_state(state.sampler)
     loss = create_loss_fn(hamil, wf, median_log_squeeze_and_mask)
     kfac = KFAC(loss, **DEFAULT_OPT_KWARGS['kfac'])
     pc = MetropolisSampler.phys_conf(R, elec['r'])
     kfac.init(pc)
-    opt_state, weight = state.opt, torch.ones(2048, device='cuda')
+    opt_state, weight = state.opt, torch.ones(n, device='cuda')
     _, E_loc, _ = loss.terms(pc, weight)
     grads, taps = loss.grad_and_taps(pc, weight, E_loc, taps=True)  # warm-up
     _profiled('gradient and taps', lambda: loss.grad_and_taps(pc, weight, E_loc, taps=True))
     period = kfac.inverse_update_period
 
     def update(step):
-        kfac.update({**opt_state, 'step': step}, grads, taps, 2048)
+        kfac.update({**opt_state, 'step': step}, grads, taps, n)
 
     _profiled('KFAC update, inverses carried', lambda: update(period + 1))
     _profiled('KFAC update, inverses refreshed', lambda: update(period))

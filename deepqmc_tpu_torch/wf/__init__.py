@@ -1,3 +1,3 @@
-"""Wave-function ansatz of the port (PsiFormer)."""
+"""Wave-function ansätze of the port (PsiFormer, FermiNet, PauliNet-style `default`)."""
 
 from .nn_wave_function import NeuralNetworkWaveFunction  # noqa: F401

@@ -20,6 +20,13 @@ import numpy as np
 import torch
 
 SMALL = {'n_determinants': 2, 'embedding_dim': 32, 'n_interactions': 2, 'num_heads': 2}
+# the small FermiNet and default presets (tests/test_wf.py's, embedding 16)
+SMALL_ZOO = {'n_determinants': 2, 'embedding_dim': 16, 'n_interactions': 2,
+             'two_particle_stream_dim': 8}
+
+
+def small_kwargs(preset: str, **overrides) -> dict:
+    return {**(SMALL if preset == 'psiformer' else SMALL_ZOO), **overrides}
 SELFGOLDENS = Path(__file__).parent / 'test_reference_parity' / 'selfgoldens.npz'
 
 
@@ -37,14 +44,15 @@ def molecule(package, mol_name: str):
     return package.Molecule.from_name(mol_name)
 
 
-def jax_model(mol_name: str, seed: int = 0):
-    """(JAX hamiltonian, ansatz, perturbed params as numpy)."""
+def jax_model(mol_name: str, seed: int = 0, preset: str = 'psiformer', **overrides):
+    """(JAX hamiltonian, ansatz, perturbed params as numpy) of the small
+    ``preset`` with the keyword ``overrides``."""
     import deepqmc_tpu as dqj
     from deepqmc_tpu.presets import ansatz_preset
     from deepqmc_tpu.wf import instantiate_ansatz
 
     hamil = dqj.MolecularHamiltonian(mol=molecule(dqj, mol_name))
-    ansatz = instantiate_ansatz(hamil, ansatz_preset('psiformer', **SMALL))
+    ansatz = instantiate_ansatz(hamil, ansatz_preset(preset, **small_kwargs(preset, **overrides)))
     pc = hamil.init_sample(jax.random.PRNGKey(seed), hamil.mol.coords, 1)[0]
     params = jax.jit(ansatz.init)(jax.random.PRNGKey(seed + 1), pc)
     rng = np.random.default_rng(seed)
@@ -55,13 +63,18 @@ def jax_model(mol_name: str, seed: int = 0):
     return hamil, ansatz, params
 
 
-def torch_model(mol_name: str, params, block_kernel: bool = False, **hamil_kwargs):
-    """(port hamiltonian, wave function in float64 holding ``params``)."""
+def torch_model(mol_name: str, params, block_kernel: bool = False, preset: str = 'psiformer',
+                overrides=None, **hamil_kwargs):
+    """(port hamiltonian, wave function in float64 holding ``params``) of the
+    small ``preset`` with the keyword ``overrides``."""
     import deepqmc_tpu_torch as dqt
     from deepqmc_tpu_torch.convert import state_dict_from_jax
 
     hamil = dqt.MolecularHamiltonian(mol=molecule(dqt, mol_name), **hamil_kwargs)
-    wf = dqt.psiformer_ansatz(hamil, **SMALL, block_kernel=block_kernel).to(torch.float64)
+    kwargs = small_kwargs(preset, **(overrides or {}))
+    if preset == 'psiformer':
+        kwargs['block_kernel'] = block_kernel
+    wf = dqt.ansatz_preset(preset, **kwargs)(hamil).to(torch.float64)
     wf.load_state_dict(state_dict_from_jax(params, wf))
     return hamil, wf
 
