@@ -132,6 +132,34 @@ Phases, each with a start and an end line and its own time budget:
    time, the median pretraining step, equilibration call and fit step of each
    run, and the peak device memory.
 
+11. excited path: ``train.train`` with ``train_excited_psiformer.yaml``'s
+   settings: 2 electronic states of the full-width PsiFormer (one module per
+   state, each from its own generator forked from seed 0; no merge keys),
+   2048 walkers per state, ``decorr_metropolis_psiformer``, KFAC as
+   ``kfac_psiformer`` (lr 0.05 / (1 + n / 50000), damping and norm
+   constraint 1e-3, inverses every 5) over both states with one trust
+   region, the loss with ``alpha=4.0``, ``scale_overlap_by='max_gap_std'``,
+   ``min_gap_scale_factor=1e-3``, ``median_clip_and_mask(clip_width=5,
+   median_center=True)`` and ``psi_ratio_clip_and_mask``, a ``SpinMonitor``
+   every step, LAMB pretraining on CASCI(4, 4) targets over the 'sto-6g' SCF;
+   cut to 20 pretraining steps, 10 equilibration calls, 6 fit steps and a
+   checkpoint every 3 in the git-ignored ``runs/excited_path`` (removed at the
+   end).  Each fit step launches the attention kernel 8 times and the flat
+   slogdet kernel twice (4 + 1 per state; the ratio, spin and refresh forwards
+   none); every step finite; both states' parameters change and differ; the
+   overlap matrix finite with its unit diagonal, the spin finite; the last
+   checkpoint reloads both states' parameters, KFAC states and walkers bit
+   for bit.  E_loc of 64 of each state's last walkers and the penalised
+   gradient of both states (64 walkers each, non-zero one-sided overlaps) are
+   held to the float64 plain path by the local energy's rule.  Then 5 more
+   steps split by CUDA events (sampling, the local energy per state, the
+   ratio forwards, gradient and taps, KFAC update, psi refresh, the spin
+   monitor) and 3 evaluation steps from the last checkpoint with
+   ``OscillatorStrengthMonitor`` and ``SpinMonitor`` (walkers kept): the same
+   launches, finite, oscillator strengths with a zero diagonal, parameters
+   unchanged.  It prints the SCF and CASCI seconds, the medians of each
+   phase, the split and the peak device memory.
+
 Each path's launch counts are read from a run that starts with every count
 at 0.  It prints a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
@@ -152,7 +180,7 @@ WATCHDOG_S = 1100  # the whole run, build included; the run's limit is 1200 s
 PHASE_BUDGET_S = {
     'device': 60, 'build': 240, 'kernels': 300, 'main_path': 300, 'block_path': 180,
     'square_path': 120, 'train_path': 240, 'sampling_path': 240, 'run_path': 300,
-    'zoo_path': 300,
+    'zoo_path': 300, 'excited_path': 240,
 }
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
@@ -538,7 +566,7 @@ def sampling_path(dq, hamil, R, smi, counts, zero_counts, per_op_step):
         i = mol_idxs.item()
         prev, prev_ewm = train_state.sampler, ewm
         t0 = time.monotonic()
-        train_state, ewm, std_ewm, E_loc, stats = train_step(
+        train_state, ewm, std_ewm, E_loc, _, stats = train_step(
             gen, sampler, opt, train_state, mol_idxs, ewm, std_ewm, update_ewm)
         torch.cuda.synchronize()
         two_s.append(time.monotonic() - t0)
@@ -629,13 +657,14 @@ def _recording_sinks(counts, wf):
 
 def _cut_run(smi, hamil, wf, opt, sampler_factory, loss_function_factory, *, label, walkers,
              pretrain_steps, pretrain_kwargs, eq_steps, fit_steps, chkpt_interval, workdir,
-             counts, zero_counts, per_step):
+             counts, zero_counts, per_step, **train_kwargs):
     """``train.train`` on the card, cut in depth, with the checks every cut run
     shares: the phases it was given and one SCF, a finite pretraining MSE, no
     launch before the fit, per fit step the launches ``per_step``, finite
     stats and changed parameters, the samples recorded and a checkpoint every
-    ``chkpt_interval`` steps.  Prints each phase's median; returns the run's
-    state and its pretraining records."""
+    ``chkpt_interval`` steps.  ``train_kwargs`` go to ``train.train``.  Prints
+    each phase's median; returns the run's state and its pretraining and fit
+    records."""
     import logging
     from functools import partial
 
@@ -675,7 +704,7 @@ def _cut_run(smi, hamil, wf, opt, sampler_factory, loss_function_factory, *, lab
             pretrain_steps=pretrain_steps, pretrain_kwargs=pretrain_kwargs,
             chkpt_constructor=partial(TimedStore, interval=chkpt_interval),
             metric_logger_constructor=Metrics, h5_logger_constructor=Results,
-            loss_function_factory=loss_function_factory, device='cuda',
+            loss_function_factory=loss_function_factory, device='cuda', **train_kwargs,
         )
         torch.cuda.synchronize()
     finally:
@@ -722,7 +751,7 @@ def _cut_run(smi, hamil, wf, opt, sampler_factory, loss_function_factory, *, lab
     pre_s = [b['t'] - a['t'] for a, b in zip(pre, pre[1:])]
     eq_s = [b['t'] - a['t'] for a, b in zip(eq, eq[1:])]
     fit_s = [r['stats']['perf/step_time'] for r in fit]
-    print(f'{smi} | {label} SCF (H2O, {pretrain_kwargs["scf_kwargs"]["basis"]}, host numpy) '
+    print(f'{smi} | {label} SCF (H2O, {pretrain_kwargs["scf_kwargs"]}, host numpy) '
           f'{scf[0]:.2f} s', flush=True)
     print(f'{smi} | {label} pretraining step ({pretrain_kwargs["opt"]}, {walkers} walkers): '
           f'median {1e3 * _median(pre_s):.1f} ms of {len(pre_s)} (first step to the second '
@@ -734,7 +763,7 @@ def _cut_run(smi, hamil, wf, opt, sampler_factory, loss_function_factory, *, lab
           f'ms); launches a step {per_step}', flush=True)
     print(f'{smi} | {label} checkpoint {_median([b for _, b, _ in writes]) / 1e6:.2f} MB, '
           f'written in {", ".join(f"{ms:.1f}" for *_, ms in writes)} ms', flush=True)
-    return state, pre
+    return state, pre, fit
 
 
 def run_path(dq, hamil, smi, counts, zero_counts, per_op_step):
@@ -768,7 +797,7 @@ def run_path(dq, hamil, smi, counts, zero_counts, per_op_step):
                   inverse_update_period=5)
     torch.cuda.reset_peak_memory_stats()
     wf = dq.psiformer_ansatz(hamil, seed=0).cuda()
-    state, pre = _cut_run(
+    state, pre, _ = _cut_run(
         smi, hamil, wf, opt, sampler_factory, loss, label='run path', walkers=RUN_WALKERS,
         pretrain_steps=RUN_PRETRAIN_STEPS,
         pretrain_kwargs=dict(opt='lamb', opt_kwargs=dict(learning_rate=3e-4, b1=0.9, b2=0.999),
@@ -951,7 +980,7 @@ def zoo_path(dq, hamil, R, smi, counts, zero_counts):
         make_wf = partial(dq.ansatz_preset(preset, seed=0), hamil)
         wf = make_wf().cuda()
         torch.cuda.reset_peak_memory_stats()
-        state, _ = _cut_run(
+        state, *_ = _cut_run(
             smi, hamil, wf, opt, partial(initialize_sampling, elec_sampler=RECIPES[recipe]),
             losses[preset], label=label, walkers=walkers, pretrain_steps=ZOO_PRETRAIN_STEPS,
             pretrain_kwargs=dict(opt='adam', opt_kwargs=dict(learning_rate=3e-4, b1=0.9,
@@ -970,6 +999,279 @@ def zoo_path(dq, hamil, R, smi, counts, zero_counts):
         shutil.rmtree(workdir)
     print(f'{smi} | zoo path peak device memory {max(peak):.2f} GiB', flush=True)
     return total
+
+
+# excited path: train_excited_psiformer.yaml at full width, 2 states of 2048
+# walkers each, cut to 20 pretraining steps (of 1000), 10 equilibration calls
+# (of 1000) and 6 fit steps (of 100,000), a checkpoint every 3 steps; then 3
+# evaluation steps from the last checkpoint as evaluate_excited.yaml
+EXC_STATES, EXC_WALKERS, EXC_CAS = 2, 2048, (4, 4)
+EXC_PRETRAIN_STEPS, EXC_EQ_STEPS, EXC_FIT_STEPS, EXC_CHKPT_INTERVAL = 20, 10, 6, 3
+EXC_EVAL_STEPS, EXC_SPLIT_STEPS, EXC_CHECK_WALKERS = 3, 5, 64
+
+
+def _state_copy(make, stack, dtype, device):
+    """The state modules ``stack`` (each made by ``make()``) copied to ``dtype`` on ``device``."""
+    from deepqmc_tpu_torch.wf import StateStack
+
+    weights = {k: v.detach().cpu().to(dtype) for k, v in stack.state_dict().items()}
+    out = StateStack([make() for _ in stack]).to(device=device, dtype=dtype)
+    out.load_state_dict(weights)
+    return out
+
+
+def excited_path(dq, hamil, R, smi, counts, zero_counts, per_op_step):
+    """Phase 11: ``train.train`` as ``train_excited_psiformer.yaml`` sets it
+    (2 states, cut in depth), then an evaluation from its last checkpoint as
+    ``evaluate_excited.yaml``; E_loc per state and the penalised gradient
+    against float64; the fit step split by CUDA events.  Returns the kernel
+    launches of both runs."""
+    from functools import partial
+
+    import numpy as np
+    import torch
+
+    from deepqmc_tpu_torch.fit import TrainState, molecule_conf
+    from deepqmc_tpu_torch.log import CheckpointStore
+    from deepqmc_tpu_torch.loss import (
+        create_loss_fn,
+        median_clip_and_mask,
+        psi_ratio_clip_and_mask,
+    )
+    from deepqmc_tpu_torch.loss.energy import compute_local_energy
+    from deepqmc_tpu_torch.loss.loss_function import Terms
+    from deepqmc_tpu_torch.observable import (
+        Batch,
+        OscillatorStrengthMonitor,
+        SpinMonitor,
+    )
+    from deepqmc_tpu_torch.optimizer import KFACOptimizer
+    from deepqmc_tpu_torch.sampling import RECIPES, initialize_sampling
+    from deepqmc_tpu_torch.train import train
+    from deepqmc_tpu_torch.utils import ConstantSchedule, InverseSchedule
+    from deepqmc_tpu_torch.wf import init_wf_states
+
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'runs', 'excited_path')
+    label = 'excited path'
+    print(f'{label}: train_excited_psiformer.yaml at full width, {EXC_STATES} states of '
+          f'{EXC_WALKERS} walkers, merge_keys None, seed 0; cut: pretraining '
+          f'{EXC_PRETRAIN_STEPS} steps (of 1000), equilibration {EXC_EQ_STEPS} calls (of 1000), '
+          f'fit {EXC_FIT_STEPS} steps (of 100000), checkpoint interval {EXC_CHKPT_INTERVAL} '
+          f'(of 1000); workdir {workdir}', flush=True)
+    print(f'{label}: CASCI targets cas={EXC_CAS} on the \'sto-6g\' SCF (the task\'s '
+          '\'aug-cc-pVTZ\' maps onto an uncontracted even-tempered stand-in of over 128 AOs, '
+          'which the JAX package itself gives up for its minimal basis); evaluation '
+          f'{EXC_EVAL_STEPS} steps (of the task\'s) from the last checkpoint with '
+          'OscillatorStrengthMonitor and SpinMonitor, its walkers kept', flush=True)
+    per_step = {k: EXC_STATES * v for k, v in per_op_step.items()}
+    loss = partial(create_loss_fn, clip_mask_fn=partial(median_clip_and_mask, clip_width=5,
+                                                        median_center=True),
+                   alpha=4.0, scale_overlap_by='max_gap_std', min_gap_scale_factor=1e-3,
+                   clip_mask_overlap_fn=psi_ratio_clip_and_mask)
+    sampler_factory = partial(initialize_sampling,
+                              elec_sampler=RECIPES['decorr_metropolis_psiformer'])
+    opt = partial(KFACOptimizer, learning_rate_schedule=InverseSchedule(0.05, 50000),
+                  damping_schedule=ConstantSchedule(1e-3), norm_constraint=1e-3,
+                  inverse_update_period=5)
+    # one generator per state, forked from seed 0 as TrainSession._fork_gen forks
+    gens = [torch.Generator().manual_seed(int(np.random.SeedSequence([0, k]).generate_state(1)[0]))
+            for k in range(EXC_STATES)]
+    torch.cuda.reset_peak_memory_stats()
+    stack = init_wf_states(partial(dq.psiformer_ansatz, hamil), gens).cuda()
+    start = [flat_params(wf) for wf in stack]
+    state, pre, fit = _cut_run(
+        smi, hamil, stack, opt, sampler_factory, loss, label=label, walkers=EXC_WALKERS,
+        pretrain_steps=EXC_PRETRAIN_STEPS,
+        pretrain_kwargs=dict(opt='lamb', opt_kwargs=dict(learning_rate=3e-4, b1=0.9, b2=0.999),
+                             scf_kwargs=dict(basis='sto-6g', cas=EXC_CAS)),
+        eq_steps=EXC_EQ_STEPS, fit_steps=EXC_FIT_STEPS, chkpt_interval=EXC_CHKPT_INTERVAL,
+        workdir=workdir, counts=counts, zero_counts=zero_counts, per_step=per_step,
+        electronic_states=EXC_STATES,
+        observable_monitors=[SpinMonitor(save_samples=False, period=1)],
+    )
+    train_launches = counts()
+    trained = [flat_params(wf) for wf in stack]
+    if any(torch.equal(a, b) for a, b in zip(start, trained)) or torch.equal(*trained):
+        raise SystemExit(f'{label}: a state\'s parameters did not change, or the two states\' '
+                         'parameters are equal')
+    last = fit[-1]['stats']
+    overlap, spin = last['overlap/pairwise/mean'], last['spin/mean']
+    print(f'{label} last fit step: overlap/pairwise/mean {np.asarray(overlap).tolist()}, '
+          f'spin/mean {np.asarray(spin).tolist()}, energy/ewm '
+          f'{np.asarray(last["energy/ewm"]).tolist()}', flush=True)
+    # S_ii is each state's overlap with itself, the mean of unit weights: 1
+    if not (np.isfinite(overlap).all() and (np.diagonal(overlap, 0, -2, -1) == 1).all()
+            and np.isfinite(spin).all() and np.shape(spin) == (1, EXC_STATES)):
+        raise SystemExit(f'{label}: the overlap or spin statistics are not finite, or the '
+                         'overlap diagonal is not 1')
+    path = os.path.join(workdir, 'training', f'chkpt-{EXC_FIT_STEPS}.pt')
+    step, loaded = CheckpointStore.load(path, 'cuda')
+    same_opt = all(
+        torch.equal(a, b) for key in ('factors', 'inverses')
+        for got, want in zip(loaded.opt[key], state.opt[key], strict=True)
+        for p in want for a, b in zip(got[p], want[p], strict=True))
+    if step != EXC_FIT_STEPS or len(loaded.opt['factors']) != EXC_STATES or not (
+            same_opt and all(torch.equal(loaded.params[k], v)
+                             for k, v in stack.state_dict().items())
+            and torch.equal(loaded.sampler['elec']['r'], state.sampler['elec']['r'])):
+        raise SystemExit(f'{label}: the last checkpoint does not hold both states\' '
+                         'parameters, KFAC states and walkers bit for bit')
+    print(f'{label}: chkpt-{EXC_FIT_STEPS}.pt reloads both states\' parameters, KFAC states '
+          'and walkers bit for bit', flush=True)
+
+    # E_loc of 64 of each state's last walkers with the trained weights
+    r_last = state.sampler['elec']['r'][0, :, :EXC_CHECK_WALKERS]
+    dtypes = {'card': torch.float32, 'plain_f64': torch.float64, 'plain_f32': torch.float32}
+    plain = {name: _state_copy(partial(dq.psiformer_ansatz, hamil, seed=0), stack, dtypes[name],
+                               'cpu')
+             for name in ('plain_f64', 'plain_f32')}
+    for s in range(EXC_STATES):
+        rel, _, _ = eloc_rel_errors(hamil, stack[s], r_last[s], R,
+                                    {k: v[s] for k, v in plain.items()})
+        tol = ELOC_FACTOR * rel['plain_f32'] + ELOC_FLOOR
+        print(f'{label} state {s}: E_loc on {EXC_CHECK_WALKERS} walkers against the plain path '
+              f'in f64 (CPU): kernel path (f32, card) max rel err {rel["card"]:.3e}; plain path '
+              f'(f32, CPU) {rel["plain_f32"]:.3e}; tol {tol:.3e}', flush=True)
+        if not rel['card'] <= tol:
+            raise SystemExit(f'{label} state {s}: the kernel-path local energy disagrees with '
+                             'the plain path')
+
+    # the penalised gradient of both states on 64 walkers each
+    data = {'energy_ewm': np.asarray(last['energy/ewm']),
+            'std_ewm': np.asarray(last['energy/std_ewm'])}
+    grads, overlap_term = {}, {}
+    for name, copy in {'card': stack, **plain}.items():
+        dtype, device = dtypes[name], 'cuda' if name == 'card' else 'cpu'
+        pc = dq.PhysicalConfiguration(R.to(device, dtype), r_last.to(device, dtype), torch.zeros(
+            EXC_STATES, EXC_CHECK_WALKERS, dtype=torch.long, device=device))
+        loss_r = loss(hamil, copy)
+        (_, (_, ratio_r, _)), g = loss_r.value_and_grad(
+            pc, torch.ones(EXC_STATES, EXC_CHECK_WALKERS, dtype=dtype, device=device),
+            {k: torch.as_tensor(v, dtype=torch.float64, device=device) for k, v in data.items()})
+        grads[name] = [torch.cat([t.flatten() for t in gs.values()]) for gs in g]
+        # the one-sided overlaps S_01 and S_10 (unit weights) that the penalty's tangent reads
+        overlap_term[name] = ratio_r.mean(-1)[[0, 1], [1, 0]].tolist()
+    print(f'{label}: the one-sided overlaps (S_01, S_10) on the {EXC_CHECK_WALKERS} walkers a '
+          'state: ' + ', '.join(f'{k} ({v[0]:.4e}, {v[1]:.4e})' for k, v in overlap_term.items()),
+          flush=True)
+    if 0.0 in overlap_term['plain_f64']:
+        raise SystemExit(f'{label}: the overlap term of the gradient check is zero')
+    for s in range(EXC_STATES):
+        rel = {n: rel_l2(grads[n][s], grads['plain_f64'][s]) for n in ('card', 'plain_f32')}
+        tol = ELOC_FACTOR * rel['plain_f32'] + ELOC_FLOOR
+        ok = rel['card'] <= tol
+        print(f'{label} state {s}: penalised gradient on {EXC_CHECK_WALKERS} walkers a state '
+              f'against the plain path in f64 (CPU), global L2: card (f32, kernels) rel err '
+              f'{rel["card"]:.3e}; plain path (f32, CPU) {rel["plain_f32"]:.3e}; tol {tol:.3e} '
+              f'{"ok" if ok else "FAIL"}', flush=True)
+        if not ok:
+            raise SystemExit(f'{label} state {s}: the penalised gradient on the card disagrees '
+                             'with the plain path')
+    del plain, grads
+
+    # the fit step split by CUDA events: the calls the step makes, one by one
+    _, sampler = sampler_factory(torch.Generator().manual_seed(0), hamil, stack, [hamil.mol],
+                                 EXC_STATES, 1)
+    loss_s = loss(hamil, stack)
+    opt_s = opt(loss_s)
+    opt_s.kfac.init(dq.PhysicalConfiguration(R, state.sampler['elec']['r'][0], torch.zeros(
+        EXC_STATES, EXC_WALKERS, dtype=torch.long, device='cuda')))
+    smpl_state, opt_state = state.sampler, state.opt
+    split_gen = torch.Generator('cuda').manual_seed(7)
+    weight = torch.ones(EXC_STATES, EXC_WALKERS, device='cuda')
+    data_t = {k: torch.as_tensor(v, dtype=torch.float64, device='cuda') for k, v in data.items()}
+    spin_monitor = SpinMonitor(save_samples=False, period=1).finalize(hamil, stack)
+    stages = ('sampling', *(f'local energy {s}' for s in range(EXC_STATES)), 'ratio forwards',
+              'gradient and taps', 'KFAC update', 'psi refresh', 'spin monitor')
+    splits = []
+    for _ in range(EXC_SPLIT_STEPS):
+        refresh = opt_state['step'] % opt_s.kfac.inverse_update_period == 0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+        t0 = time.monotonic()
+        ev[0].record()
+        with torch.no_grad():
+            smpl_state, pc, _ = sampler.sample(split_gen, smpl_state, torch.tensor([0]))
+        conf = molecule_conf(pc)
+        ev[1].record()
+        E = []
+        for s, wf in enumerate(stack):
+            E.append(compute_local_energy(hamil, wf, conf.replace(r=conf.r[s],
+                                                                   mol_idx=conf.mol_idx[s]))[0])
+            ev[2 + s].record()
+        ratio = loss_s.overlap_penalty.ratios(list(stack), conf)
+        ev[2 + EXC_STATES].record()
+        terms = Terms(torch.zeros(()), torch.stack(E)[None], ratio, None, {})
+        g, taps = loss_s.grad_and_taps(conf, weight, terms, taps=True, data=data_t)
+        ev[3 + EXC_STATES].record()
+        opt_state, _ = opt_s.kfac.update(opt_state, g, taps, EXC_WALKERS)
+        ev[4 + EXC_STATES].record()
+        with torch.no_grad():
+            smpl_state = sampler.update(smpl_state)
+        ev[5 + EXC_STATES].record()
+        spin_monitor(0, None, pc, None, terms.local_energy, None)
+        ev[6 + EXC_STATES].record()
+        ev[-1].synchronize()
+        host_ms = 1e3 * (time.monotonic() - t0)
+        ms = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+        splits.append((refresh, ms))
+        print(f'{label} split step {opt_state["step"] - 1} (inverses '
+              f'{"refreshed" if refresh else "carried"}): '
+              + ', '.join(f'{n} {t:.2f} ms' for n, t in zip(stages, ms))
+              + f'; sum {sum(ms):.2f} ms, host {host_ms:.2f} ms', flush=True)
+        del g, taps
+    carried = [ms for refresh, ms in splits if not refresh]
+    medians = [_median(col) for col in zip(*carried)]
+    print(f'{smi} | {label} fit step split by CUDA events (median of the {len(carried)} steps '
+          'with carried inverses): ' + ', '.join(f'{n} {t:.2f} ms' for n, t in zip(stages, medians))
+          + '; KFAC update on a refresh step '
+          + ', '.join(f'{ms[3 + EXC_STATES]:.2f}' for refresh, ms in splits if refresh) + ' ms',
+          flush=True)
+    del loss_s, opt_s, sampler, spin_monitor
+
+    # evaluation from the last checkpoint, the sampler state kept
+    records, rows, Metrics, Results = _recording_sinks(counts, stack)
+    before = {k: v.clone() for k, v in loaded.params.items()}  # the split steps moved stack
+    zero_counts()
+    train(hamil, stack, None, sampler_factory, steps=EXC_EVAL_STEPS, seed=0,
+          electron_batch_size=EXC_WALKERS, electronic_states=EXC_STATES, workdir=workdir,
+          train_state=TrainState(loaded.sampler, loaded.params, None),
+          observable_monitors=[OscillatorStrengthMonitor(save_samples=False, period=1),
+                               SpinMonitor(save_samples=False, period=1)],
+          metric_logger_constructor=Metrics, h5_logger_constructor=Results, device='cuda',
+          loss_function_factory=loss)
+    torch.cuda.synchronize()
+    ev_records = [r for r in records if r['prefix'] is None]
+    prev = dict.fromkeys(train_launches, 0)
+    for r in ev_records:
+        launches = {k: r['counts'][k] - prev[k] for k in prev}
+        prev = r['counts']
+        st = r['stats']
+        f = np.asarray(st['oscillator_strength/mean'])
+        print(f'{label} evaluation step {r["step"]}: E_loc mean '
+              f'{np.asarray(st["local_energy/mean"]).tolist()} spin/mean '
+              f'{np.asarray(st["spin/mean"]).tolist()} oscillator_strength/mean '
+              f'{f.tolist()} step time {st["perf/step_time"]:.3f} s; launches {launches}',
+              flush=True)
+        if launches != per_step or not all(np.isfinite(v).all() for v in st.values()):
+            raise SystemExit(f'{label} evaluation step {r["step"]}: launches {launches}, or '
+                             'stats not finite')
+        if f.shape != (1, EXC_STATES, EXC_STATES) or (np.diagonal(f, 0, -2, -1) != 0).any():
+            raise SystemExit(f'{label} evaluation step {r["step"]}: oscillator strengths of '
+                             f'shape {f.shape} or with a non-zero diagonal')
+    if len(ev_records) != EXC_EVAL_STEPS or len(rows) != EXC_EVAL_STEPS or records[0]['prefix']:
+        raise SystemExit(f'{label}: the evaluation did not take its steps, or equilibrated')
+    if not all(torch.equal(v, before[k]) for k, v in stack.state_dict().items()):
+        raise SystemExit(f'{label}: the evaluation changed the parameters')
+    ev_s = [r['stats']['perf/step_time'] for r in ev_records]
+    print(f'{smi} | {label} evaluation step ({EXC_STATES} x {EXC_WALKERS} walkers, '
+          f'OscillatorStrengthMonitor and SpinMonitor): median {1e3 * _median(ev_s):.1f} ms '
+          f'(steps {", ".join(f"{1e3 * t:.1f}" for t in ev_s)} ms)', flush=True)
+    print(f'{smi} | {label} peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB', flush=True)
+    del stack, state, loaded
+    torch.cuda.empty_cache()
+    shutil.rmtree(workdir)
+    return {k: train_launches[k] + prev[k] for k in prev}
 
 
 def main() -> int:
@@ -1502,9 +1804,9 @@ def main() -> int:
             with torch.no_grad():
                 smpl_state, pc, _ = sampler.sample(split_gen, smpl_state, R)
             ev[1].record()
-            _, E_loc, _ = loss.terms(pc, weight)
+            terms = loss.terms(pc, weight)
             ev[2].record()
-            grads, taps = loss.grad_and_taps(pc, weight, E_loc, taps=True)
+            grads, taps = loss.grad_and_taps(pc, weight, terms, taps=True)
             ev[3].record()
             opt_state, _ = kfac.update(opt_state, grads, taps, 2048)
             ev[4].record()
@@ -1598,6 +1900,12 @@ def main() -> int:
             raise SystemExit('the zoo path did not run on kernel 2 alone')
         for name, n in zoo_launches.items():
             by_name[name]['zoo_launches'] = n
+
+    with Phase('excited_path'):
+        excited_launches = excited_path(dq, hamil, R, smi, counts, zero_counts, per_op_step)
+        print(f'launches during the excited path: {excited_launches}', flush=True)
+        for name, n in excited_launches.items():
+            by_name[name]['excited_launches'] = n
 
     print(json.dumps({'kernels': kernels}), flush=True)
     print(f'{smi} | whole run {time.monotonic() - _T0:.1f} s', flush=True)

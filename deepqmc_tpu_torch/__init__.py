@@ -10,8 +10,12 @@ CUDA kernels for the forward-Laplacian attention core, the fused PsiFormer
 layer and the log-determinant traces (flat and square layouts).  Around
 them, the training run of ``deepqmc_tpu/train.py`` (:mod:`.train`: SCF
 pretraining, equilibration, the fit loop, checkpoints with NaN rewinds,
-evaluation from a checkpoint).  It imports torch, numpy and the standard
-library only (h5py and tensorboardX inside the two optional sinks).
+evaluation from a checkpoint), and excited states: several electronic
+states, one module each (:class:`.wf.StateStack`), kept apart by the overlap
+penalty, with the spin penalty, KFAC over the states, CASCI pretraining
+targets and the spin, ratio and oscillator-strength monitors.  It imports
+torch, numpy and the standard library only (h5py and tensorboardX inside
+the two optional sinks).
 """
 
 from . import train  # noqa: F401  (the module: train.train is the run, fit.train the step loop)

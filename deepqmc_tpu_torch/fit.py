@@ -1,6 +1,7 @@
-"""The step of ``deepqmc_tpu/fit.py`` (``step_body``) for one electronic state
-and one molecule per step, with the :func:`evaluate` and :func:`train` loops
-around it and their equilibration phase (``deepqmc_tpu/train.py:243-272``).
+"""The step of ``deepqmc_tpu/fit.py`` (``step_body``) for one molecule per
+step, with the :func:`evaluate` and :func:`train` loops of one electronic
+state around it and their equilibration phase (``deepqmc_tpu/train.py:243-272``);
+:func:`fit_wf` runs it over one or more states (a :class:`~.wf.StateStack`).
 
 Sampling goes through the combined sampler (``sampling/combined_samplers.py``)
 over the geometries ``mols``; each step draws a molecule index, moves that
@@ -17,10 +18,11 @@ A training step: the same moves; the walkers' weights, normalised to unit mean
 from the sampler's ``log_weight`` where it keeps one (``ResampledSampler``), or
 one; the optimizer's step (the local energy, the clipped VMC gradient by one
 backward pass of log|psi|, and the KFAC or Adam update of the parameters) on
-the molecule's walkers and geometry; then the psi refresh of every molecule's
-walkers through the outermost sampler's ``update`` (which also moves the
-weights); and the same statistics, shaped ``[1, 1]`` (molecule, state) as the
-JAX package's.
+the molecule's walkers and geometry, with the EWMs of the molecule's energy
+and spread (``data``, which the overlap penalty of several states reads); then
+the psi refresh of every molecule's walkers through the outermost sampler's
+``update`` (which also moves the weights); and the same statistics, shaped
+``[1, S]`` (molecule, state) as the JAX package's.
 """
 
 import contextlib
@@ -83,14 +85,18 @@ class TrainState(NamedTuple):
 
 
 def molecule_conf(phys_conf: PhysicalConfiguration) -> PhysicalConfiguration:
-    """The walkers of a one-molecule batch of the combined sampler, state 0:
-    ``R`` ``[n_nuc, 3]``, ``r`` ``[B, n, 3]``, ``mol_idx`` ``[B]``."""
+    """The walkers of a one-molecule batch of the combined sampler: ``R``
+    ``[n_nuc, 3]``, ``r`` ``[B, n, 3]`` and ``mol_idx`` ``[B]`` of the one
+    state, or with S > 1 states ``r`` ``[S, B, n, 3]`` and ``mol_idx`` ``[S, B]``."""
     if phys_conf.r.shape[0] != 1:
         raise NotImplementedError(
             f'a step on {phys_conf.r.shape[0]} molecules: the step takes one molecule '
             '(molecule_batch_size=1; ROADMAP.md, queue 1 item 2)'
         )
-    return PhysicalConfiguration(phys_conf.R[0], phys_conf.r[0, 0], phys_conf.mol_idx[0, 0])
+    r, mol_idx = phys_conf.r[0], phys_conf.mol_idx[0]
+    if r.shape[0] == 1:
+        r, mol_idx = r[0], mol_idx[0]
+    return PhysicalConfiguration(phys_conf.R[0], r, mol_idx)
 
 
 def molecule_state(smpl_state: dict, i: int = 0):
@@ -125,8 +131,8 @@ def eval_step(gen, hamil, wf, sampler, state, mol_idxs, ewm, std_ewm, update_ewm
 
 def _energy_stats(E_loc, stats, mol_idxs, ewm, std_ewm, update_ewm):
     """The ``local_energy/*`` statistics and the EWMs of the energy and its
-    spread, each ``[1, 1]`` (molecule, state), the EWMs updated at ``mol_idxs``."""
-    E = E_loc[None, None]
+    spread, each ``[1, S]`` (molecule, state), the EWMs updated at ``mol_idxs``."""
+    E = E_loc.view(1, -1, E_loc.shape[-1])
     stats = {
         **stats,
         'local_energy/mean': E.mean(-1),
@@ -146,18 +152,26 @@ def _energy_stats(E_loc, stats, mol_idxs, ewm, std_ewm, update_ewm):
 
 
 def train_step(gen, sampler, opt, train_state: TrainState, mol_idxs, ewm, std_ewm, update_ewm):
-    """One training step; returns (train_state, ewm, std_ewm, E_loc [B], stats)."""
+    """One training step; returns (train_state, ewm, std_ewm, E_loc, psi_ratio,
+    stats) with E_loc ``[B]`` for one state, ``[S, B]`` and psi_ratio ``[S, S,
+    B]`` for S > 1 (None for one)."""
     with torch.no_grad():
         smpl_state, phys_conf, smpl_stats = sampler.sample(gen, train_state.sampler, mol_idxs)
-    weight = walker_weights(smpl_state, mol_idxs)[0, 0]
-    opt_state, E_loc, stats = opt.step(train_state.opt, molecule_conf(phys_conf), weight)
+    weight = walker_weights(smpl_state, mol_idxs)[0]
+    if len(weight) == 1:
+        weight = weight[0]
+    idxs = mol_idxs.tolist()
+    data = {'energy_ewm': _rows(ewm.mean, idxs), 'std_ewm': _rows(std_ewm.mean, idxs)}
+    opt_state, E_loc, psi_ratio, stats = opt.step(train_state.opt, molecule_conf(phys_conf),
+                                                  weight, data)
     if not isinstance(opt, NoOptimizer):
         with torch.no_grad():  # the parameters changed: refresh the cached psi
             smpl_state = sampler.update(smpl_state)
     ewm, std_ewm, stats = _energy_stats(
         E_loc, {**stats, **smpl_stats}, mol_idxs, ewm, std_ewm, update_ewm
     )
-    return TrainState(smpl_state, train_state.params, opt_state), ewm, std_ewm, E_loc, stats
+    return (TrainState(smpl_state, train_state.params, opt_state), ewm, std_ewm, E_loc,
+            psi_ratio, stats)
 
 
 def electron_sampler(sampler, decorr: int):
@@ -309,7 +323,7 @@ def train(
         yield step, TrainState(smpl_state, wf.state_dict(), None), None, stats
     loss = create_loss_fn(hamil, wf, clip_mask_fn)
     opt = OPTIMIZERS[optimizer](loss, **(DEFAULT_OPT_KWARGS[optimizer] | opt_kwargs))
-    for step, train_state, _, E_loc, stats in _fit_steps(
+    for step, train_state, _, E_loc, _, stats in _fit_steps(
         gen, sampler, opt, TrainState(smpl_state, wf.state_dict(), None), idx_sampler,
         range(steps),
     ):
@@ -320,23 +334,22 @@ def _fit_steps(gen, sampler, opt, train_state: TrainState, molecule_idx_sampler,
                steps: Iterable, grad_mode=None):
     """The steps of :func:`train` and :func:`fit_wf`: initialises the EWM grids
     and, where ``train_state.opt`` is None, the optimizer's state; returns a
-    generator of ``(step, train_state, mol_idxs, E_loc, stats)``, one
-    :func:`train_step` each, under ``grad_mode`` where one is given."""
+    generator of ``(step, train_state, mol_idxs, E_loc, psi_ratio, stats)``,
+    one :func:`train_step` each, under ``grad_mode`` where one is given."""
     smpl_state, params, opt_state = train_state
     r = smpl_state['elec']['r']
     ewm, update_ewm = init_multi_mol_multi_state_ewm((molecule_idx_sampler.n_mols, r.shape[1]),
                                                      device=r.device)
     if opt_state is None:
-        R, elec = molecule_state(smpl_state)
-        opt_state = opt.init(MetropolisSampler.phys_conf(R, elec['r']))
+        opt_state = opt.init(molecule_conf(_state_conf(smpl_state, torch.tensor([0]))))
 
     def run(train_state, ewm, std_ewm):
         for step in steps:
             mol_idxs = molecule_idx_sampler.sample()
             with grad_mode() if grad_mode else contextlib.nullcontext():
-                train_state, ewm, std_ewm, E_loc, stats = train_step(
+                train_state, ewm, std_ewm, E_loc, psi_ratio, stats = train_step(
                     gen, sampler, opt, train_state, mol_idxs, ewm, std_ewm, update_ewm)
-            yield step, train_state, mol_idxs, E_loc, stats
+            yield step, train_state, mol_idxs, E_loc, psi_ratio, stats
 
     return run(TrainState(smpl_state, params, opt_state), ewm, ewm)
 
@@ -401,23 +414,26 @@ def fit_wf(
     n_walkers = int(np.prod(r.shape[:3]))
     while True:
         start, block, outputs = time.perf_counter(), [], []
-        for step, train_state, mol_idxs, E_loc, stats in itertools.islice(run, block_size):
+        for step, train_state, mol_idxs, E_loc, psi_ratio, stats in itertools.islice(
+                run, block_size):
             block.append(step)
             psi = train_state.sampler['elec']['psi']
+            E_loc = E_loc.view(1, -1, E_loc.shape[-1])  # [mol, state, walker]
             # the loss's means of the Hamiltonian's terms as the JAX loss gives
             # them, per (molecule, state) of the step
             stats = {k: v[None, None] if k.startswith('hamil/') and v.ndim == 0 else v
                      for k, v in stats.items()}
-            outputs.append((mol_idxs, E_loc[None, None], psi, {
+            outputs.append((mol_idxs, E_loc, psi, psi_ratio, {
                 'stats': {k: torch.as_tensor(v, dtype=torch.float32, device=r.device)
                           for k, v in stats.items()},
-                'E_loc': E_loc[None, None], 'psi_sign': psi.sign, 'psi_log': psi.log,
+                'E_loc': E_loc, 'psi_sign': psi.sign, 'psi_log': psi.log,
             }))
         if not block:
             return
         host = _to_host(dict(enumerate(out for *_, out in outputs))).values()
         step_time = (time.perf_counter() - start) / len(block)
-        for b, (step, (mol_idxs, E_loc, psi, _), out) in enumerate(zip(block, outputs, host)):
+        for b, (step, (mol_idxs, E_loc, psi, psi_ratio, _), out) in enumerate(
+                zip(block, outputs, host)):
             stats = {**out['stats'], 'perf/step_time': step_time,
                      'perf/walker_steps_per_sec': n_walkers / step_time}
             samples = {'local_energy/samples': out['E_loc'],
@@ -425,7 +441,8 @@ def fit_wf(
             if b == len(block) - 1:
                 for monitor in observable_monitors:
                     extra = monitor(step, train_state.params,
-                                    _state_conf(train_state.sampler, mol_idxs), psi, E_loc, None)
+                                    _state_conf(train_state.sampler, mol_idxs), psi, E_loc,
+                                    None if psi_ratio is None else psi_ratio[None])
                     extra_samples, extra_stats = split_dict(extra, lambda key: 'samples' in key)
                     stats |= _to_host(extra_stats)
                     samples |= _to_host(extra_samples)

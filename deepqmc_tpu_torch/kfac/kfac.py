@@ -1,5 +1,5 @@
 """Kronecker-factored natural gradient for VMC (counterpart of
-``deepqmc_tpu/kfac/kfac.py``, one electronic state).
+``deepqmc_tpu/kfac/kfac.py``), over one or more electronic states.
 
 Every dense layer (``nn.Linear`` and the attention's output product) records
 its input ``a`` and, through the instrumented backward of the VMC loss
@@ -13,6 +13,15 @@ bias-corrected values are damped, split by pi = sqrt((tr A / dim A) /
 per matrix size.  The update of a dense layer is ``A^-1 [W; b] G^-1 / R``,
 that of any other parameter ``g / (1 + damping)``, and the step is scaled to
 the trust region ``lr^2 v.g <= norm_constraint``.
+
+With S > 1 electronic states (a :class:`~..wf.StateStack`) each state has
+its own factors, moving averages and inverses (the layers are those of
+state 0, which all states share); the inverses of all states and layers are
+refreshed in one batched Cholesky per matrix size, and ONE trust region
+covers every state: ``v.g`` is summed over the states and a single scale
+multiplies all their updates.  The optimizer state's ``factors`` and
+``inverses`` are then lists, one entry per state; for one state they are
+the entry itself.
 
 The step counter is a host integer, so deciding whether to refresh the
 inverses costs no device synchronisation.
@@ -77,12 +86,13 @@ class KFAC:
         self.norm_constraint = norm_constraint
         self.inverse_update_period = inverse_update_period
         self.metas: list[LayerMeta] = []
-        self.layers: dict[str, tuple[torch.nn.Module, str]] = {}  # path -> (module, name)
+        self.layers: dict[str, str] = {}  # JAX path -> module name within a state's module
 
     def _discover_layers(self, phys_conf) -> list[LayerMeta]:
-        """The dense layers one walker's instrumented forward calls, by JAX
-        path; layers whose calls have no rows are left to the generic rule."""
-        wf, paths = self.loss.wf, self.loss.dense_paths
+        """The dense layers one walker's instrumented forward of state 0 calls,
+        by JAX path; layers whose calls have no rows are left to the generic
+        rule.  ``phys_conf`` holds walkers of one state."""
+        wf, paths = self.loss.states[0], self.loss.dense_paths[0]
         names = {mod: name for name, mod in wf.named_modules()}
         one = phys_conf.replace(r=phys_conf.r[:1], mol_idx=phys_conf.mol_idx[:1])
         with torch.no_grad(), instrumented(wf) as rec:
@@ -97,48 +107,92 @@ class KFAC:
                 paths[module], in_dim, out_dim, getattr(module, 'b', None) is not None,
                 len(calls), repeats, tuple(tuple(out.shape[1:]) for _, out in calls),
             ))
-            self.layers[paths[module]] = (module, names[module])
+            self.layers[paths[module]] = names[module]
         return sorted(metas)
 
-    def init(self, phys_conf) -> dict:
-        self.metas = self._discover_layers(phys_conf)
-        factors, inverses = {}, {}
-        for m in self.metas:
-            w = self.layers[m.path][0].w
-            dims = (m.in_dim + m.has_bias, m.out_dim)
-            factors[m.path] = tuple(w.new_zeros(d, d) for d in dims)
-            inverses[m.path] = tuple(torch.eye(d, dtype=w.dtype, device=w.device) for d in dims)
-        return {'step': 0, 'ema_weight': 0.0, 'factors': factors, 'inverses': inverses}
+    def _per_state(self, x):
+        """A per-state entry (grads, taps, factors) as a list over the states."""
+        return x if self.loss.multi else [x]
 
-    def step(self, opt_state, phys_conf, weight):
+    def _public(self, xs):
+        return xs if self.loss.multi else xs[0]
+
+    def init(self, phys_conf) -> dict:
+        """The optimizer state for walkers like ``phys_conf`` (with the state
+        axis in front for a stack)."""
+        if self.loss.multi:
+            phys_conf = phys_conf.replace(r=phys_conf.r[0], mol_idx=phys_conf.mol_idx[0])
+        self.metas = self._discover_layers(phys_conf)
+        w = self.loss.states[0].get_submodule(self.layers[self.metas[0].path]).w
+        factors, inverses = [], []
+        for _ in self.loss.states:
+            dims = {m.path: (m.in_dim + m.has_bias, m.out_dim) for m in self.metas}
+            factors.append({p: tuple(w.new_zeros(d, d) for d in ds) for p, ds in dims.items()})
+            inverses.append({p: tuple(torch.eye(d, dtype=w.dtype, device=w.device) for d in ds)
+                             for p, ds in dims.items()})
+        return {'step': 0, 'ema_weight': 0.0, 'factors': self._public(factors),
+                'inverses': self._public(inverses)}
+
+    def step(self, opt_state, phys_conf, weight, data=None):
         """One KFAC step on the walkers ``phys_conf``; updates the parameters in
-        place and returns ``(opt_state, (E_loc, None, stats), opt_stats)``."""
-        (_, aux), grads, taps = self.loss.value_grad_and_taps(phys_conf, weight)
-        opt_state, opt_stats = self.update(opt_state, grads, taps, len(weight))
+        place and returns ``(opt_state, (E_loc, psi_ratio, stats), opt_stats)``."""
+        (_, aux), grads, taps = self.loss.value_grad_and_taps(phys_conf, weight, data)
+        opt_state, opt_stats = self.update(opt_state, grads, taps, weight.shape[-1])
         return opt_state, aux, opt_stats
 
     def update(self, opt_state, grads, taps, n_batch: int):
         """The curvature and parameter half of a step from the loss's gradient
-        and taps over ``n_batch`` walkers."""
+        and taps over ``n_batch`` walkers (per state)."""
         step = opt_state['step']
         lr = self.lr_schedule(step)
         damping = max(self.damping_schedule(step), self.MIN_DAMPING)
         ema = self.CURVATURE_EMA
         ema_weight = ema * opt_state['ema_weight'] + (1 - ema)
-        factors = {}
-        for m, (A, G) in zip(self.metas, factor_sums(self.metas, taps).values()):
-            total = n_batch * sum(r for r in m.repeats if r > 0)
-            A_old, G_old = opt_state['factors'][m.path]
-            factors[m.path] = (ema * A_old + (1 - ema) * (A / total),
-                               ema * G_old + (1 - ema) * (G / total))
+        grads, taps = self._per_state(grads), self._per_state(taps)
+        factors = []
+        for old, state_taps in zip(self._per_state(opt_state['factors']), taps):
+            sums = factor_sums(self.metas, state_taps)
+            factors.append({})
+            for m in self.metas:
+                A, G = sums[m.path]
+                total = n_batch * sum(r for r in m.repeats if r > 0)
+                A_old, G_old = old[m.path]
+                factors[-1][m.path] = (ema * A_old + (1 - ema) * (A / total),
+                                       ema * G_old + (1 - ema) * (G / total))
         if step % self.inverse_update_period == 0:
             inverses = self._inverses(factors, ema_weight, damping)
         else:
-            inverses = opt_state['inverses']
+            inverses = self._per_state(opt_state['inverses'])
 
+        updates = [self._precondition(g, inv, damping) for g, inv in zip(grads, inverses)]
+        # one trust region over all states: v.g summed over every state
+        v_dot_g = torch.clamp(sum((u[k] * g).sum() for u, gs in zip(updates, grads)
+                                  for k, g in gs.items()), min=1e-20)
+        coeff = torch.clamp(torch.sqrt(self.norm_constraint / (lr**2 * v_dot_g)), max=1.0)
+        params = [dict(s.named_parameters()) for s in self.loss.states]
+        stats = {
+            'opt/lr': lr * coeff,
+            'opt/damping': torch.tensor(damping, dtype=v_dot_g.dtype, device=v_dot_g.device),
+            'opt/norm_scale': coeff,
+            'opt/v_dot_g': v_dot_g,
+            'opt/param_norm': _tree_norm(p.detach() for ps in params for p in ps.values()),
+            'opt/grad_norm': _tree_norm(g for gs in grads for g in gs.values()),
+            'opt/update_norm': _tree_norm(v for u in updates for v in u.values()) * lr * coeff,
+        }
+        with torch.no_grad():
+            for ps, u in zip(params, updates):
+                for k, p in ps.items():
+                    p.sub_(lr * coeff * u[k])
+        new_state = {'step': step + 1, 'ema_weight': ema_weight,
+                     'factors': self._public(factors), 'inverses': self._public(inverses)}
+        return new_state, stats
+
+    def _precondition(self, grads, inverses, damping):
+        """One state's update: ``A^-1 [W; b] G^-1 / R`` for a dense layer, the
+        gradient over ``1 + damping`` for any other parameter."""
         updates = {}
         for m in self.metas:
-            prefix = f'{self.layers[m.path][1]}.'.lstrip('.')
+            prefix = f'{self.layers[m.path]}.'.lstrip('.')
             W = grads[prefix + 'w']
             if m.has_bias:
                 W = torch.cat([W, grads[prefix + 'b'][None]], 0)
@@ -150,47 +204,31 @@ class KFAC:
         for k, g in grads.items():
             if k not in updates:  # generic parameters: identity curvature
                 updates[k] = g / (1 + damping)
-
-        v_dot_g = torch.clamp(sum((updates[k] * g).sum() for k, g in grads.items()), min=1e-20)
-        coeff = torch.clamp(torch.sqrt(self.norm_constraint / (lr**2 * v_dot_g)), max=1.0)
-        params = dict(self.loss.wf.named_parameters())
-        stats = {
-            'opt/lr': lr * coeff,
-            'opt/damping': torch.tensor(damping, dtype=v_dot_g.dtype, device=v_dot_g.device),
-            'opt/norm_scale': coeff,
-            'opt/v_dot_g': v_dot_g,
-            'opt/param_norm': _tree_norm(p.detach() for p in params.values()),
-            'opt/grad_norm': _tree_norm(grads.values()),
-            'opt/update_norm': _tree_norm(updates.values()) * lr * coeff,
-        }
-        with torch.no_grad():
-            for k, p in params.items():
-                p.sub_(lr * coeff * updates[k])
-        new_state = {'step': step + 1, 'ema_weight': ema_weight, 'factors': factors,
-                     'inverses': inverses}
-        return new_state, stats
+        return updates
 
     def _inverses(self, factors, ema_weight, damping):
-        """Damped inverses of the bias-corrected factors, batched by matrix size."""
-        damped = []  # (path, which, matrix)
-        for m in self.metas:
-            A, G = (f / ema_weight for f in factors[m.path])
-            lam = damping / float(sum(m.repeats))
-            tr_a = torch.diagonal(A).sum() / A.shape[0]
-            tr_g = torch.diagonal(G).sum() / G.shape[0]
-            pi = torch.sqrt(torch.clamp(tr_a, min=1e-20) / torch.clamp(tr_g, min=1e-20))
-            eye_a = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
-            eye_g = torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
-            damped.append((m.path, 0, A + (pi * math.sqrt(lam) + 1e-12) * eye_a))
-            damped.append((m.path, 1, G + (math.sqrt(lam) / pi + 1e-12) * eye_g))
+        """Damped inverses of the bias-corrected factors of every state,
+        batched by matrix size."""
+        damped = []  # (state, path, which, matrix)
+        for s, state_factors in enumerate(factors):
+            for m in self.metas:
+                A, G = (f / ema_weight for f in state_factors[m.path])
+                lam = damping / float(sum(m.repeats))
+                tr_a = torch.diagonal(A).sum() / A.shape[0]
+                tr_g = torch.diagonal(G).sum() / G.shape[0]
+                pi = torch.sqrt(torch.clamp(tr_a, min=1e-20) / torch.clamp(tr_g, min=1e-20))
+                eye_a = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+                eye_g = torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
+                damped.append((s, m.path, 0, A + (pi * math.sqrt(lam) + 1e-12) * eye_a))
+                damped.append((s, m.path, 1, G + (math.sqrt(lam) / pi + 1e-12) * eye_g))
         by_dim: dict[int, list] = {}
         for entry in damped:
-            by_dim.setdefault(entry[2].shape[0], []).append(entry)
-        out: dict[str, list] = {m.path: [None, None] for m in self.metas}
+            by_dim.setdefault(entry[3].shape[0], []).append(entry)
+        out = [{m.path: [None, None] for m in self.metas} for _ in factors]
         for dim, entries in by_dim.items():
-            stacked = torch.stack([e[2] for e in entries])
+            stacked = torch.stack([e[3] for e in entries])
             eye = torch.eye(dim, dtype=stacked.dtype, device=stacked.device).expand_as(stacked)
             invs = torch.cholesky_solve(eye, torch.linalg.cholesky(stacked))
-            for (path, which, _), inv in zip(entries, invs):
-                out[path][which] = inv
-        return {path: tuple(pair) for path, pair in out.items()}
+            for (s, path, which, _), inv in zip(entries, invs):
+                out[s][path][which] = inv
+        return [{path: tuple(pair) for path, pair in state.items()} for state in out]

@@ -1,5 +1,5 @@
 """Local energies and the terms of the VMC energy gradient (counterpart of
-``deepqmc_tpu/loss/energy.py``, one molecule and one state).
+``deepqmc_tpu/loss/energy.py``, one molecule).
 
 The local energy runs through the forward Laplacian (and so the kernels on the
 card) with autograd off: the estimator never differentiates the Hamiltonian,
@@ -33,8 +33,9 @@ def compute_mean_energy(local_energy: torch.Tensor, weight: torch.Tensor):
 
 def compute_mean_energy_tangent(local_energy, weight, log_psi_tangent, gradient_mask):
     """Control-variate VMC gradient along ``log_psi_tangent``:
-    E[(E_loc - E_mean) * T * w] over the walkers the mask keeps."""
-    baseline = all_device_mean(local_energy * weight)
+    E[(E_loc - E_mean) * T * w] over the walkers the mask keeps, the baseline
+    taken per batch of the last axis (per electronic state of a grid)."""
+    baseline = (local_energy * weight).mean(-1, keepdim=True)
     return masked_mean((local_energy - baseline) * log_psi_tangent * weight, gradient_mask)
 
 

@@ -1,85 +1,223 @@
 """The VMC loss with its direct gradient estimator (counterpart of
-``deepqmc_tpu/loss/loss_function.py``, one molecule and one state, no
-penalties).
+``deepqmc_tpu/loss/loss_function.py``), one molecule a step, one or more
+electronic states.
 
-The loss is the weighted mean local energy.  Its gradient is estimated head-on,
-never by differentiating the Hamiltonian: the local energies are clipped, the
-per-walker coefficient ``c = mask * (E_clip - baseline) * w / sum(mask)`` (the
-transpose of the estimator's linear map, which the JAX package gets from
-``jax.linear_transpose``; here in closed form,
-:func:`~.energy.compute_mean_energy_cotangent`) is pulled back to the
-parameters by ONE autograd backward pass of ``sum(c * log|psi|)`` over the
-plain forward of the walkers.  For KFAC the same graph is instrumented
-(:func:`nn.instrumented`) and a second backward with the all-ones cotangent
-gives each dense layer's output sensitivities.
+The loss is the weighted mean local energy, plus ``alpha`` times the overlap
+penalty with more than one state and ``spin_penalty`` times the mean local
+S^2 where it is set.  The wave function is one module (one state) or a
+:class:`~..wf.StateStack`; every state axis of the JAX package is a loop
+over the stack's modules here.  Internally the walkers' numbers have the JAX
+package's ``[mol, state, walker]`` grid with a molecule axis of 1.
 
-The overlap penalty's options (``alpha``, ``clip_mask_overlap_fn``, ...)
-are taken and kept as the JAX package keeps them, which uses them only with
-more than one electronic state.  Not ported yet: the spin penalty and more
-than one electronic state (ROADMAP.md, queue 1 item 7), and the walker
-chunking of the pullback and of the local energy
+The gradient is estimated head-on, never by differentiating the
+Hamiltonian.  Every term's gradient is linear in the per-walker tangents
+``T = d log|psi|``; the transpose of that linear map is the per-walker
+coefficient ``c[mol, state, walker]`` that one autograd backward pass of
+``sum(c * log|psi|)`` per state pulls back to that state's parameters.  With
+one state and no spin penalty ``c`` has a closed form
+(:func:`~.energy.compute_mean_energy_cotangent`); otherwise the overlap
+and spin terms couple the walkers of different states, and ``c`` is the
+gradient of the assembled tangent with respect to ``T``, which for a linear
+map is its exact transpose (the JAX package's ``jax.linear_transpose``).
+For KFAC each state's forward is instrumented (:func:`nn.instrumented`) and
+a second backward with the all-ones cotangent gives its dense layers'
+output sensitivities.
+
+Not ported yet: the walker chunking of the pullback and of the local energy
 (``DEEPQMC_TPU_GRAD_WALKER_CHUNK``, ``DEEPQMC_TPU_ELOC_WALKER_CHUNK``).
 """
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..nn import dense_layer_paths, instrumented
-from .energy import compute_local_energy, compute_mean_energy, compute_mean_energy_cotangent
+from ..wf.base import wf_states
+from .clip import clip_local_energy, clip_psi_ratio
+from .energy import (
+    compute_local_energy,
+    compute_mean_energy,
+    compute_mean_energy_cotangent,
+    compute_mean_energy_tangent,
+)
+from .overlap import OverlapPenalty
+from .spin import compute_mean_spin, compute_mean_spin_tangent, compute_spin_contributions
 
-__all__ = ['VMCLoss', 'create_loss_fn']
+__all__ = ['Terms', 'VMCLoss', 'create_loss_fn']
+
+
+class Terms(NamedTuple):
+    """The forward half of the loss, on the ``[1, S, walker]`` grid:
+    ``psi_ratio`` ``[1, S, S, B]`` (None for one state) and the local S^2
+    ``spin`` (None without the spin penalty)."""
+
+    loss: torch.Tensor
+    local_energy: torch.Tensor
+    psi_ratio: Optional[torch.Tensor]
+    spin: Optional[torch.Tensor]
+    stats: dict
 
 
 class VMCLoss:
-    """Weighted mean local energy of ``wf``.
+    """The loss of ``wf`` (a module, or a :class:`~..wf.StateStack`).
 
-    Calling it gives the loss and ``(local_energy, psi_ratio, stats)`` (``psi_ratio``
-    is None: one state); :meth:`value_and_grad` adds the gradient, a dict keyed
-    as ``wf.named_parameters()``, and :meth:`value_grad_and_taps` the dense
-    layers' taps as well.
+    The walkers ``phys_conf`` and their weights have the state axis in front
+    for S > 1 states (``r`` ``[S, B, n, 3]``, ``mol_idx`` and ``weight`` ``[S,
+    B]``), none for one.  ``data`` holds the EWMs ``energy_ewm`` and
+    ``std_ewm`` (``[1, S]``) that the overlap penalty's scale and state order
+    read; None stands for EWMs still in their warm-up (NaN).  Calling the loss
+    gives ``(loss, (local_energy, psi_ratio, stats))`` with ``psi_ratio``
+    ``[S, S, B]`` or None; :meth:`value_and_grad` adds the gradient, a dict keyed
+    as ``named_parameters()`` of each state (a list of them for S > 1), and
+    :meth:`value_grad_and_taps` the dense layers' taps as well.
     """
 
-    def __init__(self, hamil, wf, clip_mask_fn, **overlap_options):
+    def __init__(self, hamil, wf, clip_mask_fn, clip_mask_overlap_fn=None,
+                 alpha: Optional[float] = None, spin_penalty: Optional[float] = None,
+                 scale_overlap_by: Optional[str] = None, sort_states_by: Optional[str] = None,
+                 min_gap_scale_factor: float = 0.1):
         self.hamil, self.wf, self.clip_mask_fn = hamil, wf, clip_mask_fn
-        self.overlap_options = overlap_options  # read only with several states
-        self.dense_paths = dense_layer_paths(wf)
+        self.states = wf_states(wf)
+        self.multi = len(self.states) > 1  # the walkers carry a state axis
+        self.clip_mask_overlap_fn = clip_mask_overlap_fn
+        self.alpha, self.spin_penalty = alpha, spin_penalty
+        self.sort_states_by = sort_states_by
+        self.overlap_penalty = OverlapPenalty(scale_overlap_by, min_gap_scale_factor)
+        self.dense_paths = [dense_layer_paths(s) for s in self.states]
 
-    def terms(self, phys_conf, weight):
-        """(loss, local energies [B], stats): the forward half, no autograd."""
-        local_energy, stats = compute_local_energy(self.hamil, self.wf, phys_conf)
-        loss, energy_stats = compute_mean_energy(local_energy, weight)
-        return loss, local_energy, stats | energy_stats
+    # -- layouts ---------------------------------------------------------------
 
-    def __call__(self, phys_conf, weight):
-        loss, local_energy, stats = self.terms(phys_conf, weight)
-        return loss, (local_energy, None, stats)
+    def _confs(self, phys_conf):
+        """(walkers with a state axis, each state's walkers)."""
+        if not self.multi:
+            return phys_conf.replace(r=phys_conf.r[None], mol_idx=phys_conf.mol_idx[None]), [phys_conf]
+        return phys_conf, [phys_conf.replace(r=r, mol_idx=i)
+                           for r, i in zip(phys_conf.r, phys_conf.mol_idx)]
 
-    def value_and_grad(self, phys_conf, weight):
-        loss, local_energy, stats = self.terms(phys_conf, weight)
-        grads, _ = self.grad_and_taps(phys_conf, weight, local_energy, taps=False)
-        return (loss, (local_energy, None, stats)), grads
+    def _grid(self, weight):
+        return weight[None] if self.multi else weight[None, None]
 
-    def value_grad_and_taps(self, phys_conf, weight):
+    def _public(self, x):
+        """A ``[1, S, ...]`` grid as the caller's layout: ``[S, ...]``, or ``[...]`` for one state."""
+        return x[0] if self.multi else x[0, 0]
+
+    def _data(self, data, like):
+        if data is not None:
+            return data
+        nan = torch.full((1, len(self.states)), float('nan'), dtype=like.dtype, device=like.device)
+        return {'energy_ewm': nan, 'std_ewm': nan}
+
+    def _state_ordering(self, data) -> torch.Tensor:
+        energy_ewm = data['energy_ewm']
+        if self.sort_states_by == 'energy':
+            return torch.argsort(energy_ewm, dim=-1, stable=True)
+        return torch.arange(energy_ewm.shape[-1], device=energy_ewm.device).expand(
+            energy_ewm.shape)
+
+    # -- the forward half ------------------------------------------------------
+
+    def terms(self, phys_conf, weight, data=None) -> Terms:
+        """The loss, local energies, penalty inputs and stats: no autograd."""
+        stacked, confs = self._confs(phys_conf)
+        w = self._grid(weight)
+        per_state = [compute_local_energy(self.hamil, wf, pc) for wf, pc in zip(self.states, confs)]
+        local_energy = torch.stack([e for e, _ in per_state])[None]
+        loss, stats = compute_mean_energy(local_energy, w)
+        if self.multi:
+            stats = {k: torch.stack([s[k] for _, s in per_state])[None] for k in per_state[0][1]}
+        else:
+            stats = per_state[0][1]
+        psi_ratio = spin = None
+        if len(self.states) > 1:
+            psi_ratio = self.overlap_penalty.ratios(self.states, stacked)
+            overlap, overlap_stats = self.overlap_penalty.value(psi_ratio, w)
+            loss = loss + self.alpha * overlap
+            stats |= overlap_stats
+        if self.spin_penalty is not None:
+            spin = compute_spin_contributions(self.hamil, self.states, confs)
+            mean_spin, spin_stats = compute_mean_spin(spin, w)
+            loss = loss + self.spin_penalty * mean_spin
+            stats |= spin_stats
+        return Terms(loss, local_energy, psi_ratio, spin, stats)
+
+    def _aux(self, terms: Terms):
+        ratio = None if terms.psi_ratio is None else terms.psi_ratio[0]
+        return self._public(terms.local_energy), ratio, terms.stats
+
+    def __call__(self, phys_conf, weight, data=None):
+        terms = self.terms(phys_conf, weight, data)
+        return terms.loss, self._aux(terms)
+
+    def value_and_grad(self, phys_conf, weight, data=None):
+        terms = self.terms(phys_conf, weight, data)
+        grads, _ = self.grad_and_taps(phys_conf, weight, terms, taps=False, data=data)
+        return (terms.loss, self._aux(terms)), grads
+
+    def value_grad_and_taps(self, phys_conf, weight, data=None):
         """Loss, gradient and ``taps`` = JAX path -> list per call of
-        (input, sensitivity), both ``[B, *repeats, features]``."""
-        loss, local_energy, stats = self.terms(phys_conf, weight)
-        grads, taps = self.grad_and_taps(phys_conf, weight, local_energy, taps=True)
-        return (loss, (local_energy, None, stats)), grads, taps
+        (input, sensitivity), both ``[B, *repeats, features]`` (a list per
+        state for a stack)."""
+        terms = self.terms(phys_conf, weight, data)
+        grads, taps = self.grad_and_taps(phys_conf, weight, terms, taps=True, data=data)
+        return (terms.loss, self._aux(terms)), grads, taps
 
-    def grad_and_taps(self, phys_conf, weight, local_energy, *, taps: bool):
-        """The gradient half: clip, form the per-walker cotangent, pull it back."""
-        clipped, mask = self.clip_mask_fn(local_energy)
-        cotangent = compute_mean_energy_cotangent(clipped, weight, mask)
-        params = dict(self.wf.named_parameters())
+    # -- the gradient half -----------------------------------------------------
+
+    def cotangent(self, weight, terms: Terms, data=None) -> torch.Tensor:
+        """The per-walker coefficients ``c`` ``[1, S, B]`` of the loss's gradient."""
+        w = self._grid(weight)
+        clipped, mask = clip_local_energy(self.clip_mask_fn, terms.local_energy)
+        if len(self.states) == 1 and terms.spin is None:
+            return compute_mean_energy_cotangent(clipped[0, 0], w[0, 0], mask[0, 0])[None, None]
+        return self.transposed_cotangent(clipped, mask, w, terms, data)
+
+    def transposed_cotangent(self, clipped, mask, w, terms: Terms, data=None) -> torch.Tensor:
+        """``c`` as the gradient, with respect to ``T``, of the tangent
+        assembled from every term (linear in ``T``, so this is its transpose)."""
+        if terms.psi_ratio is not None:
+            clipped_ratio, ratio_mask = clip_psi_ratio(self.clip_mask_overlap_fn, terms.psi_ratio)
+            data = self._data(data, clipped)
+            overlap_data = dict(data, ordering=self._state_ordering(data))
+
+        def assemble_tangent(T):
+            tangent = compute_mean_energy_tangent(clipped, w, T, mask)
+            if terms.psi_ratio is not None:
+                tangent = tangent + self.alpha * self.overlap_penalty.tangent(
+                    clipped_ratio, w, T, ratio_mask, overlap_data)
+            if terms.spin is not None:
+                tangent = tangent + self.spin_penalty * compute_mean_spin_tangent(
+                    terms.spin, w, T, mask)
+            return tangent
+
+        T = torch.zeros_like(clipped, requires_grad=True)
+        with torch.enable_grad():
+            (cot,) = torch.autograd.grad(assemble_tangent(T), T)
+        return cot
+
+    def grad_and_taps(self, phys_conf, weight, terms: Terms, *, taps: bool, data=None):
+        """The gradient half: clip, form the per-walker cotangent, pull it back
+        through each state's forward."""
+        cot = self.cotangent(weight, terms, data)
+        _, confs = self._confs(phys_conf)
+        grads, state_taps = [], []
+        for wf, paths, pc, c in zip(self.states, self.dense_paths, confs, cot[0]):
+            g, t = self._pull_back(wf, paths, pc, c, taps)
+            grads.append(g)
+            state_taps.append(t)
+        if self.multi:
+            return grads, state_taps if taps else None
+        return grads[0], state_taps[0]
+
+    def _pull_back(self, wf, dense_paths, phys_conf, cotangent, taps: bool):
+        params = dict(wf.named_parameters())
         with torch.enable_grad():
             if not taps:
-                log_psi = self.wf(phys_conf).log
+                log_psi = wf(phys_conf).log
                 return self._grads(params, log_psi, cotangent, retain_graph=False), None
-            with instrumented(self.wf) as rec:
-                log_psi = self.wf(phys_conf).log
+            with instrumented(wf) as rec:
+                log_psi = wf(phys_conf).log
             grads = self._grads(params, log_psi, cotangent, retain_graph=True)
-            calls = [(self.dense_paths[m], x, out) for m, xs in rec.calls.items() for x, out in xs]
+            calls = [(dense_paths[m], x, out) for m, xs in rec.calls.items() for x, out in xs]
             sens = torch.autograd.grad(
                 log_psi, [out for _, _, out in calls], torch.ones_like(log_psi), allow_unused=True
             )
@@ -111,14 +249,12 @@ def create_loss_fn(
     sort_states_by: Optional[str] = None,
     min_gap_scale_factor: float = 0.1,
 ) -> VMCLoss:
-    """Build the VMC loss, with the JAX package's signature.  With one
-    electronic state the overlap options are stored and never called, as in
-    the JAX package; ``spin_penalty`` raises unless None."""
-    if spin_penalty is not None:
-        raise NotImplementedError(
-            'spin_penalty: the spin penalty and more than one electronic state are not '
-            'ported yet (ROADMAP.md, queue 1 item 7)'
-        )
+    """Build the VMC loss, with the JAX package's signature.  The overlap
+    options act with more than one electronic state, as in the JAX package,
+    where ``alpha`` and ``clip_mask_overlap_fn`` must be given."""
+    n_states = len(wf_states(wf))
+    if n_states > 1 and (alpha is None or clip_mask_overlap_fn is None):
+        raise ValueError(f'{n_states} electronic states need alpha and clip_mask_overlap_fn')
     return VMCLoss(hamil, wf, clip_mask_fn, clip_mask_overlap_fn=clip_mask_overlap_fn,
-                   alpha=alpha, scale_overlap_by=scale_overlap_by, sort_states_by=sort_states_by,
-                   min_gap_scale_factor=min_gap_scale_factor)
+                   alpha=alpha, spin_penalty=spin_penalty, scale_overlap_by=scale_overlap_by,
+                   sort_states_by=sort_states_by, min_gap_scale_factor=min_gap_scale_factor)

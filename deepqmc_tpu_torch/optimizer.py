@@ -1,11 +1,12 @@
-"""Optimizers (counterpart of ``deepqmc_tpu/optimizer.py``, one electronic
-state): evaluation only, Adam (the JAX package's ``OptaxOptimizer`` with
-``optax.adam``) and KFAC.
+"""Optimizers (counterpart of ``deepqmc_tpu/optimizer.py``): evaluation only,
+Adam (the JAX package's ``OptaxOptimizer`` with ``optax.adam``) and KFAC.
 
-Each takes the VMC loss (:class:`~.loss.VMCLoss`), whose wave function holds
-the parameters; ``init(phys_conf)`` gives the optimizer state and
-``step(opt_state, phys_conf, weight)`` updates the parameters in place and
-returns ``(opt_state, E_loc, stats)``.
+Each takes the VMC loss (:class:`~.loss.VMCLoss`), whose wave function (one
+module or a :class:`~.wf.StateStack`) holds the parameters, and the
+``merge_keys`` whose parameters are averaged over the states after every
+step (:func:`~.wf.merge_states`); ``init(phys_conf)`` gives the optimizer
+state and ``step(opt_state, phys_conf, weight, data=None)`` updates the
+parameters in place and returns ``(opt_state, E_loc, psi_ratio, stats)``.
 
 The gradient transformations :func:`adam` and :func:`lamb` compute what
 ``optax.adam`` and ``optax.lamb`` compute, on dicts of tensors keyed as
@@ -20,10 +21,11 @@ import torch
 
 from .kfac import KFAC
 from .utils import tree_norm
+from .wf.base import merge_states
 
 __all__ = [
     'AdamOptimizer', 'GradientTransformation', 'KFACOptimizer', 'NoOptimizer',
-    'PRETRAIN_OPTIMIZERS', 'adam', 'lamb',
+    'PRETRAIN_OPTIMIZERS', 'adam', 'lamb', 'merge_states',
 ]
 
 
@@ -100,31 +102,40 @@ PRETRAIN_OPTIMIZERS = {'adam': adam, 'lamb': lamb}
 class NoOptimizer:
     """Evaluation: the loss's forward half only; the parameters stay."""
 
-    def __init__(self, loss):
+    def __init__(self, loss, merge_keys=None):
         self.loss = loss
 
     def init(self, phys_conf):
         return None
 
-    def step(self, opt_state, phys_conf, weight):
-        _, (E_loc, _, stats) = self.loss(phys_conf, weight)
-        return opt_state, E_loc, stats
+    def step(self, opt_state, phys_conf, weight, data=None):
+        _, (E_loc, psi_ratio, stats) = self.loss(phys_conf, weight, data)
+        return opt_state, E_loc, psi_ratio, stats
 
 
 class AdamOptimizer:
     """``optax.adam(lr)``: bias-corrected first and second moments with optax's
-    defaults, ``eps`` added outside the square root."""
+    defaults, ``eps`` added outside the square root.  Adam acts entry by
+    entry, so the parameters of several states are one dict, keyed as the
+    ``named_parameters()`` of their :class:`~.wf.StateStack`."""
 
-    def __init__(self, loss, lr: float = 1e-3):
-        self.loss, self.adam = loss, adam(lr)
+    def __init__(self, loss, merge_keys=None, *, lr: float = 1e-3):
+        self.loss, self.adam, self.merge_keys = loss, adam(lr), merge_keys
+
+    def _params(self):
+        states = self.loss.states
+        return dict(self.loss.wf.named_parameters() if len(states) > 1
+                    else states[0].named_parameters())
 
     def init(self, phys_conf):
-        return self.adam.init(dict(self.loss.wf.named_parameters()))
+        return self.adam.init(self._params())
 
-    def step(self, opt_state, phys_conf, weight):
-        (_, (E_loc, _, stats)), grads = self.loss.value_and_grad(phys_conf, weight)
+    def step(self, opt_state, phys_conf, weight, data=None):
+        (_, (E_loc, psi_ratio, stats)), grads = self.loss.value_and_grad(phys_conf, weight, data)
+        if self.loss.multi:
+            grads = {f'{s}.{k}': g for s, gs in enumerate(grads) for k, g in gs.items()}
         updates, opt_state = self.adam.update(grads, opt_state)
-        params = dict(self.loss.wf.named_parameters())
+        params = self._params()
         stats = {
             'opt/param_norm': tree_norm(p.detach() for p in params.values()),
             'opt/grad_norm': tree_norm(grads.values()),
@@ -134,18 +145,22 @@ class AdamOptimizer:
         with torch.no_grad():
             for k, p in params.items():
                 p.add_(updates[k])
-        return opt_state, E_loc, stats
+        merge_states(self.loss.wf, self.merge_keys)
+        return opt_state, E_loc, psi_ratio, stats
 
 
 class KFACOptimizer:
     """Natural gradient with :class:`~.kfac.KFAC` (keyword arguments as KFAC's)."""
 
-    def __init__(self, loss, **kfac_kwargs):
+    def __init__(self, loss, merge_keys=None, **kfac_kwargs):
         self.kfac = KFAC(loss, **kfac_kwargs)
+        self.merge_keys = merge_keys
 
     def init(self, phys_conf):
         return self.kfac.init(phys_conf)
 
-    def step(self, opt_state, phys_conf, weight):
-        opt_state, (E_loc, _, stats), opt_stats = self.kfac.step(opt_state, phys_conf, weight)
-        return opt_state, E_loc, {**opt_stats, **stats}
+    def step(self, opt_state, phys_conf, weight, data=None):
+        opt_state, (E_loc, psi_ratio, stats), opt_stats = self.kfac.step(
+            opt_state, phys_conf, weight, data)
+        merge_states(self.kfac.loss.wf, self.merge_keys)
+        return opt_state, E_loc, psi_ratio, {**opt_stats, **stats}

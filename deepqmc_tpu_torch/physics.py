@@ -74,3 +74,42 @@ def loop_laplacian(f):
         return torch.stack(laps), torch.stack(grads)
 
     return lap
+
+
+SPIN_CHUNK = 8192  # swapped configurations per forward of evaluate_spin
+
+
+def evaluate_spin(hamil, wf, phys_conf, chunk: int = SPIN_CHUNK):
+    """Local S^2 ``[B]`` of the walkers ``phys_conf`` (``r`` ``[B, n, 3]``)
+    from the opposite-spin swaps, as ``deepqmc_tpu.physics.evaluate_spin``:
+    S^2_loc = S_z (S_z + 1) + n_min - sum_ij psi(P_ij r) / psi(r), P_ij
+    exchanging up electron i and down electron j.
+
+    The walkers and their ``n_up * n_down`` swaps go through plain forwards of
+    ``wf`` as one ``[B * (1 + n_up * n_down)]`` batch, cut into chunks of
+    ``chunk`` configurations.  With no electron of one spin it returns the
+    constant part, as the JAX package does.
+    """
+    n_up, n_down = hamil.n_up, hamil.n_down
+    na, nb = max(n_up, n_down), min(n_up, n_down)
+    s2_base = (na - nb) / 2 * ((na - nb) / 2 + 1) + nb
+    r = phys_conf.r
+    B, n = r.shape[:2]
+    if nb == 0:
+        return torch.full((B,), s2_base, dtype=r.dtype, device=r.device)
+    ii, jj = torch.meshgrid(torch.arange(n_up), torch.arange(n_up, n), indexing='ij')
+    perm = torch.arange(n).repeat(n_up * n_down + 1, 1)  # row 0: no swap
+    rows = torch.arange(1, n_up * n_down + 1)
+    perm[rows, ii.flatten()], perm[rows, jj.flatten()] = jj.flatten(), ii.flatten()
+    swapped = r[:, perm.to(r.device)].flatten(0, 1)  # [B * (1 + P), n, 3]
+    mol_idx = phys_conf.mol_idx.repeat_interleave(len(perm))
+    signs, logs = [], []
+    for start in range(0, len(swapped), chunk):
+        part = slice(start, start + chunk)
+        psi = wf(phys_conf.replace(r=swapped[part], mol_idx=mol_idx[part]))
+        signs.append(psi.sign)
+        logs.append(psi.log)
+    sign = torch.cat(signs).view(B, -1)
+    log = torch.cat(logs).view(B, -1)
+    ratios = sign[:, :1] * sign[:, 1:] * torch.exp(log[:, 1:] - log[:, :1])
+    return s2_base - ratios.sum(-1)

@@ -1,12 +1,16 @@
 """Supervised pretraining of the ansatz orbitals to the SCF baseline
-(counterpart of ``deepqmc_tpu/pretrain/pretraining.py``), one molecule a step
-and one electronic state.
+(counterpart of ``deepqmc_tpu/pretrain/pretraining.py``), one molecule a step,
+one or more electronic states.
 
 A step draws a molecule, moves its walkers with the sampler (no grad), and
 updates the parameters by the gradient of the mean squared difference
 between the ansatz's orbitals (``wf(phys_conf, return_mos=True)``) and the
-SCF target's.  As in the JAX package the sampler's cached psi is never
-refreshed after an update.  Not ported yet: the walker chunks of the
+SCF target's, each state's module held to its own target (its CASCI root,
+or the HF determinant) on its own walkers, the loss the mean over the
+states.  The optimizer sees each parameter stacked over the states, as the
+JAX package's stacked parameters, so LAMB's trust ratio takes the norms of
+all states together.  As in the JAX package the sampler's cached psi is
+never refreshed after an update.  Not ported yet: the walker chunks of the
 gradient (``DEEPQMC_TPU_GRAD_WALKER_CHUNK``; ROADMAP.md, queue 1 item 1).
 """
 
@@ -18,6 +22,7 @@ import torch
 
 from ..fit import molecule_conf
 from ..optimizer import GradientTransformation
+from ..wf.base import wf_states
 from .pretraining_target import PretrainTarget
 
 __all__ = ['pretrain', 'pretrain_loss', 'pretrain_update']
@@ -58,15 +63,21 @@ def pretrain(
     *,
     steps,
 ):
-    """Generator yielding ``(step, per_sample_losses [1, 1, B], mol_idxs)``;
-    the parameters of ``wf`` are updated in place by ``opt`` (``adam`` or
-    ``lamb`` of :mod:`..optimizer`).  ``gen`` draws the moves."""
+    """Generator yielding ``(step, per_sample_losses [1, S, B], mol_idxs)``;
+    the parameters of ``wf`` (a module or a :class:`~..wf.StateStack`) are
+    updated in place by ``opt`` (``adam`` or ``lamb`` of :mod:`..optimizer`).
+    ``gen`` draws the moves."""
     r = smpl_state['elec']['r']
     target_fn = PretrainTarget(hamil, None, dataset['centers'], dataset['shells'],
                                dataset['mo_coeffs'], dtype=r.dtype, device=r.device)
-    confs = dataset['confs'][:, 0]  # [n_mols, n_det, n_el]: the one state
-    conf_coeffs = dataset['conf_coeffs'][:, 0]
-    opt_state = opt.init(dict(wf.named_parameters()))
+    states = wf_states(wf)
+    confs = dataset['confs']  # [n_mols, n_states, n_det, n_el]
+    conf_coeffs = dataset['conf_coeffs']
+    if len(states) == 1:
+        confs, conf_coeffs = confs[:, 0], conf_coeffs[:, 0]
+        opt_state = opt.init(dict(states[0].named_parameters()))
+    else:
+        opt_state = opt.init(_stacked(states))
     first = True
     for step in steps:
         mol_idxs = molecule_idx_sampler.sample()
@@ -78,19 +89,46 @@ def pretrain(
         if first:
             log.info(f'First pretraining step done in {time.perf_counter() - t0:.1f}s')
             first = False
-        yield step, per_sample_losses[None, None], mol_idxs
+        yield step, per_sample_losses.view(1, -1, per_sample_losses.shape[-1]), mol_idxs
+
+
+def _stacked(states, tensors=None) -> dict:
+    """Each parameter name -> the states' tensors stacked (the parameters'
+    values by default)."""
+    tensors = tensors or [dict(s.named_parameters()) for s in states]
+    return {k: torch.stack([t[k].detach() for t in tensors]) for k in tensors[0]}
 
 
 def pretrain_update(hamil, wf, target_fn, confs, conf_coeffs, phys_conf, opt, opt_state):
     """One update of the parameters of ``wf`` (in place) on one molecule's
-    walkers; ``(opt_state, loss, per_sample_losses [B])``."""
-    params = dict(wf.named_parameters())
-    loss, per_sample_losses = pretrain_loss(hamil, wf, target_fn, confs, conf_coeffs, phys_conf)
-    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-    grads = {k: torch.zeros_like(p) if g is None else g
-             for (k, p), g in zip(params.items(), grads)}
+    walkers; ``(opt_state, loss, per_sample_losses)``.  For one state
+    ``confs`` is ``[n_mols, n_det, n_el]``, the optimizer's state that of the
+    module's parameters and the losses ``[B]``; for S > 1 states the walkers,
+    ``confs`` (``[n_mols, S, n_det, n_el]``) and the losses (``[S, B]``) have a
+    state axis, and the optimizer's state is that of the stacked parameters."""
+    states = wf_states(wf)
+    multi = len(states) > 1
+    params = [dict(s.named_parameters()) for s in states]
+    if multi:
+        inputs = [(confs[:, i], conf_coeffs[:, i], phys_conf.replace(r=r, mol_idx=m))
+                  for i, (r, m) in enumerate(zip(phys_conf.r, phys_conf.mol_idx))]
+    else:
+        inputs = [(confs, conf_coeffs, phys_conf)]
+    losses, per_sample = zip(*(pretrain_loss(hamil, s, target_fn, *x)
+                               for s, x in zip(states, inputs)))
+    loss = sum(losses) / len(states)
+    flat = iter(torch.autograd.grad(loss, [p for ps in params for p in ps.values()],
+                                    allow_unused=True))
+    grads = [{k: (lambda g: torch.zeros_like(p) if g is None else g)(next(flat))
+              for k, p in ps.items()} for ps in params]
     with torch.no_grad():
-        updates, opt_state = opt.update(grads, opt_state, params)
-        for k, p in params.items():
-            p.add_(updates[k])
-    return opt_state, loss.detach(), per_sample_losses.detach()
+        if multi:
+            updates, opt_state = opt.update(_stacked(states, grads), opt_state, _stacked(states))
+        else:
+            updates, opt_state = opt.update(grads[0], opt_state, params[0])
+            updates = {k: u[None] for k, u in updates.items()}
+        for i, ps in enumerate(params):
+            for k, p in ps.items():
+                p.add_(updates[k][i])
+    per_sample = torch.stack(per_sample).detach()
+    return opt_state, loss.detach(), per_sample if multi else per_sample[0]

@@ -105,9 +105,9 @@ def _profile_training(hamil, wf, n, sampler):
     pc = MetropolisSampler.phys_conf(R, elec['r'])
     kfac.init(pc)
     opt_state, weight = state.opt, torch.ones(n, device='cuda')
-    _, E_loc, _ = loss.terms(pc, weight)
-    grads, taps = loss.grad_and_taps(pc, weight, E_loc, taps=True)  # warm-up
-    _profiled('gradient and taps', lambda: loss.grad_and_taps(pc, weight, E_loc, taps=True))
+    terms = loss.terms(pc, weight)
+    grads, taps = loss.grad_and_taps(pc, weight, terms, taps=True)  # warm-up
+    _profiled('gradient and taps', lambda: loss.grad_and_taps(pc, weight, terms, taps=True))
     period = kfac.inverse_update_period
 
     def update(step):

@@ -6,8 +6,9 @@ each axis is a loop (the kernels are ``ctypes`` launches that ``torch.func.vmap`
 cannot trace), so a sample call on one molecule makes one turn.  The state of
 :class:`MultiNuclearGeometrySampler` is ``{'nuc', 'elec', 'update_nuc_counter'}``
 with the molecule axis in front of every leaf: the electron leaves are
-``[n_mol, n_state, B, ...]`` and ``tau`` ``[n_mol, n_state]``.  Only one
-electronic state is ported: per-state parameters come with excited states.
+``[n_mol, n_state, B, ...]`` and ``tau`` ``[n_mol, n_state]``.  Each
+electronic state has its own electron sampler, bound to that state's module
+of a :class:`~..wf.StateStack`, and its own walkers.
 """
 
 import torch
@@ -73,36 +74,30 @@ class MoleculeIdxSampler:
 
 
 class MultiElectronicStateSampler:
-    """The electronic-state axis, of size 1: the walker population of the one
-    state, with a leading state axis on every leaf and on ``r`` and ``mol_idx``
-    of the configuration."""
+    """The electronic-state axis: one walker population per state, each
+    initialised, moved and refreshed by its own electron sampler of
+    ``samplers`` (one sampler for one state), in turn; every leaf and
+    ``r`` and ``mol_idx`` of the configuration get the state axis in front."""
 
-    def __init__(self, sampler, n_state: int):
-        if n_state != 1:
-            raise NotImplementedError(
-                f'{n_state} electronic states: more than one state needs per-state '
-                'parameters, which come with excited states (ROADMAP.md, queue 1 item 7)'
-            )
-        self.sampler, self.n_state = sampler, n_state
+    def __init__(self, samplers, n_state: int):
+        samplers = list(samplers) if isinstance(samplers, (list, tuple)) else [samplers]
+        if len(samplers) != n_state:
+            raise ValueError(f'{len(samplers)} electron samplers for {n_state} states')
+        self.samplers, self.n_state = samplers, n_state
+        self.sampler = samplers[0]  # the settings all states share
 
     def init(self, gen, n: int, R) -> dict:
-        return _lift(self.sampler.init(gen, n, R))
+        return tree_stack([s.init(gen, n, R) for s in self.samplers])
 
     def sample(self, gen, state: dict, R):
-        state, phys_conf, stats = self.sampler.sample(gen, _drop(state), R)
-        phys_conf = phys_conf.replace(r=phys_conf.r[None], mol_idx=phys_conf.mol_idx[None])
-        return _lift(state), phys_conf, _lift(stats)
+        outs = [s.sample(gen, _take(state, i), R) for i, s in enumerate(self.samplers)]
+        pc = outs[0][1]
+        phys_conf = pc.replace(r=torch.stack([o[1].r for o in outs]),
+                               mol_idx=torch.stack([o[1].mol_idx for o in outs]))
+        return tree_stack([o[0] for o in outs]), phys_conf, tree_stack([o[2] for o in outs])
 
     def update(self, state: dict, R) -> dict:
-        return _lift(self.sampler.update(_drop(state), R))
-
-
-def _lift(tree):
-    return tree_map(lambda x: x[None], tree)
-
-
-def _drop(tree):
-    return tree_map(lambda x: x[0], tree)
+        return tree_stack([s.update(_take(state, i), R) for i, s in enumerate(self.samplers)])
 
 
 def _take(tree, i: int):

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from ..physics import pairwise_diffs
+from ..wf.base import wf_states
 from .combined_samplers import (
     IdleNucleiSampler,
     MoleculeIdxSampler,
@@ -141,10 +142,12 @@ def initialize_sampling(
     elec_equilibration_steps=None,
 ):
     """The molecule-index sampler (``gen``, a CPU generator, draws its one
-    shuffle) and the combined sampler around ``elec_sampler(hamil=, wf=)``."""
+    shuffle) and the combined sampler around ``elec_sampler(hamil=, wf=)``,
+    one per state module of ``wf`` (a module, or a :class:`~..wf.StateStack`
+    of ``electronic_states``)."""
     molecule_idx_sampler = MoleculeIdxSampler(gen, len(mols), molecule_batch_size, 'once')
-    multi_state = MultiElectronicStateSampler(elec_sampler(hamil=hamil, wf=wf),
-                                              electronic_states)
+    multi_state = MultiElectronicStateSampler(
+        [elec_sampler(hamil=hamil, wf=w) for w in wf_states(wf)], electronic_states)
     nuc_sampler = (nuc_sampler or IdleNucleiSampler)(hamil.mol.charges)
     sampler = MultiNuclearGeometrySampler(
         multi_state, nuc_sampler, elec_warp_fn or no_elec_warp, update_nuc_period,

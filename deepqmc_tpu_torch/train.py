@@ -9,8 +9,9 @@ the last checkpoint when the sampled wave function turns NaN.  Evaluation is
 the same run with ``opt=None``, usually from a checkpoint's train state.
 Progress goes to ``logging``.
 
-One process, one electronic state; the parameters live in the wave-function
-module (``TrainState.params`` is its ``state_dict``).
+One process and one molecule a step; the parameters live in the
+wave-function module, one per electronic state (a :class:`~.wf.StateStack`
+for several; ``TrainState.params`` is its ``state_dict``).
 """
 
 import logging
@@ -40,6 +41,7 @@ from .observable import ObservableMonitor, default_observable_monitors
 from .optimizer import PRETRAIN_OPTIMIZERS, NoOptimizer
 from .sampling import initialize_sampler_state
 from .utils import resolve_device, set_true_fp32
+from .wf.base import StateStack, init_wf_states, merge_states
 
 __all__ = ['train']
 
@@ -114,24 +116,49 @@ class TrainSession:
     """
 
     def __init__(self, hamil, ansatz, opt, sampler_factory, *, seed, electron_batch_size,
-                 molecule_batch_size, electronic_states, mols, observable_monitors, device):
+                 molecule_batch_size, electronic_states, mols, observable_monitors, device,
+                 merge_keys=None):
         self.hamil = hamil
-        self.ansatz = ansatz
-        self.opt_factory = opt or NoOptimizer
-        self.mode = 'evaluation' if opt is None else 'training'
         self.seed, self._forks = seed, 0
+        self.ansatz = self.init_states(ansatz, electronic_states, merge_keys).to(
+            device=device, dtype=torch.float32)
+        self.opt_factory = opt or NoOptimizer
+        if opt is not None and merge_keys:
+            self.opt_factory = partial(opt, merge_keys=merge_keys)
+        self.mode = 'evaluation' if opt is None else 'training'
         self.device = device
         self.electron_batch_size = electron_batch_size
         self.electronic_states = electronic_states
         self.mols = list(mols) if isinstance(mols, Sequence) else [hamil.mol]
         self.molecule_idx_sampler, self.sampler = sampler_factory(
-            self._fork_gen('cpu'), hamil, ansatz, self.mols, electronic_states,
+            self._fork_gen('cpu'), hamil, self.ansatz, self.mols, electronic_states,
             molecule_batch_size,
         )
         self.monitors = default_observable_monitors() + (observable_monitors or [])
         # training walkers must stay usable by autograd
         self.grad_mode = sampling_grad_mode(self.sampler, inference=self.mode == 'evaluation')
         self.step = None  # the step being run, for the crash report
+
+    def init_states(self, ansatz, n_states: int, merge_keys):
+        """The wave function of ``n_states`` states: ``ansatz`` itself where
+        it is a module (one state) or a :class:`~.wf.StateStack` of
+        ``n_states``; for a factory ``gen -> module`` one module per state,
+        each from its own forked generator, the ``merge_keys`` bundles
+        averaged over the states (``deepqmc_tpu.wf.init_wf_params``)."""
+        if isinstance(ansatz, StateStack):
+            if len(ansatz) != n_states:
+                raise ValueError(f'a stack of {len(ansatz)} states for {n_states} states')
+            merge_states(ansatz, merge_keys)
+            return ansatz
+        if isinstance(ansatz, torch.nn.Module):
+            if n_states != 1:
+                raise ValueError(f'{n_states} electronic states need a StateStack or a factory '
+                                 'gen -> module as the ansatz, not one module')
+            return ansatz
+        if n_states == 1:
+            return ansatz(gen=self._fork_gen('cpu'))
+        return init_wf_states(ansatz, [self._fork_gen('cpu') for _ in range(n_states)],
+                              merge_keys)
 
     def _fork_gen(self, device=None):
         """A fresh generator on ``device`` (the run's by default)."""
@@ -303,30 +330,36 @@ def train(
     sampled psi rewinds to the last checkpoint, at most ``max_restarts`` times,
     then raises :class:`~.exceptions.TrainingCrash`.
 
+    ``ansatz`` is a module (one state), a :class:`~.wf.StateStack` of
+    ``electronic_states`` modules, or a factory ``gen -> module`` (such as
+    ``partial(psiformer_ansatz, hamil)``) that the session calls once per
+    state, each with a generator forked from ``seed``.  With several states
+    ``loss_function_factory`` must give the overlap penalty's ``alpha`` and
+    ``clip_mask_overlap_fn``; the parameters whose JAX module path contains
+    one of ``merge_keys`` are averaged over the states at the start and after
+    every optimizer step, so they stay bitwise equal.  A step takes one
+    molecule (``molecule_batch_size`` 1).
+
     Runs on ``device`` (None means CUDA, and raises where it is absent) in
-    float32 with TF32 off; ``ansatz`` is moved there and trained in place.
-    ``merge_keys`` and more than one electronic state are not ported.
+    float32 with TF32 off; the wave function is moved there and trained in
+    place (``TrainState.params`` is its ``state_dict``; for a factory, load it
+    into a :class:`~.wf.StateStack` of fresh modules to keep them).
     """
-    if merge_keys:
+    if molecule_batch_size != 1:
         raise NotImplementedError(
-            f'merge_keys={merge_keys}: parameters shared across states come with excited '
-            'states (ROADMAP.md, queue 1 item 7)'
-        )
-    if electronic_states != 1:
-        raise NotImplementedError(
-            f'{electronic_states} electronic states: the port trains one (ROADMAP.md, queue 1 '
-            'item 7)'
+            f'molecule_batch_size={molecule_batch_size}: a step takes one molecule '
+            '(ROADMAP.md, queue 1 items 2 and 7)'
         )
     device = resolve_device(device)
     if device.type == 'cuda':
         set_true_fp32()
-    ansatz.to(device=device, dtype=torch.float32)
     session = TrainSession(
         hamil, ansatz, opt, sampler_factory, seed=seed,
         electron_batch_size=electron_batch_size, molecule_batch_size=molecule_batch_size,
         electronic_states=electronic_states, mols=mols,
-        observable_monitors=observable_monitors, device=device,
+        observable_monitors=observable_monitors, device=device, merge_keys=merge_keys,
     )
+    ansatz = session.ansatz
     sinks = RunSinks(
         workdir, session.mode, [m.name for m in session.monitors], session.mols,
         molecule_batch_size, init_step, chkpt_constructor, metric_logger_constructor,

@@ -1,3 +1,5 @@
-"""Wave-function ansätze of the port (PsiFormer, FermiNet, PauliNet-style `default`)."""
+"""Wave-function ansätze of the port (PsiFormer, FermiNet, PauliNet-style `default`)
+and the stack of per-state modules of excited states."""
 
+from .base import StateStack, init_wf_states, merge_states, wf_states  # noqa: F401
 from .nn_wave_function import NeuralNetworkWaveFunction  # noqa: F401

@@ -186,7 +186,9 @@ def test_nuclear_period_refreshes_and_reequilibrates(eq_steps):
 
 
 def test_more_than_one_electronic_state_is_not_ported():
-    with pytest.raises(NotImplementedError, match='queue 1 item 7'):
+    """Several states are ported (``tests/test_torch_excited_train.py``), each
+    with its own electron sampler: one sampler for two states is refused."""
+    with pytest.raises(ValueError, match='1 electron samplers for 2 states'):
         MultiElectronicStateSampler(_SpySampler(), 2)
 
 

@@ -112,11 +112,11 @@ def _weighted_step():
     seen = {}
 
     class Recording:
-        def step(self, opt_state, phys_conf, weight):
+        def step(self, opt_state, phys_conf, weight, data=None):
             (value, (E_loc, _, stats)), grads = loss.value_and_grad(phys_conf, weight)
             seen.update(phys_conf=phys_conf, weight=weight, loss=value, E_loc=E_loc,
                         grads=grads)
-            return opt_state, E_loc, stats
+            return opt_state, E_loc, None, stats
 
     rng = np.random.default_rng(5)
     ewm, update_ewm = init_multi_mol_multi_state_ewm((1, 1))

@@ -126,5 +126,12 @@ def test_loss_and_gradient_match_jax(mol, B, clip_fn, clip_kwargs):
 
 
 def test_penalties_are_not_ported():
-    with pytest.raises(NotImplementedError, match='queue 1 item 7'):
-        create_loss_fn(None, None, clip.median_log_squeeze_and_mask, spin_penalty=0.1)
+    """The penalties are ported (``tests/test_torch_excited_loss.py``); the
+    overlap penalty of several states still refuses a loss without its
+    ``alpha`` or its ratio clip."""
+    from deepqmc_tpu_torch.wf import StateStack
+
+    stack = StateStack([torch.nn.Linear(1, 1), torch.nn.Linear(1, 1)])
+    for kwargs in ({'spin_penalty': 0.1}, {'alpha': 4.0}):
+        with pytest.raises(ValueError, match='alpha and clip_mask_overlap_fn'):
+            create_loss_fn(None, stack, clip.median_log_squeeze_and_mask, **kwargs)

@@ -74,6 +74,11 @@ def test_evaluate_needs_cuda_unless_told():
     for opt in (None, partial(AdamOptimizer)):
         with pytest.raises(RuntimeError, match='CUDA'):
             dqt.train.train(hamil, wf, opt, factory, steps=1, seed=0, electron_batch_size=4)
+        with pytest.raises(RuntimeError, match='CUDA'):  # two states from a factory
+            dqt.train.train(hamil, partial(dqt.psiformer_ansatz, hamil, n_determinants=1,
+                                           embedding_dim=8, n_interactions=1, num_heads=2),
+                            opt, factory, steps=1, seed=0, electron_batch_size=4,
+                            electronic_states=2)
 
 
 def test_train_is_the_module_of_the_run():

@@ -150,10 +150,15 @@ def test_scf_solution_matches_jax(mol_name, monkeypatch, tmp_path):
     assert torch.equal(again['mo_coeffs'], got['mo_coeffs'])
 
 
-def test_casci_targets_are_not_ported():
+def test_casci_targets_are_not_ported(tmp_path):
+    """CASCI targets are ported (``tests/test_torch_casci.py``): H2's (2, 2)
+    active space gives its four determinants, and a kept solution of other
+    CASCI settings is refused."""
     hamil = dqt.MolecularHamiltonian(mol=dqt.Molecule.from_name('H2'))
-    with pytest.raises(NotImplementedError, match='queue 1 item 7'):
-        compute_scf_solution([hamil.mol], hamil, 1, cas=(2, 2))
+    ds = compute_scf_solution([hamil.mol], hamil, 1, cas=(2, 2), workdir=str(tmp_path))
+    assert tuple(ds['confs'].shape) == (1, 1, 4, 2)
+    with pytest.raises(ValueError, match='different'):
+        compute_scf_solution([hamil.mol], hamil, 1, workdir=str(tmp_path))
 
 
 def test_basis_target_and_orbitals_match_jax():

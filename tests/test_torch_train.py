@@ -53,8 +53,8 @@ def test_adam_steps_and_psi_refresh_match_jax():
     paths = jax_param_paths(wf)
     for step, r in enumerate(rs):
         stacked, state_j, E_j, _, stats_j = step_j(rng, stacked, state_j, jax_batch(hamil_j, r))
-        state_t, E_t, stats_t = opt_t.step(state_t, torch_phys_conf(hamil_t, r),
-                                           torch.ones(len(r), dtype=torch.float64))
+        state_t, E_t, _, stats_t = opt_t.step(state_t, torch_phys_conf(hamil_t, r),
+                                              torch.ones(len(r), dtype=torch.float64))
         (want,) = tree_unstack(stacked)
         for key, value in wf.state_dict().items():
             path, name = paths[key]

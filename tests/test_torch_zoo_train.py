@@ -67,8 +67,7 @@ def test_loss_with_overlap_options_matches_jax(preset):
     loss_j = jax_create_loss_fn(hamil_j, ansatz, jax_clip, psi_ratio_clip_and_mask, alpha=4.0)
     loss_t = create_loss_fn(hamil_t, wf, median_log_squeeze_and_mask,
                             clip_mask_overlap_fn=_overlap_clip_never_called, alpha=4.0)
-    opts = loss_t.overlap_options
-    assert opts['alpha'] == 4.0 and opts['clip_mask_overlap_fn'] is _overlap_clip_never_called
+    assert loss_t.alpha == 4.0 and loss_t.clip_mask_overlap_fn is _overlap_clip_never_called
     (want_loss, (want_E, _, want_stats)), (want_grads,) = jax.jit(loss_j.value_and_grad)(
         [params], jax.random.PRNGKey(0), jax_batch(hamil_j, r))
     (loss, (E, ratio, stats)), grads = loss_t.value_and_grad(
@@ -89,8 +88,13 @@ def test_loss_with_overlap_options_matches_jax(preset):
 
 
 def test_spin_penalty_still_raises():
-    with pytest.raises(NotImplementedError, match='queue 1 item 7'):
-        create_loss_fn(None, None, median_log_squeeze_and_mask, alpha=4.0, spin_penalty=1.0)
+    """The spin penalty is ported (``tests/test_torch_excited_loss.py``); with
+    several states the loss still raises without the overlap options."""
+    from deepqmc_tpu_torch.wf import StateStack
+
+    stack = StateStack([torch.nn.Linear(1, 1), torch.nn.Linear(1, 1)])
+    with pytest.raises(ValueError, match='alpha and clip_mask_overlap_fn'):
+        create_loss_fn(None, stack, median_log_squeeze_and_mask, spin_penalty=1.0)
 
 
 @pytest.mark.parametrize('preset', ['default', 'ferminet'])
@@ -154,8 +158,8 @@ def test_adam_steps_match_jax(preset, full_determinant):
     step_j = jax.jit(opt_j.step)
     for step, r in enumerate(rs):
         stacked, state_j, E_j, _, stats_j = step_j(rng, stacked, state_j, jax_batch(hamil_j, r))
-        state_t, E_t, stats_t = opt_t.step(state_t, torch_phys_conf(hamil_t, r),
-                                           torch.ones(B, dtype=torch.float64))
+        state_t, E_t, _, stats_t = opt_t.step(state_t, torch_phys_conf(hamil_t, r),
+                                              torch.ones(B, dtype=torch.float64))
         _assert_params(wf, tree_unstack(stacked)[0], f'{preset} step {step}')
         assert_close(E_t, np.asarray(E_j)[0, 0], REL, 'E_loc')
         for k in ('opt/param_norm', 'opt/grad_norm', 'opt/update_norm'):
