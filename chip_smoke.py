@@ -160,6 +160,34 @@ Phases, each with a start and an end line and its own time budget:
    unchanged.  It prints the SCF and CASCI seconds, the medians of each
    phase, the split and the peak device memory.
 
+12. cli path: the command line, ``python3 -m deepqmc_tpu_torch`` in a
+   subprocess: ``task=train_psiformer ansatz=psiformer hamil/mol=H2O`` at 2048
+   walkers cut to 5 pretraining steps, 5 equilibration calls and 5 fit steps
+   in the git-ignored ``runs/cli_path/train``, then ``task=evaluate`` of 3
+   steps from its checkpoint in ``runs/cli_path/evaluate`` (removed at the
+   end), both with the metric and HDF5 sinks turned off on the command line
+   (the card's machine has no tensorboardX or h5py; a line says so).  Both
+   must exit 0 and write their log, their composed config and (training) the
+   checkpoints of steps 0 and 5; each fit and evaluation step, read from the
+   run's log, must launch the attention kernel 4 times and the flat slogdet
+   kernel once, with a finite energy.  It prints each subprocess's wall time,
+   the time to its first step, the median step and the peak device memory.
+13. ecp path: ScO with ccECPs on both nuclei and the full-width PsiFormer,
+   composed from the conf tree (``hamil/mol=ScO +hamil.ecp_type=ccECP
+   ansatz=psiformer``): 11 + 6 valence electrons split 9/8, K = 51.  Kernels
+   1 and 2 against their plain versions at this shape (B = 64 and 512, with
+   the slogdet body taken); E_loc of 64 walkers with V_nl on the same
+   quadrature rotations, the card in float32 with kernels against the plain
+   path in float64 on the CPU by the local energy's rule (one local energy:
+   4 attention and 1 flat slogdet launch); the local energy of 512 walkers
+   split by CUDA events into the kinetic FL pass and V_nl, and V_nl of 2048
+   walkers with its peak memory; then a cut ``task=train_psiformer`` through
+   ``app.cli`` in this process (512 walkers, no pretraining: the ScO SCF does
+   not fit the run; 10 equilibration calls, 3 fit steps, in the git-ignored
+   ``runs/ecp_path``, removed at the end), each fit step finite with 4
+   attention and 1 flat slogdet launch.  It prints the times, the fit step
+   and the peak device memory.
+
 Each path's launch counts are read from a run that starts with every count
 at 0.  It prints a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
@@ -180,7 +208,7 @@ WATCHDOG_S = 1100  # the whole run, build included; the run's limit is 1200 s
 PHASE_BUDGET_S = {
     'device': 60, 'build': 240, 'kernels': 300, 'main_path': 300, 'block_path': 180,
     'square_path': 120, 'train_path': 240, 'sampling_path': 240, 'run_path': 300,
-    'zoo_path': 300, 'excited_path': 240,
+    'zoo_path': 300, 'excited_path': 240, 'cli_path': 240, 'ecp_path': 240,
 }
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
@@ -1274,6 +1302,256 @@ def excited_path(dq, hamil, R, smi, counts, zero_counts, per_op_step):
     return {k: train_launches[k] + prev[k] for k in prev}
 
 
+# cli path: the true entry point in a subprocess, train_psiformer.yaml on H2O at
+# 2048 walkers, cut to 5 pretraining steps, 5 equilibration calls and 5 fit
+# steps, then 3 evaluation steps from its checkpoint in a second workdir
+CLI_WALKERS, CLI_PRETRAIN_STEPS, CLI_EQ_STEPS, CLI_STEPS, CLI_EVAL_STEPS = 2048, 5, 5, 5, 3
+CLI_TIMEOUT_S = 200
+# the two sinks whose packages (tensorboardX, h5py) the card's machine lacks
+CLI_SINKS_OFF = ['task.metric_logger_constructor=null', 'task.h5_logger_constructor=null']
+_STEP_LINE = r'^\[([^\]]+)\] DEBUG:deepqmc_tpu_torch\.train: (training|evaluation) step (\d+): (\{.*\})$'
+
+
+def _log_steps(workdir, mode):
+    """The step lines of ``mode`` in ``workdir/deepqmc.log`` as (time, step,
+    record, launches of the step), the log's text and its peak memory line."""
+    import json
+    import re
+    from datetime import datetime
+
+    text = open(os.path.join(workdir, 'deepqmc.log')).read()
+    steps, prev = [], None
+    for stamp, m, step, rec in re.findall(_STEP_LINE, text, re.M):
+        if m != mode:
+            continue
+        rec = json.loads(rec)
+        prev = prev or dict.fromkeys(rec['launches'], 0)
+        launches = {k: rec['launches'][k] - prev[k] for k in prev}
+        prev = rec['launches']
+        t = datetime.strptime(stamp, '%Y-%m-%d %H:%M:%S,%f').timestamp()
+        steps.append((t, int(step), rec, launches))
+    peak = re.findall(r'Peak device memory: ([0-9.]+) GiB', text)
+    return steps, text, float(peak[-1]) if peak else float('nan')
+
+
+def _check_steps(label, steps, n_steps, want):
+    """Each of ``n_steps`` steps finite, launching ``want``; their medians."""
+    if len(steps) != n_steps:
+        raise SystemExit(f'{label}: {len(steps)} steps logged, want {n_steps}')
+    for _, step, rec, launches in steps:
+        print(f'{label} step {step}: E_loc mean {rec["E_mean"]:.6f} step time '
+              f'{rec["step_time"]:.3f} s; launches {launches}', flush=True)
+        if not math.isfinite(rec['E_mean']):
+            raise SystemExit(f'{label} step {step}: the energy is not finite')
+        if launches != want:
+            raise SystemExit(f'{label} step {step} launched {launches}, want {want}')
+    return [rec['step_time'] for _, _, rec, _ in steps]
+
+
+def cli_path(smi, per_op_step):
+    """Phase 12: ``python3 -m deepqmc_tpu_torch`` in a subprocess, training and
+    then evaluating from its checkpoint; returns the launches of both runs,
+    read from each run's log."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(root, 'runs', 'cli_path')
+    shutil.rmtree(base, ignore_errors=True)
+    train_dir, eval_dir = os.path.join(base, 'train'), os.path.join(base, 'evaluate')
+    print(f'cli path: sinks turned off on the command line, as the card\'s machine has no '
+          f'tensorboardX or h5py: {" ".join(CLI_SINKS_OFF)}', flush=True)
+    runs = (
+        ('training', train_dir, CLI_STEPS,
+         ['task=train_psiformer', 'ansatz=psiformer', 'hamil/mol=H2O',
+          f'task.electron_batch_size={CLI_WALKERS}', f'task.steps={CLI_STEPS}',
+          f'task.pretrain_steps={CLI_PRETRAIN_STEPS}', f'+task.max_eq_steps={CLI_EQ_STEPS}',
+          *CLI_SINKS_OFF],
+         ['deepqmc.log', '.hydra/config.json', 'training/chkpt-0.pt',
+          f'training/chkpt-{CLI_STEPS}.pt']),
+        ('evaluation', eval_dir, CLI_EVAL_STEPS,
+         ['task=evaluate', f'task.restdir={os.path.join(train_dir, "training")}',
+          f'+task.steps={CLI_EVAL_STEPS}'],
+         ['deepqmc.log', '.hydra/config.json', 'evaluation']),
+    )
+    total = dict.fromkeys(per_op_step, 0)
+    for mode, workdir, n_steps, overrides, files in runs:
+        cmd = [sys.executable, '-m', 'deepqmc_tpu_torch', *overrides, f'--workdir={workdir}']
+        print(f'cli path: python3 {" ".join(cmd[1:])}', flush=True)
+        t0 = time.time()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              timeout=CLI_TIMEOUT_S)
+        wall_s = time.time() - t0
+        if proc.returncode:
+            print(proc.stderr[-6000:], file=sys.stderr, flush=True)
+            raise SystemExit(f'cli path: the {mode} run exited with {proc.returncode}')
+        missing = [f for f in files if not os.path.exists(os.path.join(workdir, f))]
+        if missing:
+            raise SystemExit(f'cli path: the {mode} run did not write {missing}')
+        steps, text, peak_gib = _log_steps(workdir, mode)
+        step_s = _check_steps(f'cli path {mode}', steps, n_steps, per_op_step)
+        for line in text.splitlines():
+            if 'SCF solution in' in line or 'Pretraining completed' in line:
+                print(f'cli path {mode}: {line}', flush=True)
+        print(f'{smi} | cli path {mode} run ({CLI_WALKERS} walkers): subprocess wall time '
+              f'{wall_s:.1f} s, first step logged {steps[0][0] - t0:.1f} s after the start, '
+              f'median step {1e3 * _median(step_s):.1f} ms (steps '
+              f'{", ".join(f"{1e3 * t:.1f}" for t in step_s)} ms), peak device memory '
+              f'{peak_gib:.3f} GiB', flush=True)
+        for k in total:
+            total[k] += steps[-1][2]['launches'][k]
+    shutil.rmtree(base)
+    return total
+
+
+# ecp path: ScO with ccECPs on both nuclei (17 valence electrons, 9 up and 8
+# down) and the full-width PsiFormer, composed from the conf tree; the E_loc
+# gate on 64 walkers, a cut train_psiformer.yaml run at 512 walkers (no
+# pretraining: the ScO SCF does not fit the run; 10 equilibration calls, 3
+# fit steps), the local energy's parts at 512 walkers and V_nl at 2048
+ECP_OVERRIDES = ['hamil/mol=ScO', '+hamil.ecp_type=ccECP', 'ansatz=psiformer']
+ECP_CHECK_WALKERS, ECP_RUN_WALKERS, ECP_EQ_STEPS, ECP_FIT_STEPS = 64, 512, 10, 3
+
+
+def ecp_path(dq, smi, counts, zero_counts, per_op_step):
+    """Phase 13; returns the kernel launches of its cut run."""
+    import torch
+
+    from deepqmc_tpu_torch import app, config
+    from deepqmc_tpu_torch.ecp.ecp_utils import random_azimuths
+    from deepqmc_tpu_torch.ecp.gaussian_type_ecp import NL_CHUNK
+    from deepqmc_tpu_torch.ops.fl_attention import mha_core_fl, mha_core_fl_plain
+    from deepqmc_tpu_torch.ops.fl_slogdet import slogdet_traces, slogdet_traces_plain
+    from deepqmc_tpu_torch.utils import cuda_median_ms
+
+    cfg = config.compose(overrides=ECP_OVERRIDES)
+    hamil = config.instantiate(cfg['hamil'], root=cfg)
+    nu, nd = hamil.n_up, hamil.n_down
+    n, K = nu + nd, 3 * (nu + nd)
+    n_nl = len(hamil.ecp.nuc_with_nl_pot)
+    print(f'ecp path: {" ".join(ECP_OVERRIDES)}: valence {hamil.ns_valence.tolist()}, '
+          f'{nu} up and {nd} down, K = {K}, {n_nl} nuclei with a nonlocal part; nonlocal '
+          f'chunk {NL_CHUNK} configurations ({NL_CHUNK // (12 * n)} walkers)', flush=True)
+    if (nu, nd) != (9, 8) or hamil.ns_valence.tolist() != [11.0, 6.0] or n_nl != 2:
+        raise SystemExit('ecp path: ScO with ccECPs is not 11 + 6 valence electrons split 9/8')
+
+    # kernels 1 and 2 at this shape, against their plain versions
+    gen = torch.Generator('cuda').manual_seed(1)
+    for B in (ECP_CHECK_WALKERS, ECP_RUN_WALKERS):
+        for name, kernel, plain, args, bound in (
+            ('fl_attention', mha_core_fl, mha_core_fl_plain, attention_inputs(gen, B, K=K, n=n),
+             attention_bound_ms(B, K=K, n=n)),
+            ('fl_slogdet_traces', slogdet_traces, slogdet_traces_plain,
+             slogdet_inputs(gen, B, K=K, D=16, nu=nu, nd=nd),
+             slogdet_bound_ms(B, K, 16, n)),
+        ):
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            errs = [max_errors(o, r) for o, r in zip(got, plain(*args))]
+            body = f' ({body_of(kernel)})' if name == 'fl_slogdet_traces' else ''
+            ms = cuda_median_ms(lambda: kernel(*args), runs=5, warmup=1)
+            plain_ms = cuda_median_ms(lambda: plain(*args), runs=5, warmup=1)
+            print(f'{smi} | ecp path {name}{body} B={B} n={n} K={K}: max abs err '
+                  f'{max(e for e, _ in errs):.3e}, rel {max(r for _, r in errs):.3e} (tol '
+                  f'{KERNEL_RTOL:.0e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+                  f'{bound[0]:.4f} ms', flush=True)
+            if not all(r <= KERNEL_RTOL and math.isfinite(e) for e, r in errs):
+                raise SystemExit(f'ecp path: {name} disagrees with its plain version at n = {n}')
+            del args, got
+    torch.cuda.empty_cache()
+
+    # the gate: E_loc (V_nl on the same rotations) of 64 walkers, the card in
+    # float32 with kernels against the plain path in float64 on the CPU
+    wf = config.instantiate(cfg['ansatz'], root=cfg)(hamil)  # seed 0, float32, CPU
+    weights = {k: v.clone() for k, v in wf.state_dict().items()}
+    r64 = hamil.init_sample(torch.Generator().manual_seed(0), ECP_CHECK_WALKERS).r
+    phi64 = random_azimuths(torch.Generator().manual_seed(2), (n_nl, ECP_CHECK_WALKERS, n),
+                            torch.float64)
+    results = {}
+    for label, dtype, device in (('card', torch.float32, 'cuda'),
+                                 ('plain_f64', torch.float64, 'cpu'),
+                                 ('plain_f32', torch.float32, 'cpu')):
+        w = config.instantiate(cfg['ansatz'], root=cfg)(hamil).to(device=device, dtype=dtype)
+        w.load_state_dict({k: v.to(dtype) for k, v in weights.items()})
+        pc = dq.PhysicalConfiguration(
+            torch.as_tensor(hamil.mol.coords, dtype=dtype, device=device),
+            r64.to(device=device, dtype=dtype),
+            torch.zeros(ECP_CHECK_WALKERS, dtype=torch.long, device=device))
+        zero_counts()
+        with torch.inference_mode():
+            e, stats = hamil.local_energy(w, pc, phi=phi64.to(device=device, dtype=dtype))
+        if label == 'card':
+            torch.cuda.synchronize()
+            if counts() != per_op_step:
+                raise SystemExit(f'ecp path: one local energy launched {counts()}, want '
+                                 f'{per_op_step}')
+            wf_card, pc_card = w, pc
+        results[label] = (e.double().cpu(), stats['hamil/V_nl'].double().cpu())
+    ref, v_ref = results['plain_f64']
+    scale = ref.abs().clamp(min=1.0)
+    rel = {k: ((results[k][0] - ref).abs() / scale).max().item() for k in ('card', 'plain_f32')}
+    tol = ELOC_FACTOR * rel['plain_f32'] + ELOC_FLOOR
+    v_err = (results['card'][1] - v_ref).abs().max().item()
+    print(f'{smi} | ecp path E_loc of {ECP_CHECK_WALKERS} walkers (V_nl on the same rotations) '
+          f'against the plain path in f64 (CPU): card (f32, kernels) rel err {rel["card"]:.3e}; '
+          f'plain path (f32, CPU) rel err {rel["plain_f32"]:.3e}; tol {tol:.3e} '
+          f'{"ok" if rel["card"] <= tol else "FAIL"}; E_loc mean {ref.mean().item():.6f}; '
+          f'V_nl mean {v_ref.mean().item():.6f} (card {results["card"][1].mean().item():.6f}), '
+          f'max abs err of V_nl on the card {v_err:.3e}', flush=True)
+    if not (rel['card'] <= tol and torch.isfinite(results['card'][0]).all()):
+        raise SystemExit('ecp path: the local energy on the card disagrees with the plain path')
+
+    # the local energy's parts at 512 walkers, and V_nl alone at 2048
+    for B in (ECP_RUN_WALKERS, 2048):
+        pc = dq.PhysicalConfiguration(
+            pc_card.R, hamil.init_sample(torch.Generator('cuda').manual_seed(3), B,
+                                         dtype=torch.float32).r,
+            torch.zeros(B, dtype=torch.long, device='cuda'))
+        phi = random_azimuths(torch.Generator('cuda').manual_seed(4), (n_nl, B, n),
+                              torch.float32)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            nl_ms = cuda_median_ms(lambda: hamil.ecp.nonloc_potential(pc, wf_card, phi=phi),
+                                   runs=3, warmup=1)
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            if B == 2048:
+                print(f'{smi} | ecp path V_nl of 2048 walkers: {nl_ms:.1f} ms, peak device '
+                      f'memory {peak_gib:.3f} GiB (chunks of {NL_CHUNK} configurations)',
+                      flush=True)
+                continue
+            kin_ms = cuda_median_ms(lambda: hamil.laplacian(lambda r: wf_card(
+                pc.replace(r=r)).log)(pc.r), runs=3, warmup=1)
+            all_ms = cuda_median_ms(lambda: hamil.local_energy(wf_card, pc, phi=phi), runs=3,
+                                    warmup=1)
+        print(f'{smi} | ecp path local energy of {B} walkers: {all_ms:.1f} ms, of which the '
+              f'kinetic FL pass {kin_ms:.1f} ms and V_nl {nl_ms:.1f} ms ({nl_ms / all_ms:.2f} of '
+              f'it); peak device memory {peak_gib:.3f} GiB', flush=True)
+    del wf_card, pc_card, pc
+    torch.cuda.empty_cache()
+
+    # the cut run, through the command line in this process
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'runs', 'ecp_path')
+    shutil.rmtree(workdir, ignore_errors=True)
+    argv = [*ECP_OVERRIDES, 'task=train_psiformer',
+            f'task.electron_batch_size={ECP_RUN_WALKERS}', f'task.steps={ECP_FIT_STEPS}',
+            'task.pretrain_steps=null', f'+task.max_eq_steps={ECP_EQ_STEPS}', *CLI_SINKS_OFF,
+            f'--workdir={workdir}']
+    print(f'ecp path: cli {" ".join(argv)}', flush=True)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    app.cli(argv)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches = counts()
+    steps, _, peak_gib = _log_steps(workdir, 'training')
+    step_s = _check_steps('ecp path fit', steps, ECP_FIT_STEPS, per_op_step)
+    print(f'{smi} | ecp path cut run ({ECP_RUN_WALKERS} walkers, {ECP_EQ_STEPS} equilibration '
+          f'calls, {ECP_FIT_STEPS} fit steps): {run_s:.1f} s, median fit step '
+          f'{1e3 * _median(step_s):.1f} ms (steps {", ".join(f"{1e3 * t:.1f}" for t in step_s)}'
+          f' ms), peak device memory {peak_gib:.3f} GiB; launches {launches}', flush=True)
+    shutil.rmtree(workdir)
+    return launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1906,6 +2184,18 @@ def main() -> int:
         print(f'launches during the excited path: {excited_launches}', flush=True)
         for name, n in excited_launches.items():
             by_name[name]['excited_launches'] = n
+
+    with Phase('cli_path'):
+        cli_launches = cli_path(smi, per_op_step)
+        print(f'launches during the cli path (read from its logs): {cli_launches}', flush=True)
+        for name, n in cli_launches.items():
+            by_name[name]['cli_launches'] = n
+
+    with Phase('ecp_path'):
+        ecp_launches = ecp_path(dq, smi, counts, zero_counts, per_op_step)
+        print(f'launches during the ecp path\'s cut run: {ecp_launches}', flush=True)
+        for name, n in ecp_launches.items():
+            by_name[name]['ecp_launches'] = n
 
     print(json.dumps({'kernels': kernels}), flush=True)
     print(f'{smi} | whole run {time.monotonic() - _T0:.1f} s', flush=True)

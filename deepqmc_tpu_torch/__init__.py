@@ -13,9 +13,12 @@ pretraining, equilibration, the fit loop, checkpoints with NaN rewinds,
 evaluation from a checkpoint), and excited states: several electronic
 states, one module each (:class:`.wf.StateStack`), kept apart by the overlap
 penalty, with the spin penalty, KFAC over the states, CASCI pretraining
-targets and the spin, ratio and oscillator-strength monitors.  It imports
-torch, numpy and the standard library only (h5py and tensorboardX inside
-the two optional sinks).
+targets and the spin, ratio and oscillator-strength monitors.  Effective
+core potentials (:mod:`.ecp`) enter through ``MolecularHamiltonian(ecp_type=)``,
+and the command line ``python -m deepqmc_tpu_torch`` (:mod:`.app`) composes
+the JAX package's configuration tree (:mod:`.conf`, :mod:`.config`).  It
+imports torch, numpy and the standard library only (h5py and tensorboardX
+inside the two optional sinks).
 """
 
 from . import train  # noqa: F401  (the module: train.train is the run, fit.train the step loop)

@@ -1,11 +1,13 @@
 """Molecular Hamiltonian: walker initialisation and the local energy
-(counterpart of ``deepqmc_tpu/hamil.py``, all-electron, no ECP)."""
+(counterpart of ``deepqmc_tpu/hamil.py``), all-electron or with effective
+core potentials (:mod:`.ecp`)."""
 
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .ecp import GaussianTypeECP
 from .fwdlap import forward_laplacian
 from .molecule import Molecule
 from .physics import electronic_potential, nuclear_energy, nuclear_potential
@@ -14,28 +16,53 @@ from .types import PhysicalConfiguration
 __all__ = ['MolecularHamiltonian']
 
 
+def get_shell(z) -> int:
+    """The number of (at least partly) occupied shells for ``z`` electrons."""
+    n = 0
+    while n * (n + 1) * (2 * n + 1) // 3 < z:
+        n += 1
+    return n
+
+
 class MolecularHamiltonian:
-    """Hamiltonian of a non-relativistic molecule with all electrons.
+    """Hamiltonian of a non-relativistic molecule.
 
     Args:
         mol: the molecule.
+        ecp_type: if set ('bfd' or 'ccECP'), effective core potentials.
+        ecp_mask: per-nucleus booleans selecting the ECP nuclei; by default
+            those with Z > 2 when ``ecp_type`` is given.
         elec_std: scale of the initial electron clouds around the nuclei.
         laplacian_factory: ``f -> (r -> (lap f(r), grad f(r)))``; the forward
             Laplacian by default, ``physics.loop_laplacian`` as the oracle.
     """
 
-    def __init__(self, *, mol: Molecule, elec_std: float = 1.0, laplacian_factory=None):
-        self.mol, self.elec_std = mol, elec_std
+    def __init__(self, *, mol: Molecule, ecp_type: Optional[str] = None, ecp_mask=None,
+                 elec_std: float = 1.0, laplacian_factory=None):
+        self.mol, self.elec_std, self.ecp_type = mol, elec_std, ecp_type
         self.laplacian = laplacian_factory or forward_laplacian
         charges = np.asarray(mol.charges)
         self.n_nuc = len(charges)
-        self.ns_valence = charges
-        n_elec = int(charges.sum()) - mol.charge
+        if ecp_type is None:
+            mask = np.zeros(self.n_nuc, bool)
+        elif ecp_mask is None:
+            mask = charges > 2  # He cores and lighter stay all-electron
+        else:
+            if len(ecp_mask) != self.n_nuc:
+                raise ValueError('Incompatible shape of ecp_mask')
+            mask = np.asarray(ecp_mask, bool)
+        self.ecp_mask = mask
+        self.ecp = GaussianTypeECP(charges, ecp_type, mask) if mask.any() else None
+        self.ns_valence = charges if self.ecp is None else self.ecp.ns_valence
+        self._nl_gens = {}  # device -> generator of the quadrature's rotations
+        n_elec = int(self.ns_valence.sum()) - mol.charge
         if (n_elec + mol.spin) % 2:
             raise ValueError('n_elec and spin have different parity')
         if n_elec < 2:
             raise ValueError('The system must contain at least two active electrons.')
         self.n_up, self.n_down = ((n_elec + s * mol.spin) // 2 for s in (+1, -1))
+        self.mol_shells = [get_shell(z) for z in charges]
+        self.mol_ecp_shells = [get_shell(core + 1) - 1 for core in charges - self.ns_valence]
 
     # --- walker initialisation ------------------------------------------------
 
@@ -124,25 +151,39 @@ class MolecularHamiltonian:
 
     # --- local energy ---------------------------------------------------------
 
-    def local_energy(self, wf, phys_conf: PhysicalConfiguration):
+    def local_energy(self, wf, phys_conf: PhysicalConfiguration, phi=None):
         """Per-walker local energy ``[B]`` and its terms.
 
-        E_loc = -1/2 (lap log|psi| + |grad log|psi||^2) + V_nuc + V_el + E_nn.
+        E_loc = -1/2 (lap log|psi| + |grad log|psi||^2) + V_loc + V_nl + V_el
+        + E_nn, with the valence charges in V_loc and E_nn under an ECP.
+        With an ECP the stats carry ``hamil/V_nl``, whose quadrature rotations
+        are ``phi`` (see :meth:`.ecp.GaussianTypeECP.nonloc_potential`) or
+        drawn from the Hamiltonian's own generator on the walkers' device,
+        seeded with 0 (the JAX package draws them from the step's key).
         """
         R = phys_conf.R
-        charges = torch.as_tensor(self.mol.charges, dtype=R.dtype, device=R.device)
+        ns_valence = torch.as_tensor(self.ns_valence, dtype=R.dtype, device=R.device)
 
         def log_psi(r):
             return wf(phys_conf.replace(r=r)).log
 
         lap, grad = self.laplacian(log_psi)(phys_conf.r)
         force_sq = (grad * grad).sum(-1)
-        terms = {
-            'E_kin': -0.5 * (lap + force_sq),
-            'V_loc': nuclear_potential(phys_conf.r, R, charges),
-            'V_el': electronic_potential(phys_conf.r),
-        }
-        E_loc = terms['E_kin'] + terms['V_loc'] + terms['V_el'] + nuclear_energy(R, charges)
+        terms = {'E_kin': -0.5 * (lap + force_sq)}
+        if self.ecp is None:
+            terms['V_loc'] = nuclear_potential(phys_conf.r, R, ns_valence)
+        else:
+            terms['V_loc'] = self.ecp.local_potential(phys_conf.r, R)
+            gen = self._nl_gen(R.device) if self.ecp.has_nonlocal and phi is None else None
+            terms['V_nl'] = self.ecp.nonloc_potential(phys_conf, wf, gen=gen, phi=phi)
+        terms['V_el'] = electronic_potential(phys_conf.r)
+        E_loc = sum(terms.values()) + nuclear_energy(R, ns_valence)
         stats = {f'hamil/{k}': v for k, v in terms.items()}
         stats |= {'hamil/lap': lap, 'hamil/quantum_force': force_sq}
         return E_loc, stats
+
+    def _nl_gen(self, device) -> torch.Generator:
+        device = torch.device(device)
+        if device not in self._nl_gens:
+            self._nl_gens[device] = torch.Generator(device).manual_seed(0)
+        return self._nl_gens[device]

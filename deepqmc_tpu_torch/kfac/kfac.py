@@ -79,7 +79,13 @@ class KFAC:
     def __init__(
         self, loss, *, learning_rate_schedule, damping_schedule=None,
         norm_constraint: float = 1e-3, inverse_update_period: int = 5,
+        estimation_mode: str = 'fisher_exact', num_burnin_steps: int = 0,
     ):
+        if estimation_mode != 'fisher_exact' or num_burnin_steps:
+            raise NotImplementedError(
+                f'KFAC with estimation_mode={estimation_mode!r} and num_burnin_steps='
+                f"{num_burnin_steps}: the port has 'fisher_exact' without burn-in steps, as "
+                'the JAX package\'s configs set it')
         self.loss = loss
         self.lr_schedule = learning_rate_schedule
         self.damping_schedule = damping_schedule or ConstantSchedule(1e-3)

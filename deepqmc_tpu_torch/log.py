@@ -152,6 +152,26 @@ def _resize_if_dataset(dataset_type, size: int, name: str, obj):
         obj.resize(size, axis=0)
 
 
+def _optional(package: str, sink: str, key: str):
+    """Import ``package`` for ``sink``, or raise naming it and the override
+    that turns the sink off."""
+    import importlib
+
+    try:
+        return importlib.import_module(package)
+    except ImportError as e:
+        raise ImportError(
+            f'{sink} needs the package {package}, which is not installed here; install it, '
+            f'or turn the sink off: task.{key}=null on the command line, or '
+            f'{key}=no_sink for train.train'
+        ) from e
+
+
+def no_sink(*args, **kwargs):
+    """A sink constructor that gives no sink: the run writes no such output."""
+    return None
+
+
 class H5LogTable:
     """Appendable row-oriented view over an HDF5 group."""
 
@@ -187,7 +207,7 @@ class H5Logger:
     def __init__(self, workdir: str, additional_keys_to_whitelist: Optional[list[str]] = None, *,
                  keys_whitelist: Optional[list[str]] = None, init_step: int = 0,
                  aux_data: Optional[dict] = None):
-        import h5py
+        h5py = _optional('h5py', 'H5Logger', 'h5_logger_constructor')
 
         self.keys_whitelist = (
             keys_whitelist if keys_whitelist is not None else ['local_energy']
@@ -241,9 +261,9 @@ class TensorboardMetricLogger:
     """Tensorboard sink with per-molecule/state/state-pair scalar fan-out."""
 
     def __init__(self, workdir: str, n_mol: int, *, max_queue: int = 10):
-        from tensorboardX import SummaryWriter
-
-        self.writer = SummaryWriter(workdir, max_queue=max_queue)
+        tensorboardx = _optional('tensorboardX', 'TensorboardMetricLogger',
+                                 'metric_logger_constructor')
+        self.writer = tensorboardx.SummaryWriter(workdir, max_queue=max_queue)
         self.n_mol = n_mol
         self.layout: dict = {}
 

@@ -1,18 +1,22 @@
 """Molecules of the port (counterpart of ``deepqmc_tpu/molecule.py``).
 
 The named geometries are the JAX package's ``conf/hamil/mol/*.yaml`` (all 28),
-kept here as Python data: the port reads no YAML.  Reading a user's YAML file
-(``from_file``) and a directory of them (``read_molecule_dataset``) come with
-the command line.
+kept here as Python data.  A user's molecule file (``Molecule.from_file``)
+and a directory of them (``read_molecule_dataset``) are read by
+:func:`read_molecule_file`, which takes the subset of YAML such files use:
+flat keys with scalars and flow or block lists of numbers.
 """
 
+import re
 from dataclasses import dataclass
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
 from .units import angstrom_to_bohr, null
 
-__all__ = ['Molecule']
+__all__ = ['Molecule', 'read_molecule_dataset', 'read_molecule_file']
 
 # name -> the keyword arguments of ``Molecule``, as the YAML file gives them
 _MOLECULES = {
@@ -249,7 +253,7 @@ _MOLECULES = {
             [0.0, 1.2163, 1.402],
             [0.0, -1.2163, 1.402],
         ],
-        charges=[6, 6, 6, 6, 1, 1, 1, 1, 1, 1], charge=0, spin=0, unit='bohr',
+        charges=[6, 6, 6, 6, 1, 1, 1, 1, 1, 1], charge=0, spin=0,
     ),
     'cyclobutadiene_square': dict(
         coords=[
@@ -293,3 +297,79 @@ class Molecule:
         if name not in _MOLECULES:
             raise ValueError(f'Unknown molecule name: {name} (the port knows {sorted(_MOLECULES)})')
         return cls(**_MOLECULES[name])
+
+    @classmethod
+    def from_file(cls, file: str) -> 'Molecule':
+        """A molecule from a YAML file of its keyword arguments."""
+        return cls(**read_molecule_file(file))
+
+
+_KEY = re.compile(r'^([A-Za-z_][A-Za-z0-9_]*):(?:[ \t]+(.*))?$')
+
+
+def _strip_comment(line: str) -> str:
+    return re.sub(r'(^|[ \t])#.*$', '', line).rstrip()
+
+
+def _balanced(text: str) -> bool:
+    return text.count('[') == text.count(']')
+
+
+def read_molecule_file(path) -> dict:
+    """The mapping of a molecule file, as ``yaml.safe_load`` reads it, for
+    the subset of YAML those files use: top-level ``key: value`` lines whose
+    value is a scalar or a flow list (which may run over several lines), or
+    ``key:`` followed by an indented block list of such values.  Anything
+    else raises ``ValueError``."""
+    from .config import parse_value
+
+    lines = [_strip_comment(ln) for ln in Path(path).read_text().splitlines()]
+    lines = [ln for ln in lines if ln.strip() and ln.strip() != '---']
+    out, i = {}, 0
+
+    def flow(text, i):
+        while not _balanced(text):
+            if i >= len(lines):
+                raise ValueError(f'{path}: unclosed flow list')
+            text, i = f'{text} {lines[i].strip()}', i + 1
+        return parse_value(text), i
+
+    while i < len(lines):
+        m = _KEY.match(lines[i])
+        if m is None:
+            raise ValueError(f'{path}: line {lines[i]!r} is outside the molecule-file subset '
+                             'of YAML (flat keys with scalars and lists of numbers)')
+        key, rest, i = m.group(1), (m.group(2) or '').strip(), i + 1
+        if key in out:
+            raise ValueError(f'{path}: key {key!r} given twice')
+        if rest:
+            out[key], i = flow(rest, i)
+            continue
+        items = []
+        while i < len(lines) and lines[i][:1] in ' \t-':
+            item = lines[i].strip()
+            if not item.startswith('- '):
+                raise ValueError(f'{path}: line {lines[i]!r} is not a block-list entry')
+            value, i = flow(item[2:].strip(), i + 1)
+            items.append(value)
+        out[key] = items if items else None
+    for key, value in out.items():
+        if isinstance(value, list) and not _numbers(value):
+            raise ValueError(f'{path}: {key} is not a list of numbers')
+    return out
+
+
+def _numbers(value) -> bool:
+    if isinstance(value, list):
+        return all(_numbers(v) for v in value)
+    return isinstance(value, (int, float)) and not isinstance(value, bool)
+
+
+def read_molecule_dataset(dataset, whitelist: Optional[str] = None) -> dict:
+    """name -> :class:`Molecule` of the (whitelisted, by ``re.search`` on the
+    name) ``*.yaml`` files of a directory, in the order of their names."""
+    molecules = {}
+    for f in sorted(Path(dataset).glob('*.yaml')):
+        if whitelist is None or re.search(whitelist, f.stem):
+            molecules[f.stem] = Molecule.from_file(f)
+    return molecules

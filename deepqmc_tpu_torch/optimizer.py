@@ -1,5 +1,7 @@
 """Optimizers (counterpart of ``deepqmc_tpu/optimizer.py``): evaluation only,
-Adam (the JAX package's ``OptaxOptimizer`` with ``optax.adam``) and KFAC.
+a gradient transformation as the JAX package's ``OptaxOptimizer`` (with
+:func:`adam`, :func:`adamw` or :func:`lamb`; ``AdamOptimizer`` for Adam) and
+KFAC.
 
 Each takes the VMC loss (:class:`~.loss.VMCLoss`), whose wave function (one
 module or a :class:`~.wf.StateStack`) holds the parameters, and the
@@ -8,9 +10,9 @@ step (:func:`~.wf.merge_states`); ``init(phys_conf)`` gives the optimizer
 state and ``step(opt_state, phys_conf, weight, data=None)`` updates the
 parameters in place and returns ``(opt_state, E_loc, psi_ratio, stats)``.
 
-The gradient transformations :func:`adam` and :func:`lamb` compute what
-``optax.adam`` and ``optax.lamb`` compute, on dicts of tensors keyed as
-``named_parameters()``: ``init(params)`` gives the state and
+The gradient transformations :func:`adam`, :func:`adamw` and :func:`lamb`
+compute what ``optax.adam``, ``optax.adamw`` and ``optax.lamb`` compute, on
+dicts of tensors keyed as ``named_parameters()``: ``init(params)`` gives the state and
 ``update(grads, state, params)`` the updates (to add) and the new state.
 Pretraining takes them by name (``PRETRAIN_OPTIMIZERS``).
 """
@@ -25,7 +27,7 @@ from .wf.base import merge_states
 
 __all__ = [
     'AdamOptimizer', 'GradientTransformation', 'KFACOptimizer', 'NoOptimizer',
-    'PRETRAIN_OPTIMIZERS', 'adam', 'lamb', 'merge_states',
+    'OptaxOptimizer', 'PRETRAIN_OPTIMIZERS', 'adam', 'adamw', 'lamb', 'merge_states',
 ]
 
 
@@ -65,6 +67,20 @@ def adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0) -> GradientTra
         lr = _learning_rate(learning_rate, state['count'])
         updates, state = scale(grads, state)
         return {k: u * -lr for k, u in updates.items()}, state
+
+    return GradientTransformation(init, update)
+
+
+def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
+          weight_decay=1e-4) -> GradientTransformation:
+    """``optax.adamw``: Adam's moments plus ``weight_decay * param``, then
+    ``-learning_rate``."""
+    init, scale = _scale_by_adam(b1, b2, eps, eps_root)
+
+    def update(grads, state, params):
+        lr = _learning_rate(learning_rate, state['count'])
+        updates, state = scale(grads, state)
+        return {k: (u + weight_decay * params[k]) * -lr for k, u in updates.items()}, state
 
     return GradientTransformation(init, update)
 
@@ -113,14 +129,14 @@ class NoOptimizer:
         return opt_state, E_loc, psi_ratio, stats
 
 
-class AdamOptimizer:
-    """``optax.adam(lr)``: bias-corrected first and second moments with optax's
-    defaults, ``eps`` added outside the square root.  Adam acts entry by
-    entry, so the parameters of several states are one dict, keyed as the
+class OptaxOptimizer:
+    """First-order steps with a gradient transformation ``optax_opt`` (such
+    as :func:`adam` or :func:`adamw`).  It acts entry by entry, so the
+    parameters of several states are one dict, keyed as the
     ``named_parameters()`` of their :class:`~.wf.StateStack`."""
 
-    def __init__(self, loss, merge_keys=None, *, lr: float = 1e-3):
-        self.loss, self.adam, self.merge_keys = loss, adam(lr), merge_keys
+    def __init__(self, loss, merge_keys=None, *, optax_opt: GradientTransformation):
+        self.loss, self.optax_opt, self.merge_keys = loss, optax_opt, merge_keys
 
     def _params(self):
         states = self.loss.states
@@ -128,14 +144,15 @@ class AdamOptimizer:
                     else states[0].named_parameters())
 
     def init(self, phys_conf):
-        return self.adam.init(self._params())
+        return self.optax_opt.init(self._params())
 
     def step(self, opt_state, phys_conf, weight, data=None):
         (_, (E_loc, psi_ratio, stats)), grads = self.loss.value_and_grad(phys_conf, weight, data)
         if self.loss.multi:
             grads = {f'{s}.{k}': g for s, gs in enumerate(grads) for k, g in gs.items()}
-        updates, opt_state = self.adam.update(grads, opt_state)
         params = self._params()
+        with torch.no_grad():
+            updates, opt_state = self.optax_opt.update(grads, opt_state, params)
         stats = {
             'opt/param_norm': tree_norm(p.detach() for p in params.values()),
             'opt/grad_norm': tree_norm(grads.values()),
@@ -149,11 +166,23 @@ class AdamOptimizer:
         return opt_state, E_loc, psi_ratio, stats
 
 
-class KFACOptimizer:
-    """Natural gradient with :class:`~.kfac.KFAC` (keyword arguments as KFAC's)."""
+class AdamOptimizer(OptaxOptimizer):
+    """``optax.adam(lr)``: bias-corrected first and second moments with optax's
+    defaults, ``eps`` added outside the square root."""
 
-    def __init__(self, loss, merge_keys=None, **kfac_kwargs):
-        self.kfac = KFAC(loss, **kfac_kwargs)
+    def __init__(self, loss, merge_keys=None, *, lr: float = 1e-3):
+        super().__init__(loss, merge_keys, optax_opt=adam(lr))
+
+
+class KFACOptimizer:
+    """Natural gradient with :class:`~.kfac.KFAC`: its keyword arguments, or
+    as the JAX package's configs give it, ``kfac=partial(KFAC, ...)`` (a
+    factory taking the loss)."""
+
+    def __init__(self, loss, merge_keys=None, *, kfac=None, **kfac_kwargs):
+        if kfac is not None and kfac_kwargs:
+            raise TypeError('give KFAC either as kfac= or by its keyword arguments')
+        self.kfac = kfac(loss) if kfac is not None else KFAC(loss, **kfac_kwargs)
         self.merge_keys = merge_keys
 
     def init(self, phys_conf):

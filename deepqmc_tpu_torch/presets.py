@@ -30,7 +30,8 @@ from .wf.cusp import DeepQMCCusp, ElectronicCuspAsymptotic, PsiformerCusp
 from .wf.env import ExponentialEnvelopes
 from .wf.omni import Jastrow, OmniNet
 
-__all__ = ['ansatz_preset', 'default_ansatz', 'ferminet_ansatz', 'psiformer_ansatz']
+__all__ = ['ansatz_from_config', 'ansatz_preset', 'default_ansatz', 'ferminet_ansatz',
+           'psiformer_ansatz']
 
 
 def _dist_diff_features(log_rescale=False):
@@ -235,3 +236,65 @@ def ansatz_preset(name: str, **overrides):
     if name not in _PRESETS:
         raise ValueError(f'unknown ansatz preset {name!r}; the port has {sorted(_PRESETS)}')
     return partial(_PRESETS[name], **overrides)
+
+
+# the keys of a composed ansatz tree (``conf/ansatz/*``) the port builds when a
+# user overrides them, and the preset keyword each sets
+_TREE_KEYS = {
+    'n_determinants': 'n_determinants',
+    'full_determinant': 'full_determinant',
+    'omni_factory.embedding_dim': 'embedding_dim',
+    'omni_factory.gnn_factory.n_interactions': 'n_interactions',
+}
+_PRESET_TREE_KEYS = {
+    'default': {'omni_factory.gnn_factory.two_particle_stream_dim': 'two_particle_stream_dim'},
+    'ferminet': {'omni_factory.gnn_factory.two_particle_stream_dim': 'two_particle_stream_dim'},
+    'psiformer': {
+        'omni_factory.gnn_factory.layer_factory.update_features.0.num_heads': 'num_heads',
+    },
+}
+_ABSENT = object()
+
+
+def _leaves(node, prefix=''):
+    """``(dotted path, value)`` of every leaf of a config tree (list entries by index)."""
+    items = (node.items() if isinstance(node, dict)
+             else enumerate(node) if isinstance(node, list) else None)
+    if not items:
+        yield prefix, node
+        return
+    for k, v in items:
+        yield from _leaves(v, f'{prefix}.{k}' if prefix else str(k))
+
+
+def ansatz_from_config(node: dict, **kwargs):
+    """The ansatz factory ``(hamil, gen=...) -> module`` of a composed ansatz
+    tree of ``conf/ansatz`` (the reader of ``config.TREE_READERS``).
+
+    The tree is matched to the packaged preset it differs least from; each
+    key where it differs must be one of :data:`_TREE_KEYS` (or the preset's
+    own), and becomes that keyword of the preset.  Any other difference
+    raises, naming the key: the port builds the three presets' networks
+    only.  ``kwargs`` go to the preset (``block_kernel``, ``seed``)."""
+    from .conf.ansatz import OPTIONS
+
+    leaves = dict(_leaves(node))
+
+    def differing(name):
+        ref = dict(_leaves(OPTIONS[name]))
+        return {p for p in ref.keys() | leaves.keys()
+                if ref.get(p, _ABSENT) != leaves.get(p, _ABSENT)}
+
+    name = min(OPTIONS, key=lambda n: len(differing(n)))
+    if name not in _PRESETS:
+        return ansatz_preset(name)  # raises: not ported
+    allowed = {**_TREE_KEYS, **_PRESET_TREE_KEYS[name]}
+    overrides = {}
+    for path in sorted(differing(name), key=lambda p: (p.count('.'), p)):
+        if path not in allowed or path not in leaves:
+            raise NotImplementedError(
+                f'ansatz.{path}: the port builds the {name} ansatz with overrides of '
+                f'{", ".join(f"ansatz.{k}" for k in allowed)} only; the other options of '
+                'the tree are not ported yet (ROADMAP.md, queue 1 item 8)')
+        overrides[allowed[path]] = leaves[path]
+    return ansatz_preset(name, **overrides, **kwargs)

@@ -14,6 +14,7 @@ wave-function module, one per electronic state (a :class:`~.wf.StateStack`
 for several; ``TrainState.params`` is its ``state_dict``).
 """
 
+import json
 import logging
 import math
 import os
@@ -38,6 +39,7 @@ from .log import (
 from .loss import create_loss_fn, median_log_squeeze_and_mask
 from .molecule import Molecule
 from .observable import ObservableMonitor, default_observable_monitors
+from .ops import launch_counts
 from .optimizer import PRETRAIN_OPTIMIZERS, NoOptimizer
 from .sampling import initialize_sampler_state
 from .utils import resolve_device, set_true_fp32
@@ -237,6 +239,11 @@ class TrainSession:
         ):
             self.step = step
             progress.update(step, steps_range.stop, mol_idxs, stats)
+            if log.isEnabledFor(logging.DEBUG):
+                log.debug(f'{self.mode} step {step}: ' + json.dumps({
+                    'step_time': float(stats['perf/step_time']),
+                    'E_mean': float(np.mean(np.asarray(stats['local_energy/mean']))),
+                    'launches': launch_counts()}))
             if np.isnan(samples['psi/samples']['log']).any():
                 raise NanError()
             if sinks.workdir:
@@ -245,9 +252,9 @@ class TrainSession:
                     sinks.chkpts.update(step + 1, train_state,
                                         float(np.asarray(stats['local_energy/std']).mean()))
                 sinks.log_metrics(step, stats, {}, mol_idxs)
-                assert sinks.h5 is not None
-                sinks.h5.update({**samples, 'mol_idxs': mol_idxs, 'step': step,
-                                 'time': time.time() - sinks.start_time, **stats})
+                if sinks.h5:
+                    sinks.h5.update({**samples, 'mol_idxs': mol_idxs, 'step': step,
+                                     'time': time.time() - sinks.start_time, **stats})
         return train_state
 
 
@@ -326,7 +333,8 @@ def train(
     ``workdir/training`` (or ``evaluation``): checkpoints
     ``chkpt-{step}.pt`` (``chkpt_constructor``, :class:`~.log.CheckpointStore`
     by default), metrics (``metric_logger_constructor``, TensorBoard by
-    default) and ``result.h5`` (``h5_logger_constructor``); a NaN in the
+    default) and ``result.h5`` (``h5_logger_constructor``), each off with
+    :func:`.log.no_sink`; a NaN in the
     sampled psi rewinds to the last checkpoint, at most ``max_restarts`` times,
     then raises :class:`~.exceptions.TrainingCrash`.
 
@@ -397,6 +405,9 @@ def train(
                                                 loss_function_factory, fit_block_size, sinks,
                                                 progress)
                 log.info(f'The {session.mode} has been completed!')
+                if device.type == 'cuda':
+                    log.info('Peak device memory: '
+                             f'{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB')
                 return train_state
             except (NanError, TrainingBlowup) as e:
                 log.warning(f'Restarting due to {type(e).__name__}...')

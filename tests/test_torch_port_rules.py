@@ -21,6 +21,10 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / 'deepqmc_tpu_torch'
 FORBIDDEN = {'jax', 'jaxlib', 'deepqmc_tpu', 'yaml'}
 PORT_FILES = sorted(PKG.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+# the command line and the ECPs: no scipy or tqdm either, even inside a function
+CLI_AND_ECP = sorted([*(PKG / 'conf').rglob('*.py'), *(PKG / 'ecp').rglob('*.py'),
+                      *(PKG / name for name in ('config.py', 'app.py', '__main__.py',
+                                                'validate_kwargs.py'))])
 
 
 def _imported_roots(path: Path) -> set:
@@ -36,6 +40,12 @@ def _imported_roots(path: Path) -> set:
 @pytest.mark.parametrize('path', PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_yaml_imports(path):
     assert not _imported_roots(path) & FORBIDDEN
+
+
+@pytest.mark.parametrize('path', CLI_AND_ECP, ids=lambda p: str(p.relative_to(ROOT)))
+def test_cli_and_ecp_import_no_scipy_or_tqdm(path):
+    assert path.exists()
+    assert not _imported_roots(path) & (FORBIDDEN | {'scipy', 'tqdm'})
 
 
 def test_imports_with_jax_and_yaml_blocked():
