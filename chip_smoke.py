@@ -163,23 +163,42 @@ Phases, each with a start and an end line and its own time budget:
 12. cli path: the command line, ``python3 -m deepqmc_tpu_torch`` in a
    subprocess: ``task=train_psiformer ansatz=psiformer hamil/mol=H2O`` at 2048
    walkers cut to 5 pretraining steps, 5 equilibration calls and 5 fit steps
-   in the git-ignored ``runs/cli_path/train``, then ``task=evaluate`` of 3
-   steps from its checkpoint in ``runs/cli_path/evaluate`` (removed at the
-   end), both with the metric and HDF5 sinks turned off on the command line
+   in the git-ignored ``runs/cli_path/train`` (kept for the force path, then
+   removed), then ``task=evaluate`` of 3 steps from its checkpoint in
+   ``runs/cli_path/evaluate`` (removed at the end), both with the metric and HDF5 sinks turned off on the command line
    (the card's machine has no tensorboardX or h5py; a line says so).  Both
    must exit 0 and write their log, their composed config and (training) the
    checkpoints of steps 0 and 5; each fit and evaluation step, read from the
    run's log, must launch the attention kernel 4 times and the flat slogdet
    kernel once, with a finite energy.  It prints each subprocess's wall time,
    the time to its first step, the median step and the peak device memory.
-13. ecp path: ScO with ccECPs on both nuclei and the full-width PsiFormer,
+13. force path: the kernels' wrappers given an operand that carries a
+   forward-mode tangent on the card must raise and launch nothing.  Then
+   ``evaluate_forces.yaml``'s four force monitors and the bare one
+   (``observable.ForceMonitor``) over 3 evaluation steps from the cli path's
+   training checkpoint (H2O at full width, its 2048 walkers, ``train.train``
+   with ``opt=None`` and recording sinks): each step launches the attention
+   kernel 4 times and the flat slogdet kernel once (the local energy; the
+   estimators' tangent pass runs the plain cores), every estimator's samples
+   finite.  Each estimator on those walkers timed alone, launching nothing,
+   with its peak device memory.  The gate: E_loc and the five estimators of 16
+   of the walkers, the card in float32 (E_loc by the kernels) against the
+   plain path in float64 on the CPU by the local energy's rule; the tangent
+   pass (J, t, grad_r t, lap_r t) in float64 on the card against the CPU
+   within 1e-8 relative.  Then ``python3 -m deepqmc_tpu_torch
+   task=evaluate_forces task.restdir=... task.h5_logger=null`` in a
+   subprocess: exit 0, 2 evaluation steps read from its log, each with the
+   launches of one local energy;
+14. ecp path: ScO with ccECPs on both nuclei and the full-width PsiFormer,
    composed from the conf tree (``hamil/mol=ScO +hamil.ecp_type=ccECP
    ansatz=psiformer``): 11 + 6 valence electrons split 9/8, K = 51.  Kernels
    1 and 2 against their plain versions at this shape (B = 64 and 512, with
    the slogdet body taken); E_loc of 64 walkers with V_nl on the same
    quadrature rotations, the card in float32 with kernels against the plain
    path in float64 on the CPU by the local energy's rule (one local energy:
-   4 attention and 1 flat slogdet launch); the local energy of 512 walkers
+   4 attention and 1 flat slogdet launch), and V_nl alone by the same rule
+   (relative to max(1, |V_nl|)), on ``init_sample`` walkers and again on 64
+   walkers after 10 equilibration calls on the card; the local energy of 512 walkers
    split by CUDA events into the kinetic FL pass and V_nl, and V_nl of 2048
    walkers with its peak memory; then a cut ``task=train_psiformer`` through
    ``app.cli`` in this process (512 walkers, no pretraining: the ScO SCF does
@@ -187,6 +206,17 @@ Phases, each with a start and an end line and its own time budget:
    ``runs/ecp_path``, removed at the end), each fit step finite with 4
    attention and 1 flat slogdet launch.  It prints the times, the fit step
    and the peak device memory.
+15. benzene path: benzene (42 electrons, 21 up and 21 down, K = 126) with the
+   full-width PsiFormer (seed-0 weights): 3 evaluation steps of 512 walkers
+   through ``deepqmc_tpu_torch.evaluate`` with the local energy in chunks of
+   128 walkers (``eloc_walker_chunk``): per step 16 attention launches at
+   n = 42 and 4 flat slogdet launches, whose last took the tiled body; E_loc
+   finite; E_loc of 16 of the walkers against the float64 plain path by the
+   local energy's rule; one KFAC step through ``fit.train`` with both walker
+   chunks at 128 (``DEEPQMC_TPU_ELOC_WALKER_CHUNK`` and
+   ``DEEPQMC_TPU_GRAD_WALKER_CHUNK``): the launches of one chunked local
+   energy, the parameters changed and finite.  It prints the step time, the
+   local energy's time and the peak device memory.
 
 Each path's launch counts are read from a run that starts with every count
 at 0.  It prints a ``{"kernels": [...]}`` line, and as its last line
@@ -208,7 +238,8 @@ WATCHDOG_S = 1100  # the whole run, build included; the run's limit is 1200 s
 PHASE_BUDGET_S = {
     'device': 60, 'build': 240, 'kernels': 300, 'main_path': 300, 'block_path': 180,
     'square_path': 120, 'train_path': 240, 'sampling_path': 240, 'run_path': 300,
-    'zoo_path': 300, 'excited_path': 240, 'cli_path': 240, 'ecp_path': 240,
+    'zoo_path': 300, 'excited_path': 240, 'cli_path': 240, 'force_path': 240, 'ecp_path': 240,
+    'benzene_path': 240,
 }
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
@@ -649,8 +680,8 @@ def _median(xs):
 def _recording_sinks(counts, wf):
     """Stand-ins for a run's metric sink and ``H5Logger`` (h5py is optional):
     ``records`` gets each update's time, launch counts, stats and (fit and
-    evaluation steps) the parameters after it; ``rows`` the keys each results
-    row would write."""
+    evaluation steps) the parameters after it; ``rows`` each results row's
+    entries that it would write, by key."""
     import torch
 
     from deepqmc_tpu_torch.utils import flatten_dict
@@ -675,7 +706,8 @@ def _recording_sinks(counts, wf):
             self.keys = ['local_energy', *keys]
 
         def update(self, data):
-            rows.append({k for k in flatten_dict(data) if any(p in k for p in self.keys)})
+            rows.append({k: v for k, v in flatten_dict(data).items()
+                         if any(p in k for p in self.keys)})
 
         def close(self):
             pass
@@ -767,7 +799,7 @@ def _cut_run(smi, hamil, wf, opt, sampler_factory, loss_function_factory, *, lab
             raise SystemExit(f'{label} fit step {r["step"]} left the parameters unchanged')
         prev_params = r['params']
     if len(rows) != fit_steps or not all(
-            {'local_energy/samples', 'psi/samples/log'} <= row for row in rows):
+            {'local_energy/samples', 'psi/samples/log'} <= row.keys() for row in rows):
         raise SystemExit(f'{label}: the fit did not record its samples')
     names = sorted(f for f in os.listdir(os.path.join(workdir, 'training'))
                    if f.startswith('chkpt-'))
@@ -1229,9 +1261,9 @@ def excited_path(dq, hamil, R, smi, counts, zero_counts, per_op_step):
         ratio = loss_s.overlap_penalty.ratios(list(stack), conf)
         ev[2 + EXC_STATES].record()
         terms = Terms(torch.zeros(()), torch.stack(E)[None], ratio, None, {})
-        g, taps = loss_s.grad_and_taps(conf, weight, terms, taps=True, data=data_t)
+        g, sums = loss_s.grad_and_taps(conf, weight, terms, taps=True, data=data_t)
         ev[3 + EXC_STATES].record()
-        opt_state, _ = opt_s.kfac.update(opt_state, g, taps, EXC_WALKERS)
+        opt_state, _ = opt_s.kfac.update(opt_state, g, sums, EXC_WALKERS)
         ev[4 + EXC_STATES].record()
         with torch.no_grad():
             smpl_state = sampler.update(smpl_state)
@@ -1246,7 +1278,7 @@ def excited_path(dq, hamil, R, smi, counts, zero_counts, per_op_step):
               f'{"refreshed" if refresh else "carried"}): '
               + ', '.join(f'{n} {t:.2f} ms' for n, t in zip(stages, ms))
               + f'; sum {sum(ms):.2f} ms, host {host_ms:.2f} ms', flush=True)
-        del g, taps
+        del g, sums
     carried = [ms for refresh, ms in splits if not refresh]
     medians = [_median(col) for col in zip(*carried)]
     print(f'{smi} | {label} fit step split by CUDA events (median of the {len(carried)} steps '
@@ -1351,7 +1383,7 @@ def _check_steps(label, steps, n_steps, want):
 def cli_path(smi, per_op_step):
     """Phase 12: ``python3 -m deepqmc_tpu_torch`` in a subprocess, training and
     then evaluating from its checkpoint; returns the launches of both runs,
-    read from each run's log."""
+    read from each run's log, and the training run's workdir (kept)."""
     root = os.path.dirname(os.path.abspath(__file__))
     base = os.path.join(root, 'runs', 'cli_path')
     shutil.rmtree(base, ignore_errors=True)
@@ -1397,8 +1429,8 @@ def cli_path(smi, per_op_step):
               f'{peak_gib:.3f} GiB', flush=True)
         for k in total:
             total[k] += steps[-1][2]['launches'][k]
-    shutil.rmtree(base)
-    return total
+    shutil.rmtree(eval_dir)  # the training run stays for the force path
+    return total, train_dir
 
 
 # ecp path: ScO with ccECPs on both nuclei (17 valence electrons, 9 up and 8
@@ -1411,11 +1443,12 @@ ECP_CHECK_WALKERS, ECP_RUN_WALKERS, ECP_EQ_STEPS, ECP_FIT_STEPS = 64, 512, 10, 3
 
 
 def ecp_path(dq, smi, counts, zero_counts, per_op_step):
-    """Phase 13; returns the kernel launches of its cut run."""
+    """Phase 14; returns the kernel launches of its cut run."""
     import torch
 
     from deepqmc_tpu_torch import app, config
     from deepqmc_tpu_torch.ecp.ecp_utils import random_azimuths
+    from deepqmc_tpu_torch.fit import molecule_state
     from deepqmc_tpu_torch.ecp.gaussian_type_ecp import NL_CHUNK
     from deepqmc_tpu_torch.ops.fl_attention import mha_core_fl, mha_core_fl_plain
     from deepqmc_tpu_torch.ops.fl_slogdet import slogdet_traces, slogdet_traces_plain
@@ -1457,46 +1490,73 @@ def ecp_path(dq, smi, counts, zero_counts, per_op_step):
             del args, got
     torch.cuda.empty_cache()
 
-    # the gate: E_loc (V_nl on the same rotations) of 64 walkers, the card in
-    # float32 with kernels against the plain path in float64 on the CPU
+    # the gates: E_loc and V_nl (on the same rotations) of 64 walkers, the card
+    # in float32 with kernels against the plain path in float64 on the CPU,
+    # each by the local energy's rule, on init_sample walkers and on walkers
+    # equilibrated on the card
     wf = config.instantiate(cfg['ansatz'], root=cfg)(hamil)  # seed 0, float32, CPU
     weights = {k: v.clone() for k, v in wf.state_dict().items()}
-    r64 = hamil.init_sample(torch.Generator().manual_seed(0), ECP_CHECK_WALKERS).r
     phi64 = random_azimuths(torch.Generator().manual_seed(2), (n_nl, ECP_CHECK_WALKERS, n),
                             torch.float64)
-    results = {}
-    for label, dtype, device in (('card', torch.float32, 'cuda'),
-                                 ('plain_f64', torch.float64, 'cpu'),
-                                 ('plain_f32', torch.float32, 'cpu')):
-        w = config.instantiate(cfg['ansatz'], root=cfg)(hamil).to(device=device, dtype=dtype)
-        w.load_state_dict({k: v.to(dtype) for k, v in weights.items()})
-        pc = dq.PhysicalConfiguration(
-            torch.as_tensor(hamil.mol.coords, dtype=dtype, device=device),
-            r64.to(device=device, dtype=dtype),
-            torch.zeros(ECP_CHECK_WALKERS, dtype=torch.long, device=device))
-        zero_counts()
-        with torch.inference_mode():
-            e, stats = hamil.local_energy(w, pc, phi=phi64.to(device=device, dtype=dtype))
-        if label == 'card':
-            torch.cuda.synchronize()
-            if counts() != per_op_step:
-                raise SystemExit(f'ecp path: one local energy launched {counts()}, want '
-                                 f'{per_op_step}')
-            wf_card, pc_card = w, pc
-        results[label] = (e.double().cpu(), stats['hamil/V_nl'].double().cpu())
-    ref, v_ref = results['plain_f64']
-    scale = ref.abs().clamp(min=1.0)
-    rel = {k: ((results[k][0] - ref).abs() / scale).max().item() for k in ('card', 'plain_f32')}
-    tol = ELOC_FACTOR * rel['plain_f32'] + ELOC_FLOOR
-    v_err = (results['card'][1] - v_ref).abs().max().item()
-    print(f'{smi} | ecp path E_loc of {ECP_CHECK_WALKERS} walkers (V_nl on the same rotations) '
-          f'against the plain path in f64 (CPU): card (f32, kernels) rel err {rel["card"]:.3e}; '
-          f'plain path (f32, CPU) rel err {rel["plain_f32"]:.3e}; tol {tol:.3e} '
-          f'{"ok" if rel["card"] <= tol else "FAIL"}; E_loc mean {ref.mean().item():.6f}; '
-          f'V_nl mean {v_ref.mean().item():.6f} (card {results["card"][1].mean().item():.6f}), '
-          f'max abs err of V_nl on the card {v_err:.3e}', flush=True)
-    if not (rel['card'] <= tol and torch.isfinite(results['card'][0]).all()):
-        raise SystemExit('ecp path: the local energy on the card disagrees with the plain path')
+
+    def gate(walkers, r64):
+        results = {}
+        for label, dtype, device in (('card', torch.float32, 'cuda'),
+                                     ('plain_f64', torch.float64, 'cpu'),
+                                     ('plain_f32', torch.float32, 'cpu')):
+            w = config.instantiate(cfg['ansatz'], root=cfg)(hamil).to(device=device, dtype=dtype)
+            w.load_state_dict({k: v.to(dtype) for k, v in weights.items()})
+            pc = dq.PhysicalConfiguration(
+                torch.as_tensor(hamil.mol.coords, dtype=dtype, device=device),
+                r64.to(device=device, dtype=dtype),
+                torch.zeros(ECP_CHECK_WALKERS, dtype=torch.long, device=device))
+            zero_counts()
+            with torch.inference_mode():
+                e, stats = hamil.local_energy(w, pc, phi=phi64.to(device=device, dtype=dtype))
+            if label == 'card':
+                torch.cuda.synchronize()
+                if counts() != per_op_step:
+                    raise SystemExit(f'ecp path: one local energy launched {counts()}, want '
+                                     f'{per_op_step}')
+                card = w, pc
+            results[label] = (e.double().cpu(), stats['hamil/V_nl'].double().cpu())
+        ref, v_ref = results['plain_f64']
+        scale = ref.abs().clamp(min=1.0)
+        rel = {k: ((results[k][0] - ref).abs() / scale).max().item()
+               for k in ('card', 'plain_f32')}
+        tol = ELOC_FACTOR * rel['plain_f32'] + ELOC_FLOOR
+        v_err = (results['card'][1] - v_ref).abs().max().item()
+        print(f'{smi} | ecp path E_loc of {ECP_CHECK_WALKERS} {walkers} walkers (V_nl on the '
+              f'same rotations) against the plain path in f64 (CPU): card (f32, kernels) rel err '
+              f'{rel["card"]:.3e}; plain path (f32, CPU) rel err {rel["plain_f32"]:.3e}; tol '
+              f'{tol:.3e} {"ok" if rel["card"] <= tol else "FAIL"}; E_loc mean '
+              f'{ref.mean().item():.6f}; V_nl mean {v_ref.mean().item():.6f} (card '
+              f'{results["card"][1].mean().item():.6f}), max abs err of V_nl on the card '
+              f'{v_err:.3e}', flush=True)
+        if not (rel['card'] <= tol and torch.isfinite(results['card'][0]).all()):
+            raise SystemExit('ecp path: the local energy on the card disagrees with the plain '
+                             'path')
+        v_rel = {k: rel_max(results[k][1], v_ref) for k in ('card', 'plain_f32')}
+        v_tol = ELOC_FACTOR * v_rel['plain_f32'] + ELOC_FLOOR
+        v_ok = v_rel['card'] <= v_tol and bool(torch.isfinite(results['card'][1]).all())
+        print(f'{smi} | ecp path V_nl of the {ECP_CHECK_WALKERS} {walkers} walkers against the '
+              f'plain path in f64 (CPU), relative to max(1, |V_nl|): card (f32, kernels) rel err '
+              f'{v_rel["card"]:.3e}; plain path (f32, CPU) rel err {v_rel["plain_f32"]:.3e}; '
+              f'tol {v_tol:.3e} {"ok" if v_ok else "FAIL"}', flush=True)
+        if not v_ok:
+            raise SystemExit('ecp path: V_nl on the card disagrees with the plain path')
+        return card
+
+    wf_card, pc_card = gate('init_sample', hamil.init_sample(
+        torch.Generator().manual_seed(0), ECP_CHECK_WALKERS).r)
+    wf_eq = config.instantiate(cfg['ansatz'], root=cfg)(hamil)
+    wf_eq.load_state_dict(weights)
+    *_, (_, eq_state, _, _) = dq.evaluate(hamil, wf_eq, n_walkers=ECP_CHECK_WALKERS, steps=0,
+                                          device='cuda', max_eq_steps=ECP_EQ_STEPS,
+                                          eq_allow_early_stopping=False)
+    del wf_card, pc_card, wf_eq
+    wf_card, pc_card = gate(f'equilibrated ({ECP_EQ_STEPS} calls of 10 Metropolis moves)',
+                            molecule_state(eq_state)[1]['r'].double().cpu())
 
     # the local energy's parts at 512 walkers, and V_nl alone at 2048
     for B in (ECP_RUN_WALKERS, 2048):
@@ -1550,6 +1610,353 @@ def ecp_path(dq, smi, counts, zero_counts, per_op_step):
           f' ms), peak device memory {peak_gib:.3f} GiB; launches {launches}', flush=True)
     shutil.rmtree(workdir)
     return launches
+
+
+# force path: the five Hellmann-Feynman estimators (evaluate_forces.yaml's four
+# monitors and the bare one) over 3 evaluation steps from the cli path's
+# training checkpoint (H2O at full width, its 2048 walkers); the estimators on
+# 16 of its walkers against float64, the tangent pass in float64 on the card
+# against the CPU; then task=evaluate_forces through the command line
+FORCE_KINDS = ('bare', 'ac_zv', 'ac_zvq', 'ac_zvzb', 'ac_zvzbq')
+FORCE_EVAL_STEPS, FORCE_CLI_STEPS, FORCE_CHECK_WALKERS = 3, 2, 16
+# The tangent pass in float64 on the card and on the CPU: the same plain
+# arithmetic in other orders, so they agree to float64 rounding, amplified
+# where a Slater matrix is near singular: max |card - CPU| / max(1, max |CPU|)
+# per output.
+FORCE_F64_RTOL = 1e-8
+
+
+def rel_max(got, ref):
+    """max |got - ref| / max(1, |ref|) over the entries, in float64 on the CPU."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+
+
+def _forces(hamil, wf, pc):
+    """E_loc and the five estimators of the walkers ``pc`` under ``wf``."""
+    import torch
+
+    from deepqmc_tpu_torch import force
+
+    with torch.inference_mode():
+        e_loc, _ = hamil.local_energy(wf, pc)
+    e_loc = e_loc.clone()
+    energy = e_loc.mean().expand_as(e_loc)
+    out = {'E_loc': e_loc}
+    for kind in FORCE_KINDS:
+        build = getattr(force, f'evaluate_hf_force_{kind}')
+        fn = build(hamil) if kind == 'bare' else build(hamil, wf)
+        out[kind] = fn(pc, e_loc, energy) if 'zb' in kind else fn(pc)
+    return out
+
+
+def force_path(dq, hamil, smi, counts, zero_counts, per_op_step, train_dir):
+    """Phase 13: the force monitors in an evaluation from the cli path's
+    checkpoint in ``train_dir``, the estimators and the tangent pass against
+    float64, ``task=evaluate_forces`` in a subprocess; returns the kernel
+    launches of the evaluation and of the subprocess."""
+    from functools import partial
+
+    import numpy as np
+    import torch
+    from torch.autograd import forward_ad
+
+    from deepqmc_tpu_torch import force, observable
+    from deepqmc_tpu_torch.fit import TrainState, molecule_state
+    from deepqmc_tpu_torch.log import CheckpointStore
+    from deepqmc_tpu_torch.ops.fl_attention import mha_core_fl
+    from deepqmc_tpu_torch.ops.fl_block import psiformer_block_fl
+    from deepqmc_tpu_torch.ops.fl_slogdet import slogdet_traces
+    from deepqmc_tpu_torch.sampling import RECIPES, initialize_sampling
+    from deepqmc_tpu_torch.train import train
+    from deepqmc_tpu_torch.utils import chunk_size
+
+    # the kernels' wrappers refuse an operand that carries a forward-mode tangent
+    gen = torch.Generator('cuda').manual_seed(5)
+    for name, kernel, args in (('fl_attention', mha_core_fl, attention_inputs(gen, 4)),
+                               ('fl_slogdet_traces', slogdet_traces, slogdet_inputs(gen, 4)),
+                               ('fl_block', psiformer_block_fl, block_inputs(gen, 4))):
+        before = kernel.launches
+        with forward_ad.dual_level():
+            dual = forward_ad.make_dual(args[0], torch.ones_like(args[0]))
+            try:
+                kernel(dual, *args[1:])
+            except RuntimeError as e:
+                print(f'force path: {name} given a dual operand on the card raises: {e}',
+                      flush=True)
+            else:
+                raise SystemExit(f'force path: {name} took an operand that carries a tangent')
+        if kernel.launches != before:
+            raise SystemExit(f'force path: {name} launched on a dual operand')
+
+    chkpt = os.path.join(train_dir, 'training', f'chkpt-{CLI_STEPS}.pt')
+    _, loaded = CheckpointStore.load(chkpt, 'cuda')
+    wf = dq.psiformer_ansatz(hamil, seed=0).cuda()
+    wf.load_state_dict(loaded.params)
+    n_walkers = loaded.sampler['elec']['r'].shape[2]
+    print(f'force path: evaluate_forces.yaml\'s monitors ({", ".join(FORCE_KINDS[1:])}) and '
+          f'the bare one over {FORCE_EVAL_STEPS} evaluation steps from {chkpt} (H2O, full '
+          f'width, {n_walkers} walkers), direction chunk '
+          f'{chunk_size(9, None, "DEEPQMC_TPU_FORCE_DIRECTION_CHUNK", default=6)} of 9 '
+          'coordinates', flush=True)
+    monitors = [observable.ForceMonitor(kind, save_samples=True, period=1)
+                for kind in FORCE_KINDS]
+    records, rows, Metrics, Results = _recording_sinks(counts, wf)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.monotonic()
+    train(hamil, wf, None, partial(initialize_sampling,
+                                   elec_sampler=RECIPES['decorr_metropolis_psiformer']),
+          steps=FORCE_EVAL_STEPS, seed=0, electron_batch_size=n_walkers,
+          workdir=os.path.join(train_dir, 'forces'),
+          train_state=TrainState(loaded.sampler, loaded.params, None),
+          metric_logger_constructor=Metrics, h5_logger_constructor=Results,
+          observable_monitors=monitors, device='cuda')
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    eval_launches = counts()
+    ev = [r for r in records if r['prefix'] is None]
+    prev = dict.fromkeys(eval_launches, 0)
+    for r, row in zip(ev, rows):
+        launches = {k: r['counts'][k] - prev[k] for k in prev}
+        prev = r['counts']
+        means = {kind: np.asarray(r['stats'][f'hf_force_{kind}/mean']) for kind in FORCE_KINDS}
+        print(f'force path evaluation step {r["step"]}: E_loc mean '
+              f'{float(np.mean(r["stats"]["local_energy/mean"])):.6f}; launches {launches}; '
+              'the mean force on O: ' + '; '.join(
+                  f'{kind} {np.array2string(m.reshape(-1, 3)[0], precision=4)}'
+                  for kind, m in means.items()), flush=True)
+        if launches != per_op_step:
+            raise SystemExit(f'force path step {r["step"]} launched {launches}, want '
+                             f'{per_op_step}')
+        for kind in FORCE_KINDS:
+            samples = row[f'hf_force_{kind}/samples']
+            if samples.shape != (1, 1, n_walkers, 3, 3) or not np.isfinite(samples).all():
+                raise SystemExit(f'force path step {r["step"]}: {kind} samples of shape '
+                                 f'{samples.shape} or not finite')
+    if len(ev) != FORCE_EVAL_STEPS or len(rows) != FORCE_EVAL_STEPS:
+        raise SystemExit('force path: the evaluation did not take its steps')
+    if not (eval_launches['fl_attention'] and eval_launches['fl_slogdet_traces']):
+        raise SystemExit('force path: the evaluation launched no attention or slogdet kernel')
+    print(f'{smi} | force path: {FORCE_EVAL_STEPS} evaluation steps with the five force '
+          f'monitors ({n_walkers} walkers) in {run_s:.1f} s; peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {eval_launches}',
+          flush=True)
+
+    # each estimator on the run's walkers, timed alone
+    R, elec = molecule_state(loaded.sampler)
+    pc = dq.PhysicalConfiguration(R, elec['r'], torch.zeros(n_walkers, dtype=torch.long,
+                                                             device='cuda'))
+    with torch.inference_mode():
+        e_loc, _ = hamil.local_energy(wf, pc)
+    e_loc = e_loc.clone()
+    energy = e_loc.mean().expand_as(e_loc)
+    zero_counts()
+    for kind in FORCE_KINDS:
+        build = getattr(force, f'evaluate_hf_force_{kind}')
+        fn = build(hamil) if kind == 'bare' else build(hamil, wf)
+        call = (lambda: fn(pc, e_loc, energy)) if 'zb' in kind else (lambda: fn(pc))
+        call()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        out = call()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.monotonic() - t0)
+        print(f'{smi} | force path {kind} of {n_walkers} walkers: {ms:.1f} ms a step, peak '
+              f'device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB', flush=True)
+        if not torch.isfinite(out).all():
+            raise SystemExit(f'force path: {kind} is not finite')
+        del out
+    if any(counts().values()):
+        raise SystemExit(f'force path: the estimators launched {counts()}: the tangent pass '
+                         'must run the plain cores')
+    torch.cuda.empty_cache()
+
+    # the gate: the five estimators on 16 walkers, the card (float32, E_loc by
+    # the kernels) against the plain path in float64 on the CPU, by the local
+    # energy's rule; the tangent pass in float64 on the card against the CPU
+    r16 = elec['r'][:FORCE_CHECK_WALKERS].double().cpu()
+    weights = {k: v.cpu() for k, v in wf.state_dict().items()}
+    results, tangents = {}, {}
+    for label, dtype, device in (('card', torch.float32, 'cuda'),
+                                 ('plain_f64', torch.float64, 'cpu'),
+                                 ('plain_f32', torch.float32, 'cpu'),
+                                 ('card_f64', torch.float64, 'cuda')):
+        w = dq.psiformer_ansatz(hamil, seed=0).to(device=device, dtype=dtype)
+        w.load_state_dict({k: v.to(dtype) for k, v in weights.items()})
+        pc16 = dq.PhysicalConfiguration(
+            R.to(device=device, dtype=dtype), r16.to(device=device, dtype=dtype),
+            torch.zeros(FORCE_CHECK_WALKERS, dtype=torch.long, device=device))
+        if label != 'card_f64':
+            results[label] = _forces(hamil, w, pc16)
+        if dtype == torch.float64:
+            J, (t, jac_t, lap_t) = force.log_psi_tangents(w, pc16)
+            tangents[device] = {'J': J, 't': t, 'grad_r t': jac_t, 'lap_r t': lap_t}
+    for kind in ('E_loc', *FORCE_KINDS):
+        rel = {k: rel_max(results[k][kind], results['plain_f64'][kind])
+               for k in ('card', 'plain_f32')}
+        tol = ELOC_FACTOR * rel['plain_f32'] + ELOC_FLOOR
+        ok = rel['card'] <= tol and bool(torch.isfinite(results['card'][kind]).all())
+        print(f'force path {kind} of {FORCE_CHECK_WALKERS} walkers against the plain path in '
+              f'f64 (CPU): card (f32) rel err {rel["card"]:.3e}; plain path (f32, CPU) rel err '
+              f'{rel["plain_f32"]:.3e}; tol {tol:.3e} {"ok" if ok else "FAIL"}', flush=True)
+        if not ok:
+            raise SystemExit(f'force path: {kind} on the card disagrees with the plain path')
+    for key, ref in tangents['cpu'].items():
+        err = (tangents['cuda'][key].cpu() - ref).abs().max().item()
+        rel = err / max(1.0, ref.abs().max().item())
+        print(f'force path tangent pass {key} in f64, card against CPU: max abs err {err:.3e}, '
+              f'rel {rel:.3e} (tol {FORCE_F64_RTOL:.0e})', flush=True)
+        if not rel <= FORCE_F64_RTOL:
+            raise SystemExit(f'force path: the tangent pass ({key}) on the card disagrees '
+                             'with the CPU')
+    del wf, loaded, pc, results, tangents
+    torch.cuda.empty_cache()
+
+    # task=evaluate_forces through the command line, its HDF5 sink off
+    root = os.path.dirname(os.path.abspath(__file__))
+    workdir = os.path.join(os.path.dirname(train_dir), 'evaluate_forces')
+    cmd = [sys.executable, '-m', 'deepqmc_tpu_torch', 'task=evaluate_forces',
+           f'task.restdir={os.path.join(train_dir, "training")}',
+           f'+task.steps={FORCE_CLI_STEPS}', 'task.h5_logger=null', f'--workdir={workdir}']
+    print(f'force path: python3 {" ".join(cmd[1:])}', flush=True)
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    wall_s = time.time() - t0
+    if proc.returncode:
+        print(proc.stderr[-6000:], file=sys.stderr, flush=True)
+        raise SystemExit(f'force path: task=evaluate_forces exited with {proc.returncode}')
+    steps, _, peak_gib = _log_steps(workdir, 'evaluation')
+    step_s = _check_steps('force path cli', steps, FORCE_CLI_STEPS, per_op_step)
+    print(f'{smi} | force path task=evaluate_forces ({n_walkers} walkers, four force monitors):'
+          f' subprocess wall time {wall_s:.1f} s, steps (without the monitors) '
+          f'{", ".join(f"{1e3 * t:.1f}" for t in step_s)} ms, peak device memory '
+          f'{peak_gib:.3f} GiB', flush=True)
+    return {k: eval_launches[k] + steps[-1][2]['launches'][k] for k in eval_launches}
+
+
+# benzene path: 42 electrons (21 up, 21 down), K = 126, the full-width
+# PsiFormer with seed-0 weights; 3 evaluation steps at 512 walkers with the
+# local energy in chunks of 128, E_loc of 16 walkers against float64, one KFAC
+# step with both walker chunks
+BENZENE_WALKERS, BENZENE_CHUNK, BENZENE_STEPS, BENZENE_CHECK_WALKERS = 512, 128, 3, 16
+
+
+def benzene_path(dq, smi, counts, zero_counts):
+    """Phase 15; returns the kernel launches of its evaluation and training step."""
+    import contextlib
+
+    import torch
+
+    from deepqmc_tpu_torch.fit import molecule_state
+    from deepqmc_tpu_torch.loss.energy import compute_local_energy
+    from deepqmc_tpu_torch.ops.fl_slogdet import TILED, slogdet_traces
+    from deepqmc_tpu_torch.utils import cuda_median_ms
+
+    hamil = dq.MolecularHamiltonian(mol=dq.Molecule.from_name('benzene'))
+    n = hamil.n_up + hamil.n_down
+    chunks = BENZENE_WALKERS // BENZENE_CHUNK
+    per_eloc = {'fl_attention': 4 * chunks, 'fl_slogdet_traces': chunks, 'fl_slogdet_square': 0,
+                'fl_slogdet_square_split': 0, 'fl_block': 0}
+    jac_gb = 4 * BENZENE_CHUNK * 3 * n * n * 256 / 1e9
+    print(f'benzene path: {n} electrons ({hamil.n_up} up, {hamil.n_down} down), K = {3 * n}; '
+          f'{BENZENE_WALKERS} walkers, local energy in chunks of {BENZENE_CHUNK} (a [{BENZENE_CHUNK}'
+          f', {3 * n}, {n}, 256] float32 Jacobian is {jac_gb:.2f} GB)', flush=True)
+    if n != 42:
+        raise SystemExit('benzene path: benzene does not have 42 electrons')
+    wf = dq.psiformer_ansatz(hamil, seed=0).cuda()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.monotonic()
+    steps = list(dq.evaluate(hamil, wf, n_walkers=BENZENE_WALKERS, steps=BENZENE_STEPS,
+                             device='cuda', eloc_walker_chunk=BENZENE_CHUNK))
+    torch.cuda.synchronize()
+    eval_s = time.monotonic() - t0
+    eval_launches = counts()
+    want = {k: BENZENE_STEPS * v for k, v in per_eloc.items()}
+    for step, _, e_loc, _ in steps:
+        print(f'benzene path evaluation step {step}: E_loc mean {e_loc.mean().item():.6f} std '
+              f'{e_loc.std().item():.6f}', flush=True)
+        if not torch.isfinite(e_loc).all():
+            raise SystemExit(f'benzene path step {step}: E_loc not finite')
+    body = slogdet_traces.last_plan.body
+    print(f'benzene path: {eval_launches} launches in {BENZENE_STEPS} steps ({want} wanted: '
+          f'each chunk 4 attention launches at n = {n} and one flat slogdet launch); the flat '
+          f'slogdet kernel took the {body_of(slogdet_traces)}', flush=True)
+    if eval_launches != want or body != TILED:
+        raise SystemExit('benzene path: the local energy did not take kernel 1 and the tiled '
+                         'body of kernel 2 at n = 42')
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    _, state, _, _ = steps[-1]
+    R, elec = molecule_state(state)
+    pc = dq.PhysicalConfiguration(R, elec['r'], torch.zeros(BENZENE_WALKERS, dtype=torch.long,
+                                                             device='cuda'))
+    with torch.inference_mode():
+        eloc_ms = cuda_median_ms(lambda: compute_local_energy(
+            hamil, wf, pc, walker_chunk=BENZENE_CHUNK), runs=3, warmup=1)
+    print(f'{smi} | benzene path ({BENZENE_WALKERS} walkers, chunks of {BENZENE_CHUNK}): '
+          f'{BENZENE_STEPS} evaluation steps in {eval_s:.1f} s ({1e3 * eval_s / BENZENE_STEPS:.1f}'
+          f' ms a step, the first included), local energy {eloc_ms:.1f} ms, peak device memory '
+          f'{peak_gib:.3f} GiB', flush=True)
+
+    # the gate: E_loc of 16 of the walkers against the float64 plain path
+    weights = {k: v.cpu() for k, v in wf.state_dict().items()}
+    plain = {}
+    for label, dtype in (('plain_f64', torch.float64), ('plain_f32', torch.float32)):
+        plain[label] = dq.psiformer_ansatz(hamil, seed=0).to(dtype)
+        plain[label].load_state_dict({k: v.to(dtype) for k, v in weights.items()})
+    zero_counts()
+    rel, e_card, _ = eloc_rel_errors(hamil, wf, elec['r'][:BENZENE_CHECK_WALKERS], R,
+                                     plain)
+    tol = ELOC_FACTOR * rel['plain_f32'] + ELOC_FLOOR
+    print(f'benzene path E_loc of {BENZENE_CHECK_WALKERS} walkers against the plain path in f64 '
+          f'(CPU): card (f32, kernels) rel err {rel["card"]:.3e}; plain path (f32, CPU) rel err '
+          f'{rel["plain_f32"]:.3e}; tol {tol:.3e}; launches {counts()}', flush=True)
+    if not (rel['card'] <= tol and torch.isfinite(e_card).all()):
+        raise SystemExit('benzene path: the local energy on the card disagrees with the plain path')
+    del plain
+
+    # one KFAC step with both walker chunks, through the JAX package's variables
+    @contextlib.contextmanager
+    def environ(**values):
+        old = {k: os.environ.get(k) for k in values}
+        os.environ.update({k: str(v) for k, v in values.items()})
+        try:
+            yield
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+
+    before = flat_params(wf)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.monotonic()
+    with environ(DEEPQMC_TPU_ELOC_WALKER_CHUNK=BENZENE_CHUNK,
+                 DEEPQMC_TPU_GRAD_WALKER_CHUNK=BENZENE_CHUNK):
+        (_, train_state, e_loc, stats), = dq.fit.train(hamil, wf, n_walkers=BENZENE_WALKERS,
+                                                       steps=1, device='cuda')
+    torch.cuda.synchronize()
+    train_s = time.monotonic() - t0
+    train_launches = counts()
+    changed = not torch.equal(flat_params(wf), before)
+    finite = bool(torch.isfinite(flat_params(wf)).all() and torch.isfinite(e_loc).all())
+    print(f'{smi} | benzene path KFAC step ({BENZENE_WALKERS} walkers, local energy and gradient '
+          f'in chunks of {BENZENE_CHUNK}): {1e3 * train_s:.1f} ms (the sampler\'s start '
+          f'included), E_loc mean {e_loc.mean().item():.6f}, parameters changed {changed}, '
+          f'finite {finite}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}'
+          f' GiB; launches {train_launches}', flush=True)
+    if not (changed and finite) or train_launches != per_eloc:
+        raise SystemExit('benzene path: the training step did not change the parameters, was '
+                         'not finite, or did not launch one chunked local energy')
+    del wf, steps, state, pc, train_state
+    torch.cuda.empty_cache()
+    return {k: eval_launches[k] + train_launches[k] for k in eval_launches}
 
 
 def main() -> int:
@@ -2084,9 +2491,9 @@ def main() -> int:
             ev[1].record()
             terms = loss.terms(pc, weight)
             ev[2].record()
-            grads, taps = loss.grad_and_taps(pc, weight, terms, taps=True)
+            grads, sums = loss.grad_and_taps(pc, weight, terms, taps=True)
             ev[3].record()
-            opt_state, _ = kfac.update(opt_state, grads, taps, 2048)
+            opt_state, _ = kfac.update(opt_state, grads, sums, 2048)
             ev[4].record()
             with torch.no_grad():
                 smpl_state = sampler.update(smpl_state, R)
@@ -2099,7 +2506,7 @@ def main() -> int:
                   f'{"refreshed" if refresh else "carried"}): '
                   + ', '.join(f'{n} {t:.2f} ms' for n, t in zip(stages, ms))
                   + f'; sum {sum(ms):.2f} ms, host {host_ms:.2f} ms', flush=True)
-            del grads, taps
+            del grads, sums
         carried = [ms for refresh, ms, _ in splits if not refresh]
         medians = [sorted(col)[len(col) // 2] for col in zip(*carried)]
         refresh_kfac = [ms[3] for refresh, ms, _ in splits if refresh]
@@ -2186,16 +2593,30 @@ def main() -> int:
             by_name[name]['excited_launches'] = n
 
     with Phase('cli_path'):
-        cli_launches = cli_path(smi, per_op_step)
+        cli_launches, cli_train_dir = cli_path(smi, per_op_step)
         print(f'launches during the cli path (read from its logs): {cli_launches}', flush=True)
         for name, n in cli_launches.items():
             by_name[name]['cli_launches'] = n
+
+    with Phase('force_path'):
+        force_launches = force_path(dq, hamil, smi, counts, zero_counts, per_op_step,
+                                    cli_train_dir)
+        shutil.rmtree(os.path.dirname(cli_train_dir))
+        print(f'launches during the force path: {force_launches}', flush=True)
+        for name, n in force_launches.items():
+            by_name[name]['force_launches'] = n
 
     with Phase('ecp_path'):
         ecp_launches = ecp_path(dq, smi, counts, zero_counts, per_op_step)
         print(f'launches during the ecp path\'s cut run: {ecp_launches}', flush=True)
         for name, n in ecp_launches.items():
             by_name[name]['ecp_launches'] = n
+
+    with Phase('benzene_path'):
+        benzene_launches = benzene_path(dq, smi, counts, zero_counts)
+        print(f'launches during the benzene path: {benzene_launches}', flush=True)
+        for name, n in benzene_launches.items():
+            by_name[name]['benzene_launches'] = n
 
     print(json.dumps({'kernels': kernels}), flush=True)
     print(f'{smi} | whole run {time.monotonic() - _T0:.1f} s', flush=True)

@@ -16,12 +16,18 @@ penalty, with the spin penalty, KFAC over the states, CASCI pretraining
 targets and the spin, ratio and oscillator-strength monitors.  Effective
 core potentials (:mod:`.ecp`) enter through ``MolecularHamiltonian(ecp_type=)``,
 and the command line ``python -m deepqmc_tpu_torch`` (:mod:`.app`) composes
-the JAX package's configuration tree (:mod:`.conf`, :mod:`.config`).  It
+the JAX package's configuration tree (:mod:`.conf`, :mod:`.config`).  The
+five Hellmann-Feynman force estimators (:mod:`.force`) and the position
+monitors run as observable monitors (``task=evaluate_forces``); the offline
+tools read a run's results (:mod:`.postprocess`, :mod:`.oscillator_strength`).
+The local energy, the gradient and pretraining's gradient take the walkers in
+chunks where asked (``walker_chunk`` keywords, or the JAX package's
+``DEEPQMC_TPU_ELOC_WALKER_CHUNK`` and ``DEEPQMC_TPU_GRAD_WALKER_CHUNK``).  It
 imports torch, numpy and the standard library only (h5py and tensorboardX
-inside the two optional sinks).
+inside the two optional sinks and the result reader).
 """
 
-from . import train  # noqa: F401  (the module: train.train is the run, fit.train the step loop)
+from . import force, train  # noqa: F401  (train.train is the run, fit.train the step loop)
 from .fit import eval_step, evaluate  # noqa: F401
 from .hamil import MolecularHamiltonian  # noqa: F401
 from .molecule import Molecule  # noqa: F401

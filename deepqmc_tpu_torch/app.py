@@ -8,13 +8,14 @@ line: ``key.sub=value``, ``group=option``, ``group/sub=option``,
 ``+new.key=value``, ``~key``.  The task runs in the working directory
 (``--workdir``, else the current one), which gets ``deepqmc.log`` and the
 composed config as ``.hydra/config.json``; ``task=restart``,
-``task=evaluate`` and ``task=evaluate_excited`` read that file and the last
-checkpoint of ``task.restdir``.  The run is on the GPU unless
+``task=evaluate``, ``task=evaluate_excited`` and ``task=evaluate_forces``
+read that file and the last checkpoint of ``task.restdir``.  The run is on the GPU unless
 ``--device=cpu``; without a GPU the default raises.
 
 Where the card's machine lacks tensorboardX or h5py, turn their sinks off:
 ``task.metric_logger_constructor=null task.h5_logger_constructor=null``
-(in this command line, a null sink constructor means no such sink).
+(in this command line, a null sink constructor means no such sink), and for
+``task=evaluate_forces`` ``task.h5_logger=null``.
 """
 
 import json
@@ -104,7 +105,12 @@ def task_from_workdir(workdir, chkpt, device=None):
 def train_from_checkpoint(workdir, restdir, evaluate, chkpt='LAST', device=None, **kwargs):
     """Restart (``evaluate=False``, from the checkpoint's step) or evaluate
     (``opt=None``) the run whose workdir is ``restdir``, with its own config;
-    ``kwargs`` (``steps``, ``observable_monitors``, ...) go to ``train``."""
+    ``kwargs`` (``steps``, ``observable_monitors``, ...) go to ``train``.
+    ``h5_logger`` (``task=evaluate_forces``'s HDF5 sink with its whitelist)
+    stands for ``train``'s ``h5_logger_constructor``, null for none: the JAX
+    package's ``train`` takes no ``h5_logger`` and raises on that task's key."""
+    if 'h5_logger' in kwargs:
+        kwargs['h5_logger_constructor'] = kwargs.pop('h5_logger')
     restdir = Path(restdir).absolute()
     assert_valid_restdir(restdir, workdir)
     cfg, step, train_state = task_from_workdir(restdir, chkpt, resolve_device(device))

@@ -18,7 +18,7 @@ from numpy.polynomial import legendre
 
 from ..physics import pairwise_distance
 from .data import get_ecp_params
-from .ecp_utils import get_quadrature_points, get_unit_icosahedron_sph, random_azimuths
+from .ecp_utils import get_quadrature_points, get_unit_icosahedron_sph
 
 __all__ = ['GaussianTypeECP', 'NL_CHUNK', 'parse_gaussian_type_ecp_params']
 
@@ -95,21 +95,18 @@ class GaussianTypeECP:
         return len(self.nuc_with_nl_pot) > 0
 
     @torch.no_grad()
-    def nonloc_potential(self, phys_conf, wf, gen: Optional[torch.Generator] = None,
-                         phi: Optional[torch.Tensor] = None,
+    def nonloc_potential(self, phys_conf, wf, phi: Optional[torch.Tensor],
                          chunk: int = NL_CHUNK) -> torch.Tensor:
         """The 12-point quadrature estimate ``[B]`` of the nonlocal part for the
         walkers of ``phys_conf`` under the wave function ``wf``.
 
         The azimuthal rotations are ``phi`` ``[n_nl_nuc, B, n]`` (one row per
-        nucleus of ``nuc_with_nl_pot``), else drawn from ``gen``.
+        nucleus of ``nuc_with_nl_pot``; None without a nonlocal part).
         """
         r, R = phys_conf.r, phys_conf.R
         B, n, _ = r.shape
         if not self.has_nonlocal:
             return torch.zeros(B, dtype=r.dtype, device=r.device)
-        if phi is None:
-            phi = random_azimuths(gen, (len(self.nuc_with_nl_pot), B, n), r.dtype)
         psi = wf(phys_conf)
         den_sign, den_log = psi.sign, psi.log
         legendre_values = torch.as_tensor(self.legendre_values, dtype=r.dtype, device=r.device)

@@ -36,6 +36,7 @@ import torch
 
 from .ewm import init_multi_mol_multi_state_ewm
 from .loss import create_loss_fn, median_log_squeeze_and_mask
+from .loss.energy import compute_local_energy
 from .optimizer import AdamOptimizer, KFACOptimizer, NoOptimizer
 from .parallel import pexp_normalize_mean
 from .physics import pairwise_self_distance
@@ -120,11 +121,14 @@ def walker_weights(smpl_state: dict, mol_idxs) -> torch.Tensor:
     return torch.ones(len(idxs), *r.shape[1:3], dtype=r.dtype, device=r.device)
 
 
-def eval_step(gen, hamil, wf, sampler, state, mol_idxs, ewm, std_ewm, update_ewm):
-    """One evaluation step; returns (state, ewm, std_ewm, E_loc [B], stats)."""
+def eval_step(gen, hamil, wf, sampler, state, mol_idxs, ewm, std_ewm, update_ewm,
+              eloc_walker_chunk=None):
+    """One evaluation step; returns (state, ewm, std_ewm, E_loc [B], stats).
+    ``eloc_walker_chunk`` as in :func:`.loss.compute_local_energy`."""
     state, phys_conf, smpl_stats = sampler.sample(gen, state, mol_idxs)
-    E_loc, hamil_stats = hamil.local_energy(wf, molecule_conf(phys_conf))
-    stats = {**{k: v.mean() for k, v in hamil_stats.items()}, **smpl_stats}
+    E_loc, hamil_stats = compute_local_energy(hamil, wf, molecule_conf(phys_conf),
+                                              walker_chunk=eloc_walker_chunk)
+    stats = {**hamil_stats, **smpl_stats}
     ewm, std_ewm, stats = _energy_stats(E_loc, stats, mol_idxs, ewm, std_ewm, update_ewm)
     return state, ewm, std_ewm, E_loc, stats
 
@@ -243,7 +247,7 @@ def _equilibration(gen, idx_sampler, sampler, state, grad_mode, max_eq_steps,
 def evaluate(
     hamil, wf, *, n_walkers: int = 2048, steps: int = 3, decorr: int = 10, seed: int = 0,
     device=None, sampler=None, mols=None, max_eq_steps: int = 0,
-    eq_allow_early_stopping: bool = True,
+    eq_allow_early_stopping: bool = True, eloc_walker_chunk=None,
 ) -> Iterator[tuple[int, dict, torch.Tensor, dict]]:
     """Evaluate ``wf`` on ``hamil``: yields ``(step, sampler_state, E_loc, stats)``.
 
@@ -258,7 +262,8 @@ def evaluate(
     ``hamil.init_sample`` drawn on the CPU from ``seed``; the moves draw from a
     generator on the device seeded with ``seed + 1``.  Each step runs under
     ``torch.inference_mode()``, or ``torch.no_grad()`` for a sampler whose
-    force needs autograd (Langevin).
+    force needs autograd (Langevin).  The local energy takes the walkers in
+    chunks of ``eloc_walker_chunk`` (:func:`.loss.compute_local_energy`).
     """
     device = resolve_device(device)
     if device.type == 'cuda':
@@ -276,7 +281,8 @@ def evaluate(
     for step in range(steps):
         with grad_mode():
             state, ewm, std_ewm, E_loc, stats = eval_step(
-                gen, hamil, wf, sampler, state, idx_sampler.sample(), ewm, std_ewm, update_ewm
+                gen, hamil, wf, sampler, state, idx_sampler.sample(), ewm, std_ewm, update_ewm,
+                eloc_walker_chunk,
             )
         yield step, state, E_loc, stats
 

@@ -19,13 +19,40 @@ it is aligned with the primal, walker axis included.
 
 The whole evaluation runs under ``torch.inference_mode()``: no autograd graph
 is built over the ``[B, K, ...]`` Jacobians.
+
+The fused rules (the attention core, the log-determinant traces and the
+PsiFormer block) launch the hand-written kernels on the card.  Inside
+:func:`use_plain_cores` they run the kernels' plain PyTorch versions on any
+device: the forward-mode tangent pass of the force estimators (``force.py``)
+asks for that explicitly, since a ``ctypes`` kernel carries no tangent and its
+wrapper raises on one.
 """
 
+import contextlib
+import contextvars
 from collections.abc import Sequence
 
 import torch
 
-__all__ = ['FL', 'is_fl']
+__all__ = ['FL', 'is_fl', 'use_plain_cores']
+
+_PLAIN_CORES = contextvars.ContextVar('plain_cores', default=False)
+
+
+@contextlib.contextmanager
+def use_plain_cores():
+    """Within the block, every fused rule runs its kernel's plain PyTorch
+    version, whatever the tensors' device."""
+    token = _PLAIN_CORES.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN_CORES.reset(token)
+
+
+def uses_plain_cores() -> bool:
+    """Whether the fused rules run their plain versions here (:func:`use_plain_cores`)."""
+    return _PLAIN_CORES.get()
 
 
 def is_fl(v) -> bool:
@@ -348,7 +375,9 @@ def mha_core(q2, k2, v2, num_heads: int, core=None):
         att = torch.einsum('bhij,bjhd->bihd', torch.softmax(logits, -1), v)
         return att.flatten(-2)
     if core is None:
-        from .ops.fl_attention import mha_core_fl as core
+        from .ops.fl_attention import mha_core_fl, mha_core_fl_plain
+
+        core = mha_core_fl_plain if uses_plain_cores() else mha_core_fl
 
     if not all(is_fl(v) for v in (q2, k2, v2)):
         raise ValueError('mha_core: q, k and v must all be FL or all be tensors')
@@ -384,6 +413,7 @@ def slogdet_flat_rows(up, down, n_det: int):
         down.jac.contiguous(),
         torch.cat([up.lap, down.lap], dim=-2),
         n_det,
+        plain=uses_plain_cores(),
     )
     return sign, FL(logdet, jout, lout)
 
@@ -402,7 +432,8 @@ def slogdet_flat(v, n_det: int):
         return slogdet_flat_op(v, n_det)
     nu = (v.shape[-2] + 1) // 2
     sign, logdet, jout, lout = slogdet_fl_flat_split(
-        v.x, v.jac[..., :nu, :].contiguous(), v.jac[..., nu:, :].contiguous(), v.lap, n_det
+        v.x, v.jac[..., :nu, :].contiguous(), v.jac[..., nu:, :].contiguous(), v.lap, n_det,
+        plain=uses_plain_cores(),
     )
     return sign, FL(logdet, jout, lout)
 

@@ -13,7 +13,7 @@ import torch
 
 from .. import fwdlap as fl
 from .. import nn
-from ..fwdlap import FL, is_fl, tanh
+from ..fwdlap import FL, is_fl, tanh, uses_plain_cores
 from ..ops import fl_block
 
 __all__ = [
@@ -170,9 +170,9 @@ class NodeAttentionElectronUpdateFeature(nn.Module):
 
     def forward(self, h):
         if self.block_kernel and is_fl(h) and fl_block.takes(h.x):
-            y, jy, ly = fl_block.psiformer_block_fl(
-                h.x, h.jac, h.lap, *self.block_weights(), self.attention.num_heads
-            )
+            block = (fl_block.psiformer_block_fl_plain if uses_plain_cores()
+                     else fl_block.psiformer_block_fl)
+            y, jy, ly = block(h.x, h.jac, h.lap, *self.block_weights(), self.attention.num_heads)
             return FL(y, jy, ly)
         attended = self.residual(h, self.attention(h, h, h))
         return self.residual(attended, self.mlp(attended))

@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from .ecp import GaussianTypeECP
+from .ecp.ecp_utils import random_azimuths
 from .fwdlap import forward_laplacian
 from .molecule import Molecule
 from .physics import electronic_potential, nuclear_energy, nuclear_potential
@@ -174,13 +175,23 @@ class MolecularHamiltonian:
             terms['V_loc'] = nuclear_potential(phys_conf.r, R, ns_valence)
         else:
             terms['V_loc'] = self.ecp.local_potential(phys_conf.r, R)
-            gen = self._nl_gen(R.device) if self.ecp.has_nonlocal and phi is None else None
-            terms['V_nl'] = self.ecp.nonloc_potential(phys_conf, wf, gen=gen, phi=phi)
+            phi = self.nl_rotations(phys_conf) if phi is None else phi
+            terms['V_nl'] = self.ecp.nonloc_potential(phys_conf, wf, phi=phi)
         terms['V_el'] = electronic_potential(phys_conf.r)
         E_loc = sum(terms.values()) + nuclear_energy(R, ns_valence)
         stats = {f'hamil/{k}': v for k, v in terms.items()}
         stats |= {'hamil/lap': lap, 'hamil/quantum_force': force_sq}
         return E_loc, stats
+
+    def nl_rotations(self, phys_conf) -> Optional[torch.Tensor]:
+        """The nonlocal quadrature's rotations ``[n_nl_nuc, B, n]`` for the
+        walkers of ``phys_conf``, drawn from the Hamiltonian's own generator on
+        their device (None without a nonlocal ECP part)."""
+        if self.ecp is None or not self.ecp.has_nonlocal:
+            return None
+        r = phys_conf.r
+        return random_azimuths(self._nl_gen(r.device),
+                               (len(self.ecp.nuc_with_nl_pot), *r.shape[:2]), r.dtype)
 
     def _nl_gen(self, device) -> torch.Generator:
         device = torch.device(device)

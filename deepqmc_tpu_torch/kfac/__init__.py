@@ -1,3 +1,3 @@
 """Kronecker-factored approximate curvature (natural gradient) for VMC."""
 
-from .kfac import KFAC, LayerMeta, factor_sums  # noqa: F401
+from .kfac import KFAC, LayerMeta  # noqa: F401

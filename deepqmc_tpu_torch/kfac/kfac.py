@@ -2,8 +2,9 @@
 ``deepqmc_tpu/kfac/kfac.py``), over one or more electronic states.
 
 Every dense layer (``nn.Linear`` and the attention's output product) records
-its input ``a`` and, through the instrumented backward of the VMC loss
-(:meth:`~..loss.VMCLoss.value_grad_and_taps`), its output sensitivity ``g``.
+its input ``a`` and, through the instrumented backward of the VMC loss, its
+output sensitivity ``g``; the loss returns their sums over the rows
+(:meth:`~..loss.VMCLoss.value_grad_and_taps`).
 A layer applied to several rows per walker (electrons) adds one (a, g) pair
 per row and carries the block scale ``R`` = rows per walker.  The factors
 A = E[a a^T] (with a ones column for a bias) and G = E[g g^T] follow an
@@ -35,7 +36,7 @@ import torch
 from ..nn import instrumented
 from ..utils import ConstantSchedule
 
-__all__ = ['KFAC', 'LayerMeta', 'factor_sums']
+__all__ = ['KFAC', 'LayerMeta']
 
 
 class LayerMeta(NamedTuple):
@@ -48,22 +49,6 @@ class LayerMeta(NamedTuple):
     # the walker axis and the feature axis
     repeats: tuple[int, ...]
     out_shapes: tuple[tuple[int, ...], ...]
-
-
-def factor_sums(metas, taps):
-    """Per-layer unnormalised factor sums (sum a a^T, sum g g^T) over all rows."""
-    sums = {}
-    for m in metas:
-        A = G = 0
-        for (a, g), rep in zip(taps[m.path], m.repeats):
-            if rep == 0:
-                continue
-            a, g = a.reshape(-1, m.in_dim), g.reshape(-1, m.out_dim)
-            if m.has_bias:
-                a = torch.cat([a, a.new_ones(a.shape[0], 1)], -1)
-            A, G = A + a.T @ a, G + g.T @ g
-        sums[m.path] = (A, G)
-    return sums
 
 
 def _tree_norm(tensors):
@@ -142,25 +127,25 @@ class KFAC:
     def step(self, opt_state, phys_conf, weight, data=None):
         """One KFAC step on the walkers ``phys_conf``; updates the parameters in
         place and returns ``(opt_state, (E_loc, psi_ratio, stats), opt_stats)``."""
-        (_, aux), grads, taps = self.loss.value_grad_and_taps(phys_conf, weight, data)
-        opt_state, opt_stats = self.update(opt_state, grads, taps, weight.shape[-1])
+        (_, aux), grads, sums = self.loss.value_grad_and_taps(phys_conf, weight, data)
+        opt_state, opt_stats = self.update(opt_state, grads, sums, weight.shape[-1])
         return opt_state, aux, opt_stats
 
-    def update(self, opt_state, grads, taps, n_batch: int):
+    def update(self, opt_state, grads, sums, n_batch: int):
         """The curvature and parameter half of a step from the loss's gradient
-        and taps over ``n_batch`` walkers (per state)."""
+        and factor sums (:meth:`~..loss.VMCLoss.value_grad_and_taps`) over ``n_batch``
+        walkers (per state)."""
         step = opt_state['step']
         lr = self.lr_schedule(step)
         damping = max(self.damping_schedule(step), self.MIN_DAMPING)
         ema = self.CURVATURE_EMA
         ema_weight = ema * opt_state['ema_weight'] + (1 - ema)
-        grads, taps = self._per_state(grads), self._per_state(taps)
+        grads, sums = self._per_state(grads), self._per_state(sums)
         factors = []
-        for old, state_taps in zip(self._per_state(opt_state['factors']), taps):
-            sums = factor_sums(self.metas, state_taps)
+        for old, state_sums in zip(self._per_state(opt_state['factors']), sums):
             factors.append({})
             for m in self.metas:
-                A, G = sums[m.path]
+                A, G = state_sums[m.path]
                 total = n_batch * sum(r for r in m.repeats if r > 0)
                 A_old, G_old = old[m.path]
                 factors[-1][m.path] = (ema * A_old + (1 - ema) * (A / total),

@@ -12,7 +12,7 @@ backward pass of ``log|psi|`` pulls back to the parameters.
 import torch
 
 from ..parallel import all_device_mean
-from ..utils import masked_mean
+from ..utils import chunk_size, masked_mean
 
 __all__ = [
     'compute_local_energy', 'compute_mean_energy', 'compute_mean_energy_cotangent',
@@ -20,10 +20,29 @@ __all__ = [
 ]
 
 
-def compute_local_energy(hamil, wf, phys_conf):
-    """Local energies ``[B]`` of the walkers and the means of the Hamiltonian's terms."""
+def compute_local_energy(hamil, wf, phys_conf, *, walker_chunk=None):
+    """Local energies ``[B]`` of the walkers and the means of the Hamiltonian's terms.
+
+    With ``walker_chunk`` the walkers go through the local energy in
+    sequential chunks of the largest divisor of B at most it, which bounds
+    the forward Laplacian's ``[chunk, 3n, ...]`` Jacobians; ``None`` reads
+    ``DEEPQMC_TPU_ELOC_WALKER_CHUNK`` (0, no chunks), as the JAX package
+    does.  The nonlocal quadrature's rotations of an ECP are drawn for the
+    whole batch before it is cut, so the chunks change no number.
+    """
+    B = phys_conf.r.shape[0]
+    size = chunk_size(B, walker_chunk, 'DEEPQMC_TPU_ELOC_WALKER_CHUNK')
     with torch.no_grad():
-        local_energy, hamil_stats = hamil.local_energy(wf, phys_conf)
+        phi = hamil.nl_rotations(phys_conf)
+        parts = [
+            hamil.local_energy(
+                wf, phys_conf.replace(r=phys_conf.r[i:i + size],
+                                      mol_idx=phys_conf.mol_idx[i:i + size]),
+                phi=None if phi is None else phi[:, i:i + size])
+            for i in range(0, B, size)
+        ]
+        local_energy = torch.cat([e for e, _ in parts])
+        hamil_stats = {k: torch.cat([s[k] for _, s in parts]) for k in parts[0][1]}
     return local_energy, {k: v.mean() for k, v in hamil_stats.items()}
 
 

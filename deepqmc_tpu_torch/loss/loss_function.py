@@ -21,10 +21,18 @@ gradient of the assembled tangent with respect to ``T``, which for a linear
 map is its exact transpose (the JAX package's ``jax.linear_transpose``).
 For KFAC each state's forward is instrumented (:func:`nn.instrumented`) and
 a second backward with the all-ones cotangent gives its dense layers'
-output sensitivities.
+output sensitivities, which the loss reduces at once with the layers'
+inputs to KFAC's factor sums (sum a a^T, sum g g^T).
 
-Not ported yet: the walker chunking of the pullback and of the local energy
-(``DEEPQMC_TPU_GRAD_WALKER_CHUNK``, ``DEEPQMC_TPU_ELOC_WALKER_CHUNK``).
+Two walker chunks bound the memory, each the largest divisor of the walkers
+at most its setting (0: none): ``eloc_walker_chunk`` for the local energy
+(:func:`~.energy.compute_local_energy`) and ``grad_walker_chunk`` for the
+pullback, which runs the forward and its backward one chunk of walkers at a
+time.  The gradient is linear in the per-walker cotangents, so the chunks'
+gradients sum to it exactly, and the factor sums accumulate exactly too, so
+the raw taps of the whole batch never exist at once.  Their defaults read
+``DEEPQMC_TPU_ELOC_WALKER_CHUNK`` and ``DEEPQMC_TPU_GRAD_WALKER_CHUNK``, the
+JAX package's variables.
 """
 
 from typing import NamedTuple, Optional
@@ -32,6 +40,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..nn import dense_layer_paths, instrumented
+from ..utils import chunk_size, tree_map
 from ..wf.base import wf_states
 from .clip import clip_local_energy, clip_psi_ratio
 from .energy import (
@@ -43,7 +52,7 @@ from .energy import (
 from .overlap import OverlapPenalty
 from .spin import compute_mean_spin, compute_mean_spin_tangent, compute_spin_contributions
 
-__all__ = ['Terms', 'VMCLoss', 'create_loss_fn']
+__all__ = ['Terms', 'VMCLoss', 'create_loss_fn', 'factor_sums']
 
 
 class Terms(NamedTuple):
@@ -69,14 +78,16 @@ class VMCLoss:
     gives ``(loss, (local_energy, psi_ratio, stats))`` with ``psi_ratio``
     ``[S, S, B]`` or None; :meth:`value_and_grad` adds the gradient, a dict keyed
     as ``named_parameters()`` of each state (a list of them for S > 1), and
-    :meth:`value_grad_and_taps` the dense layers' taps as well.
+    :meth:`value_grad_and_taps` the dense layers' factor sums as well.
     """
 
     def __init__(self, hamil, wf, clip_mask_fn, clip_mask_overlap_fn=None,
                  alpha: Optional[float] = None, spin_penalty: Optional[float] = None,
                  scale_overlap_by: Optional[str] = None, sort_states_by: Optional[str] = None,
-                 min_gap_scale_factor: float = 0.1):
+                 min_gap_scale_factor: float = 0.1, eloc_walker_chunk: Optional[int] = None,
+                 grad_walker_chunk: Optional[int] = None):
         self.hamil, self.wf, self.clip_mask_fn = hamil, wf, clip_mask_fn
+        self.eloc_walker_chunk, self.grad_walker_chunk = eloc_walker_chunk, grad_walker_chunk
         self.states = wf_states(wf)
         self.multi = len(self.states) > 1  # the walkers carry a state axis
         self.clip_mask_overlap_fn = clip_mask_overlap_fn
@@ -120,7 +131,8 @@ class VMCLoss:
         """The loss, local energies, penalty inputs and stats: no autograd."""
         stacked, confs = self._confs(phys_conf)
         w = self._grid(weight)
-        per_state = [compute_local_energy(self.hamil, wf, pc) for wf, pc in zip(self.states, confs)]
+        per_state = [compute_local_energy(self.hamil, wf, pc, walker_chunk=self.eloc_walker_chunk)
+                     for wf, pc in zip(self.states, confs)]
         local_energy = torch.stack([e for e, _ in per_state])[None]
         loss, stats = compute_mean_energy(local_energy, w)
         if self.multi:
@@ -154,12 +166,12 @@ class VMCLoss:
         return (terms.loss, self._aux(terms)), grads
 
     def value_grad_and_taps(self, phys_conf, weight, data=None):
-        """Loss, gradient and ``taps`` = JAX path -> list per call of
-        (input, sensitivity), both ``[B, *repeats, features]`` (a list per
-        state for a stack)."""
+        """Loss, gradient and the dense layers' taps as KFAC's factor sums:
+        JAX path -> (sum a a^T, sum g g^T) over every row of every call
+        (:func:`factor_sums`; a list per state for a stack)."""
         terms = self.terms(phys_conf, weight, data)
-        grads, taps = self.grad_and_taps(phys_conf, weight, terms, taps=True, data=data)
-        return (terms.loss, self._aux(terms)), grads, taps
+        grads, sums = self.grad_and_taps(phys_conf, weight, terms, taps=True, data=data)
+        return (terms.loss, self._aux(terms)), grads, sums
 
     # -- the gradient half -----------------------------------------------------
 
@@ -196,7 +208,8 @@ class VMCLoss:
 
     def grad_and_taps(self, phys_conf, weight, terms: Terms, *, taps: bool, data=None):
         """The gradient half: clip, form the per-walker cotangent, pull it back
-        through each state's forward."""
+        through each state's forward (with ``taps``, the factor sums as in
+        :meth:`value_grad_and_taps`)."""
         cot = self.cotangent(weight, terms, data)
         _, confs = self._confs(phys_conf)
         grads, state_taps = [], []
@@ -209,6 +222,20 @@ class VMCLoss:
         return grads[0], state_taps[0]
 
     def _pull_back(self, wf, dense_paths, phys_conf, cotangent, taps: bool):
+        """(gradient, factor sums or None) of one state, in walker chunks of
+        ``grad_walker_chunk``; both sum over the chunks."""
+        B = len(cotangent)
+        size = chunk_size(B, self.grad_walker_chunk, 'DEEPQMC_TPU_GRAD_WALKER_CHUNK')
+        grads = sums = None
+        for i in range(0, B, size):
+            chunk = phys_conf.replace(r=phys_conf.r[i:i + size],
+                                      mol_idx=phys_conf.mol_idx[i:i + size])
+            g, t = self._pull_back_chunk(wf, dense_paths, chunk, cotangent[i:i + size], taps)
+            grads = g if grads is None else tree_map(torch.add, grads, g)
+            sums = t if sums is None else tree_map(torch.add, sums, t)
+        return grads, sums
+
+    def _pull_back_chunk(self, wf, dense_paths, phys_conf, cotangent, taps: bool):
         params = dict(wf.named_parameters())
         with torch.enable_grad():
             if not taps:
@@ -217,14 +244,11 @@ class VMCLoss:
             with instrumented(wf) as rec:
                 log_psi = wf(phys_conf).log
             grads = self._grads(params, log_psi, cotangent, retain_graph=True)
-            calls = [(dense_paths[m], x, out) for m, xs in rec.calls.items() for x, out in xs]
+            calls = [(m, x, out) for m, xs in rec.calls.items() for x, out in xs]
             sens = torch.autograd.grad(
                 log_psi, [out for _, _, out in calls], torch.ones_like(log_psi), allow_unused=True
             )
-        out = {}
-        for (path, x, y), g in zip(calls, sens):
-            out.setdefault(path, []).append((x, torch.zeros_like(y) if g is None else g))
-        return grads, out
+        return grads, factor_sums(dense_paths, calls, sens)
 
     @staticmethod
     def _grads(params, log_psi, cotangent, retain_graph):
@@ -238,6 +262,25 @@ class VMCLoss:
         }
 
 
+def factor_sums(dense_paths, calls, sens):
+    """KFAC's unnormalised factor sums (sum a a^T, sum g g^T) over the rows of
+    the recorded dense-layer ``calls`` (module, input, output), by JAX path:
+    ``a`` the input, with a ones column for a bias, ``g`` the output's
+    sensitivity ``sens`` (None: zero).  A call without rows adds nothing, and
+    a layer without any is left out, as KFAC leaves it to its generic rule."""
+    sums = {}
+    for (module, x, y), g in zip(calls, sens):
+        a = x.reshape(-1, x.shape[-1])
+        if not len(a):
+            continue
+        g = (torch.zeros_like(y) if g is None else g).reshape(-1, y.shape[-1])
+        if getattr(module, 'b', None) is not None:
+            a = torch.cat([a, a.new_ones(len(a), 1)], -1)
+        A, G = sums.get(dense_paths[module], (0, 0))
+        sums[dense_paths[module]] = (A + a.T @ a, G + g.T @ g)
+    return sums
+
+
 def create_loss_fn(
     hamil,
     wf,
@@ -248,13 +291,16 @@ def create_loss_fn(
     scale_overlap_by: Optional[str] = None,
     sort_states_by: Optional[str] = None,
     min_gap_scale_factor: float = 0.1,
+    eloc_walker_chunk: Optional[int] = None,
+    grad_walker_chunk: Optional[int] = None,
 ) -> VMCLoss:
-    """Build the VMC loss, with the JAX package's signature.  The overlap
-    options act with more than one electronic state, as in the JAX package,
-    where ``alpha`` and ``clip_mask_overlap_fn`` must be given."""
+    """Build the VMC loss, with the JAX package's signature and the two walker
+    chunks.  The overlap options act with more than one electronic state, as
+    in the JAX package, where ``alpha`` and ``clip_mask_overlap_fn`` must be given."""
     n_states = len(wf_states(wf))
     if n_states > 1 and (alpha is None or clip_mask_overlap_fn is None):
         raise ValueError(f'{n_states} electronic states need alpha and clip_mask_overlap_fn')
     return VMCLoss(hamil, wf, clip_mask_fn, clip_mask_overlap_fn=clip_mask_overlap_fn,
                    alpha=alpha, spin_penalty=spin_penalty, scale_overlap_by=scale_overlap_by,
-                   sort_states_by=sort_states_by, min_gap_scale_factor=min_gap_scale_factor)
+                   sort_states_by=sort_states_by, min_gap_scale_factor=min_gap_scale_factor,
+                   eloc_walker_chunk=eloc_walker_chunk, grad_walker_chunk=grad_walker_chunk)

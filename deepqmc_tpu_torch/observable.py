@@ -9,11 +9,14 @@ and of the wave function, are computed inside the step itself
 walkers (:class:`SpinMonitor`, one batched forward of the spin swaps per
 state), the loss's wave-function ratios (:class:`PsiRatioMonitor`) and the
 oscillator strengths between states (:class:`OscillatorStrengthMonitor`).
-The force and position monitors are not ported yet and raise (ROADMAP.md,
-queue 1 item 7).
+The Hellmann-Feynman forces of each walker under its state's module
+(:class:`ForceMonitor` and its five aliases, the estimators of
+:mod:`.force`) and the electron and nuclear positions
+(:class:`ElectronPositionMonitor`, :class:`NuclearPositionMonitor`).
 """
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Callable, Optional
 
 import torch
@@ -23,7 +26,9 @@ from .types import PhysicalConfiguration, Psi
 from .wf.base import wf_states
 
 __all__ = [
-    'Batch', 'EnergyMonitor', 'MonitorSpec', 'ObservableMonitor', 'OscillatorStrengthMonitor',
+    'ACZVForceMonitor', 'ACZVQForceMonitor', 'ACZVZBForceMonitor', 'ACZVZBQForceMonitor',
+    'Batch', 'BareForceMonitor', 'ElectronPositionMonitor', 'EnergyMonitor', 'ForceMonitor',
+    'MonitorSpec', 'NuclearPositionMonitor', 'ObservableMonitor', 'OscillatorStrengthMonitor',
     'PsiRatioMonitor', 'SpinMonitor', 'WaveFunctionMonitor', 'default_observable_monitors',
     'oscillator_strength_statistics',
 ]
@@ -113,24 +118,38 @@ def walker_moments(name: str, samples: torch.Tensor) -> dict:
     return {f'{name}/mean': samples.mean(2), f'{name}/std': samples.std(2, correction=0)}
 
 
+def _per_walker_spec(name: str, fn_factory, with_energy: bool = False):
+    """``spec`` of an observable of one molecule's walkers of one state:
+    ``fn_factory(hamil, state_module)`` gives ``fn(phys_conf)`` (with
+    ``with_energy``, ``fn(phys_conf, E_loc, E_mean)``, the mean over the
+    walkers of that molecule and state) of shape ``[B, ...]``.  It runs over
+    the ``[mol, state, walker]`` grid, each state's walkers with that state's
+    module (the JAX package's ``grid_vmap``); its stats are the walker mean
+    and spread."""
+
+    def build(self, hamil, wf) -> MonitorSpec:
+        fns = [fn_factory(hamil, state) for state in wf_states(wf)]
+
+        def sample(batch: Batch):
+            pc, e = batch.phys_conf, batch.local_energy
+            return torch.stack([
+                torch.stack([
+                    fn(PhysicalConfiguration(R, r[s], i[s]),
+                       *((e_m[s], e_m[s].mean().expand_as(e_m[s])) if with_energy else ()))
+                    for s, fn in enumerate(fns)
+                ]) for R, r, i, e_m in zip(pc.R, pc.r, pc.mol_idx, e)
+            ])
+
+        return MonitorSpec(name, sample, lambda b, x: walker_moments(name, x))
+
+    return build
+
+
 class SpinMonitor(ObservableMonitor):
     """The local S^2 of every walker under its state's module (``physics.evaluate_spin``)."""
 
     name = 'spin'
-
-    def spec(self, hamil, wf) -> MonitorSpec:
-        states = wf_states(wf)
-
-        def sample(batch: Batch):
-            pc = batch.phys_conf
-            return torch.stack([
-                torch.stack([
-                    evaluate_spin(hamil, states[s], PhysicalConfiguration(R, r[s], i[s]))
-                    for s in range(len(states))
-                ]) for R, r, i in zip(pc.R, pc.r, pc.mol_idx)
-            ])
-
-        return MonitorSpec('spin', sample, lambda b, x: walker_moments('spin', x))
+    spec = _per_walker_spec('spin', lambda hamil, wf: partial(evaluate_spin, hamil, wf))
 
 
 class PsiRatioMonitor(ObservableMonitor):
@@ -189,24 +208,66 @@ class OscillatorStrengthMonitor(ObservableMonitor):
         return MonitorSpec('oscillator_strength', lambda b: None, oscillator_strength_statistics)
 
 
-def _not_ported(name: str):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f'{name} is not ported yet; it comes with forces and the position monitors '
-            '(ROADMAP.md, queue 1 item 7)'
-        )
+class ForceMonitor(ObservableMonitor):
+    """Hellmann-Feynman force estimator monitor, one of the five of
+    :mod:`.force`: the bare Coulomb estimator, the antithetic-coordinate
+    zero-variance ('ac_zv'), its zero-bias extension ('ac_zvzb', which reads
+    the local energies), and their Q-function counterparts.  Samples
+    ``[mol, state, walker, n_nuc, 3]``."""
 
-    return type(name, (ObservableMonitor,), {'__init__': __init__})
+    KINDS = {
+        'bare': ('evaluate_hf_force_bare', False),
+        'ac_zv': ('evaluate_hf_force_ac_zv', False),
+        'ac_zvzb': ('evaluate_hf_force_ac_zvzb', True),
+        'ac_zvq': ('evaluate_hf_force_ac_zvq', False),
+        'ac_zvzbq': ('evaluate_hf_force_ac_zvzbq', True),
+    }
+
+    def __init__(self, kind: str, save_samples: bool, period: int):
+        super().__init__(save_samples, period)
+        if kind not in self.KINDS:
+            raise ValueError(f'unknown force estimator {kind!r} (one of {sorted(self.KINDS)})')
+        self.kind = kind
+        self.name = f'hf_force_{kind}'
+
+    def spec(self, hamil, wf) -> MonitorSpec:
+        from . import force
+
+        builder_name, with_energy = self.KINDS[self.kind]
+        builder = getattr(force, builder_name)
+        factory = (lambda h, w: builder(h)) if self.kind == 'bare' else builder
+        return _per_walker_spec(self.name, factory, with_energy)(self, hamil, wf)
 
 
-ForceMonitor = _not_ported('ForceMonitor')
-BareForceMonitor = _not_ported('BareForceMonitor')
-ACZVForceMonitor = _not_ported('ACZVForceMonitor')
-ACZVZBForceMonitor = _not_ported('ACZVZBForceMonitor')
-ACZVQForceMonitor = _not_ported('ACZVQForceMonitor')
-ACZVZBQForceMonitor = _not_ported('ACZVZBQForceMonitor')
-ElectronPositionMonitor = _not_ported('ElectronPositionMonitor')
-NuclearPositionMonitor = _not_ported('NuclearPositionMonitor')
+# the config's constructor names (deepqmc_tpu/observable.py:230-236)
+BareForceMonitor = partial(ForceMonitor, 'bare')
+ACZVForceMonitor = partial(ForceMonitor, 'ac_zv')
+ACZVZBForceMonitor = partial(ForceMonitor, 'ac_zvzb')
+ACZVQForceMonitor = partial(ForceMonitor, 'ac_zvq')
+ACZVZBQForceMonitor = partial(ForceMonitor, 'ac_zvzbq')
+
+
+class ElectronPositionMonitor(ObservableMonitor):
+    """The electron positions ``[mol, state, walker, n_elec, 3]`` (samples only)."""
+
+    name = 'r'
+
+    def spec(self, hamil, wf) -> MonitorSpec:
+        return MonitorSpec('r', lambda b: b.phys_conf.r)
+
+
+class NuclearPositionMonitor(ObservableMonitor):
+    """The nuclear positions of each (molecule, state), ``[mol, state, n_nuc, 3]``
+    (samples only)."""
+
+    name = 'R'
+
+    def spec(self, hamil, wf) -> MonitorSpec:
+        def sample(batch: Batch):
+            R, r = batch.phys_conf.R, batch.phys_conf.r
+            return R[:, None].expand(R.shape[0], r.shape[1], *R.shape[1:])
+
+        return MonitorSpec('R', sample)
 
 
 def default_observable_monitors() -> list[ObservableMonitor]:

@@ -20,6 +20,7 @@ import time
 from pathlib import Path
 
 import torch
+from torch.autograd import forward_ad
 
 __all__ = ['build', 'library', 'check', 'stream']
 
@@ -142,6 +143,19 @@ def library():
 
 def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def refuse_tangents(name: str, *tensors):
+    """Raise if an operand carries a forward-mode tangent (``torch.autograd.
+    forward_ad`` or ``torch.func.jvp``): a kernel launched on its data pointer
+    would return a result without the tangent, silently."""
+    for t in tensors:
+        if t is not None and forward_ad.unpack_dual(t).tangent is not None:
+            raise RuntimeError(
+                f'{name}: an operand carries a forward-mode tangent, which the CUDA kernel '
+                'cannot propagate; run the forward Laplacian with plain_cores=True '
+                '(fwdlap.use_plain_cores) for a tangent pass'
+            )
 
 
 def check(code: int, name: str):

@@ -3,7 +3,8 @@
 :func:`mha_core_fl` computes (t, J_t, L_t) of ``softmax(q k^T / sqrt(dh)) v``
 per walker and head.  On a CPU tensor it runs the plain PyTorch version
 :func:`mha_core_fl_plain`; on a CUDA tensor it launches the hand-written
-kernel ``csrc/fl_attention.cu`` or raises.
+kernel ``csrc/fl_attention.cu`` or raises (also for an operand that carries
+a forward-mode tangent, which the kernel would drop).
 
 Shapes: primals and Laplacians ``[B, n, H, dh]``; Jacobians ``[B, K, n, H, dh]``
 (batch-major), with K the number of Laplacian directions.
@@ -108,6 +109,7 @@ def validate(q, k, v, Jq, Jk, Jv, Lq, Lk, Lv):
 
 
 def _launch(q, k, v, Jq, Jk, Jv, Lq, Lk, Lv):
+    _cuda.refuse_tangents('fl_attention', q, k, v, Jq, Jk, Jv, Lq, Lk, Lv)
     validate(q, k, v, Jq, Jk, Jv, Lq, Lk, Lv)
     B, n, H, dh = q.shape
     K = Jq.shape[1]

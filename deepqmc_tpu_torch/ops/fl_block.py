@@ -11,7 +11,8 @@ with ``Wq``, ``Wk``, ``Wv`` ``[d, H*dh]`` (no bias, ``H*dh = d``), ``Wo``,
 ``W1``, ``W2`` ``[d, d]`` and ``b1``, ``b2`` ``[d]``, weights in the JAX
 layout ``[in, out]``.  :func:`psiformer_block_fl` runs the plain PyTorch
 version :func:`psiformer_block_fl_plain` on a CPU tensor and the hand-written
-kernel ``csrc/fl_block.cu`` on a CUDA tensor, or raises.  The kernel runs the
+kernel ``csrc/fl_block.cu`` on a CUDA tensor, or raises (also for an operand
+that carries a forward-mode tangent).  The kernel runs the
 six d x d products on the tensor cores in split TF32 (three TF32 products per
 float32 one), to float32 accuracy.
 
@@ -108,6 +109,7 @@ def weight_bytes(B: int, K: int, n: int, d: int, H: int) -> int:
 
 
 def _launch(x, J, L, wq, wk, wv, wo, w1, b1, w2, b2, num_heads):
+    _cuda.refuse_tangents('fl_block', x, J, L, wq, wk, wv, wo, w1, b1, w2, b2)
     validate(x, J, L, wq, wk, wv, wo, w1, b1, w2, b2, num_heads)
     B, n, d = x.shape
     K = J.shape[1]

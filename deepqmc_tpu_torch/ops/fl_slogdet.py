@@ -292,6 +292,7 @@ def _align(*tensors):
 def _launch(counter, layout, entry, inv, jacobians, la, K, nu, nd, body):
     """Launch ``entry`` on the inverse, the Jacobian operands (and ``la``);
     (jout, out).  ``body`` None takes the body by n, as the library says."""
+    _cuda.refuse_tangents(entry, inv, *jacobians, la)
     B, D, n, _ = inv.shape
     jout = torch.empty((B, K, D), dtype=inv.dtype, device=inv.device)
     out = torch.empty((B, D), dtype=inv.dtype, device=inv.device)
@@ -356,10 +357,11 @@ def _primal(a):
     return sign, logdet, inv
 
 
-def slogdet_fl_flat_split(a_flat, ju, jd, la, n_det):
-    """(sign [B, D], log|det| [B, D], J [B, K, D], L [B, D]) of the flat slogdet."""
+def slogdet_fl_flat_split(a_flat, ju, jd, la, n_det, *, plain: bool = False):
+    """(sign [B, D], log|det| [B, D], J [B, K, D], L [B, D]) of the flat slogdet;
+    the traces by their plain version on any device with ``plain``."""
     sign, logdet, inv = _primal(unflatten_dets(a_flat, n_det))
-    jout, trq = slogdet_traces(inv, ju, jd)
+    jout, trq = (slogdet_traces_plain if plain else slogdet_traces)(inv, ju, jd)
     lin = torch.einsum('bdij,bdji->bd', inv, unflatten_dets(la, n_det))
     return sign, logdet, jout, lin - trq
 

@@ -42,6 +42,20 @@ def nuclear_energy(R: torch.Tensor, charges: torch.Tensor) -> torch.Tensor:
     return (charges[i] * charges[j] / pairwise_self_distance(R)).sum()
 
 
+def coulomb_force(r1, r2, c1, c2, remove_self_int: bool = False) -> torch.Tensor:
+    """Coulomb force ``[..., n1, 3]`` on the particles ``r1`` ``[..., n1, 3]``
+    (charges ``c1``) due to the particles ``r2`` ``[..., n2, 3]`` (charges
+    ``c2``), the pairs i = j left out with ``remove_self_int``
+    (``deepqmc_tpu.physics.coulomb_force``, with leading batch axes)."""
+    d = r1[..., :, None, :] - r2[..., None, :, :]
+    dist = torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    pair_force = (c1[:, None] * c2[None])[..., None] * d / dist**3
+    if remove_self_int:
+        eye = torch.eye(r1.shape[-2], r2.shape[-2], dtype=torch.bool, device=d.device)
+        pair_force = pair_force.masked_fill(eye[..., None], 0)
+    return pair_force.sum(-2)
+
+
 def electronic_potential(r: torch.Tensor) -> torch.Tensor:
     return (1 / pairwise_self_distance(r)).sum(-1)
 

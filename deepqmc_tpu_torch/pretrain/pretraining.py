@@ -10,8 +10,9 @@ or the HF determinant) on its own walkers, the loss the mean over the
 states.  The optimizer sees each parameter stacked over the states, as the
 JAX package's stacked parameters, so LAMB's trust ratio takes the norms of
 all states together.  As in the JAX package the sampler's cached psi is
-never refreshed after an update.  Not ported yet: the walker chunks of the
-gradient (``DEEPQMC_TPU_GRAD_WALKER_CHUNK``; ROADMAP.md, queue 1 item 1).
+never refreshed after an update.  The gradient may run in walker chunks
+(``walker_chunk``, by default ``DEEPQMC_TPU_GRAD_WALKER_CHUNK``), which bound
+the memory of its backward.
 """
 
 import logging
@@ -22,6 +23,7 @@ import torch
 
 from ..fit import molecule_conf
 from ..optimizer import GradientTransformation
+from ..utils import chunk_size
 from ..wf.base import wf_states
 from .pretraining_target import PretrainTarget
 
@@ -99,28 +101,44 @@ def _stacked(states, tensors=None) -> dict:
     return {k: torch.stack([t[k].detach() for t in tensors]) for k in tensors[0]}
 
 
-def pretrain_update(hamil, wf, target_fn, confs, conf_coeffs, phys_conf, opt, opt_state):
+def pretrain_update(hamil, wf, target_fn, confs, conf_coeffs, phys_conf, opt, opt_state, *,
+                    walker_chunk=None):
     """One update of the parameters of ``wf`` (in place) on one molecule's
     walkers; ``(opt_state, loss, per_sample_losses)``.  For one state
     ``confs`` is ``[n_mols, n_det, n_el]``, the optimizer's state that of the
     module's parameters and the losses ``[B]``; for S > 1 states the walkers,
     ``confs`` (``[n_mols, S, n_det, n_el]``) and the losses (``[S, B]``) have a
-    state axis, and the optimizer's state is that of the stacked parameters."""
+    state axis, and the optimizer's state is that of the stacked parameters.
+
+    The gradient runs in sequential chunks of the walkers, the largest
+    divisor of B at most ``walker_chunk`` (None reads
+    ``DEEPQMC_TPU_GRAD_WALKER_CHUNK``, 0 for none): the loss is a mean over
+    the walkers, so with chunks of one size it is the mean of the chunks'
+    losses and its gradient the mean of their gradients."""
     states = wf_states(wf)
     multi = len(states) > 1
     params = [dict(s.named_parameters()) for s in states]
-    if multi:
-        inputs = [(confs[:, i], conf_coeffs[:, i], phys_conf.replace(r=r, mol_idx=m))
-                  for i, (r, m) in enumerate(zip(phys_conf.r, phys_conf.mol_idx))]
-    else:
-        inputs = [(confs, conf_coeffs, phys_conf)]
-    losses, per_sample = zip(*(pretrain_loss(hamil, s, target_fn, *x)
-                               for s, x in zip(states, inputs)))
-    loss = sum(losses) / len(states)
-    flat = iter(torch.autograd.grad(loss, [p for ps in params for p in ps.values()],
-                                    allow_unused=True))
-    grads = [{k: (lambda g: torch.zeros_like(p) if g is None else g)(next(flat))
-              for k, p in ps.items()} for ps in params]
+    flat = [p for ps in params for p in ps.values()]
+    B = phys_conf.r.shape[-3]
+    size = chunk_size(B, walker_chunk, 'DEEPQMC_TPU_GRAD_WALKER_CHUNK')
+    grad_sum, losses, per_sample = None, [], []
+    for i in range(0, B, size):
+        rs, idxs = phys_conf.r[..., i:i + size, :, :], phys_conf.mol_idx[..., i:i + size]
+        if multi:
+            inputs = [(confs[:, s], conf_coeffs[:, s], phys_conf.replace(r=r, mol_idx=m))
+                      for s, (r, m) in enumerate(zip(rs, idxs))]
+        else:
+            inputs = [(confs, conf_coeffs, phys_conf.replace(r=rs, mol_idx=idxs))]
+        loss_c, per_sample_c = zip(*(pretrain_loss(hamil, s, target_fn, *x)
+                                     for s, x in zip(states, inputs)))
+        loss = sum(loss_c) / len(states)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(flat, torch.autograd.grad(loss, flat, allow_unused=True))]
+        grad_sum = grads if grad_sum is None else [a + g for a, g in zip(grad_sum, grads)]
+        losses.append(loss.detach())
+        per_sample.append(torch.stack(per_sample_c).detach())
+    flat_grads = iter(g / len(losses) for g in grad_sum)
+    grads = [{k: next(flat_grads) for k in ps} for ps in params]
     with torch.no_grad():
         if multi:
             updates, opt_state = opt.update(_stacked(states, grads), opt_state, _stacked(states))
@@ -130,5 +148,5 @@ def pretrain_update(hamil, wf, target_fn, confs, conf_coeffs, phys_conf, opt, op
         for i, ps in enumerate(params):
             for k, p in ps.items():
                 p.add_(updates[k][i])
-    per_sample = torch.stack(per_sample).detach()
-    return opt_state, loss.detach(), per_sample if multi else per_sample[0]
+    per_sample = torch.cat(per_sample, -1)
+    return opt_state, torch.stack(losses).mean(), per_sample if multi else per_sample[0]

@@ -106,12 +106,12 @@ def _profile_training(hamil, wf, n, sampler):
     kfac.init(pc)
     opt_state, weight = state.opt, torch.ones(n, device='cuda')
     terms = loss.terms(pc, weight)
-    grads, taps = loss.grad_and_taps(pc, weight, terms, taps=True)  # warm-up
+    grads, sums = loss.grad_and_taps(pc, weight, terms, taps=True)  # warm-up
     _profiled('gradient and taps', lambda: loss.grad_and_taps(pc, weight, terms, taps=True))
     period = kfac.inverse_update_period
 
     def update(step):
-        kfac.update({**opt_state, 'step': step}, grads, taps, n)
+        kfac.update({**opt_state, 'step': step}, grads, sums, n)
 
     _profiled('KFAC update, inverses carried', lambda: update(period + 1))
     _profiled('KFAC update, inverses refreshed', lambda: update(period))

@@ -356,7 +356,7 @@ def train(
     if molecule_batch_size != 1:
         raise NotImplementedError(
             f'molecule_batch_size={molecule_batch_size}: a step takes one molecule '
-            '(ROADMAP.md, queue 1 items 2 and 7)'
+            '(ROADMAP.md, queue 1 item 2)'
         )
     device = resolve_device(device)
     if device.type == 'cuda':

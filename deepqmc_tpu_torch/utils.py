@@ -4,6 +4,8 @@ need (``log_squeeze``, ``masked_mean``, ``triu_flat``, ``weighted_std``,
 ``multinomial_resampling`` and the learning-rate schedules), with the two tree helpers of the sampler states
 (dicts of tensors and ``Psi`` tuples)."""
 
+import os
+
 import torch
 
 __all__ = [
@@ -47,6 +49,17 @@ def cuda_median_ms(fn, runs=20, warmup=3):
         times.append(start.elapsed_time(stop))
     times.sort()
     return times[len(times) // 2]
+
+
+def chunk_size(n: int, chunk=None, env: str = '', default: int = 0) -> int:
+    """The largest divisor of ``n`` at most ``chunk`` (0: ``n``, no chunks);
+    ``chunk`` None reads the environment variable ``env`` (``default`` where
+    unset), as the JAX package reads its chunk settings."""
+    if chunk is None:
+        chunk = int(os.environ.get(env, str(default)))
+    if not chunk:
+        return n
+    return max(d for d in range(1, min(chunk, n) + 1) if n % d == 0)
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:
@@ -99,12 +112,13 @@ def multinomial_resampling(weights: torch.Tensor, uniforms: torch.Tensor) -> tor
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` applied leaf by leaf to trees of one structure: dicts and named
-    tuples (``Psi``) are nodes, anything else a leaf."""
+    """``fn`` applied leaf by leaf to trees of one structure: dicts and tuples
+    (named ones such as ``Psi`` included) are nodes, anything else a leaf."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, tuple):
-        return type(tree)(*(tree_map(fn, *leaves) for leaves in zip(tree, *rest)))
+        leaves = [tree_map(fn, *leaves) for leaves in zip(tree, *rest)]
+        return type(tree)(*leaves) if hasattr(tree, '_fields') else tuple(leaves)
     return fn(tree, *rest)
 
 

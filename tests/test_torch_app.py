@@ -109,7 +109,7 @@ def test_cli_needs_cuda_unless_told(tmp_path):
     (['--slurm', *TINY], NotImplementedError, 'queue 1 item 9'),
     (['--platform=cpu', *TINY], ValueError, '--device'),
     (['--nonsense', *TINY], KeyError, 'Unknown config key: --nonsense'),
-    (['task=evaluate_forces', 'task.restdir=/nowhere'], NotImplementedError, 'queue 1 item 7'),
+    (['task=evaluate_forces', 'task.restdir=/nowhere'], ValueError, 'not a directory'),
     (['ansatz=deeperwin', *TINY[:-3], *NO_SINKS], NotImplementedError, 'queue 1 item 8'),
     (['task=evaluate', 'task.restdir=/nowhere'], ValueError, 'not a directory'),
 ])

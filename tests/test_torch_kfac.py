@@ -26,7 +26,7 @@ from deepqmc_tpu.utils import ConstantSchedule as JaxConstant
 from deepqmc_tpu.utils import InverseSchedule as JaxInverse
 import deepqmc_tpu_torch as dqt
 from deepqmc_tpu_torch.convert import kfac_state_from_jax, state_dict_from_jax
-from deepqmc_tpu_torch.kfac import KFAC, factor_sums
+from deepqmc_tpu_torch.kfac import KFAC
 from deepqmc_tpu_torch.loss import create_loss_fn, median_log_squeeze_and_mask
 from deepqmc_tpu_torch.fwdlap import FL
 from deepqmc_tpu_torch.nn import instrumented, jax_param_paths
@@ -104,16 +104,15 @@ def test_discovered_layers_match_jax(mol):
 
 
 def test_factor_sums_match_jax(runs):
-    """The port's taps and ``factor_sums`` at the start against JAX's
+    """The port's factor sums at the start against JAX's
     ``value_grad_and_taps`` + ``factor_sums`` inside its first step: its
     factors after step 0 are those sums over the rows, times 1 - ema (the
     moving average starts at 0)."""
     case, kfac_j, kfac_t, wf, pcs, out = runs
     wf.load_state_dict(state_dict_from_jax(out[0]['before'][0], wf))
     weight = torch.ones(len(pcs[0].r), dtype=torch.float64)
-    (_, (E, _, _)), _, taps = kfac_t.loss.value_grad_and_taps(pcs[0], weight)
+    (_, (E, _, _)), _, sums = kfac_t.loss.value_grad_and_taps(pcs[0], weight)
     assert_close(E, np.asarray(out[0]['E_j'])[0, 0], REL, 'E_loc')
-    sums = factor_sums(kfac_t.metas, taps)
     want = out[0]['state_j']['factors'][0]
     assert set(sums) == set(want)
     for m in kfac_t.metas:
