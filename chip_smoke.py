@@ -217,6 +217,32 @@ Phases, each with a start and an end line and its own time budget:
    ``DEEPQMC_TPU_GRAD_WALKER_CHUNK``): the launches of one chunked local
    energy, the parameters changed and finite.  It prints the step time, the
    local energy's time and the peak device memory.
+16. deeperwin path: the DeepErwin preset at full width on H2O (32 full
+   determinants, embedding 256, 4 interactions, two-particle width 32;
+   seed-0 weights), 3 evaluation steps of 2048 walkers through
+   ``deepqmc_tpu_torch.evaluate``: each launches the flat slogdet kernel
+   once (at D = 32, n = 10 split 5/5) and nothing else, E_loc finite, E_loc
+   of 64 walkers against the float64 plain path by the local energy's rule.
+   Then one evaluation step of the transferable components at the widths of
+   ``tests/test_transferable.py`` (nuclear embeddings, combined attention
+   over 3 nuclei and 10 electrons, a nuclear head feeding nucleus-dependent
+   envelopes, the nuclear cusp): one flat slogdet launch and one attention
+   launch a layer, E_loc against float64.  Then ``python3 -m
+   deepqmc_tpu_torch ansatz=deeperwin hamil/mol=H2O`` (the default task,
+   train.yaml: 1000 walkers, ``decorr_langevin``, KFAC, SCF pretraining) in
+   a subprocess, cut to 5 pretraining steps, 5 equilibration calls and 6 fit
+   steps with a checkpoint every step in the git-ignored
+   ``runs/deeperwin_path`` (removed at the end): each fit step, read from its
+   log, finite with one flat slogdet launch, and each changes the parameters
+   (checkpoints 0-6, all finite).  It prints the step times, the local
+   energy's time, the peak device memory, the fit step and the time to the
+   first step.
+
+The kernels phase also takes kernel 2 (and the square kernels) at the
+deeperwin path's shape, B = 2048, K = 30, D = 32, n = 10 split 5/5, and
+kernel 1 at the transferable components' (B = 2048, K = 30, 13 tokens, 2
+heads of 8), each against its plain version, bitwise repeatable (kernel 2)
+and timed beside its bound.
 
 Each path's launch counts are read from a run that starts with every count
 at 0.  It prints a ``{"kernels": [...]}`` line, and as its last line
@@ -239,7 +265,7 @@ PHASE_BUDGET_S = {
     'device': 60, 'build': 240, 'kernels': 300, 'main_path': 300, 'block_path': 180,
     'square_path': 120, 'train_path': 240, 'sampling_path': 240, 'run_path': 300,
     'zoo_path': 300, 'excited_path': 240, 'cli_path': 240, 'force_path': 240, 'ecp_path': 240,
-    'benzene_path': 240,
+    'benzene_path': 240, 'deeperwin_path': 180,
 }
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
@@ -382,8 +408,8 @@ def block_layer(d=256, H=4, seed=0, block_kernel=False):
     from deepqmc_tpu_torch.gnn.update_features import NodeAttentionElectronUpdateFeature
 
     gen = torch.Generator().manual_seed(seed)
-    return NodeAttentionElectronUpdateFeature(d, num_heads=H, gen=gen,
-                                              block_kernel=block_kernel).cuda()
+    return NodeAttentionElectronUpdateFeature.psiformer(d, num_heads=H, gen=gen,
+                                                        block_kernel=block_kernel).cuda()
 
 
 def body_of(kernel):
@@ -926,6 +952,25 @@ def run_path(dq, hamil, smi, counts, zero_counts, per_op_step):
 # 100), 10 equilibration calls (of 1000) and 6 fit steps (of 100,000 and
 # 1000), a checkpoint every 3 steps
 ZOO_EVAL_WALKERS, ZOO_EVAL_STEPS = 2048, 3
+def check_eloc_64(label, hamil, R, wf, make_wf, r):
+    """E_loc of ``wf`` on the card against float64 copies (``make_wf()`` on the
+    CPU holding its weights) on 64 of the walkers ``r``, by the local energy's rule."""
+    import torch
+
+    weights = {k: v.cpu() for k, v in wf.state_dict().items()}
+    plain_wfs = {}
+    for name, dtype in (('plain_f64', torch.float64), ('plain_f32', torch.float32)):
+        plain_wfs[name] = make_wf().to(dtype)
+        plain_wfs[name].load_state_dict({k: v.to(dtype) for k, v in weights.items()})
+    rel, _, _ = eloc_rel_errors(hamil, wf, r[:64], R, plain_wfs)
+    tol = ELOC_FACTOR * rel['plain_f32'] + ELOC_FLOOR
+    print(f'{label}: E_loc on 64 walkers against the plain path in f64 (CPU): kernel path '
+          f'(f32, card) max rel err {rel["card"]:.3e}; plain path (f32, CPU) max rel err '
+          f'{rel["plain_f32"]:.3e}; tol {tol:.3e}', flush=True)
+    if not rel['card'] <= tol:
+        raise SystemExit(f'{label}: the kernel-path local energy disagrees with the plain path')
+
+
 ZOO_RUNS = {  # preset -> (task, walkers, recipe, pretraining and fit steps of the task)
     'ferminet': ('train_ferminet.yaml', 4096, 'decorr_metropolis_ferminet', 1000, 100000),
     'default': ('train.yaml', 1000, 'decorr_langevin', 100, 1000),
@@ -962,21 +1007,6 @@ def zoo_path(dq, hamil, R, smi, counts, zero_counts):
 
     def slogdet_only(n):
         return dict.fromkeys(total, 0) | {'fl_slogdet_traces': n}
-
-    def check_eloc(label, wf, make_wf, r):
-        """E_loc of ``wf`` on the card against float64 copies on the CPU, on 64 walkers."""
-        weights = {k: v.cpu() for k, v in wf.state_dict().items()}
-        plain_wfs = {}
-        for name, dtype in (('plain_f64', torch.float64), ('plain_f32', torch.float32)):
-            plain_wfs[name] = make_wf().to(dtype)
-            plain_wfs[name].load_state_dict({k: v.to(dtype) for k, v in weights.items()})
-        rel, _, _ = eloc_rel_errors(hamil, wf, r[:64], R, plain_wfs)
-        tol = ELOC_FACTOR * rel['plain_f32'] + ELOC_FLOOR
-        print(f'{label}: E_loc on 64 walkers against the plain path in f64 (CPU): kernel path '
-              f'(f32, card) max rel err {rel["card"]:.3e}; plain path (f32, CPU) max rel err '
-              f'{rel["plain_f32"]:.3e}; tol {tol:.3e}', flush=True)
-        if not rel['card'] <= tol:
-            raise SystemExit(f'{label}: the kernel-path local energy disagrees with the plain path')
 
     torch.cuda.reset_peak_memory_stats()
     for full in (True, False):
@@ -1015,7 +1045,7 @@ def zoo_path(dq, hamil, R, smi, counts, zero_counts):
               f'{_median(step_s):.3f} s (steps {", ".join(f"{t:.3f}" for t in step_s)} s); local '
               f'energy alone {eloc_ms:.1f} ms; kernel 2 launches a local energy '
               f'{per_eloc["fl_slogdet_traces"]}', flush=True)
-        check_eloc(label, wf, make_wf, last['r'])
+        check_eloc_64(label, hamil, R, wf, make_wf, last['r'])
         del wf, pc, last, state
         torch.cuda.empty_cache()
     peak.append(torch.cuda.max_memory_allocated() / 2**30)
@@ -1052,8 +1082,8 @@ def zoo_path(dq, hamil, R, smi, counts, zero_counts):
         take(counts())
         peak.append(torch.cuda.max_memory_allocated() / 2**30)
         print(f'{smi} | {label} peak device memory {peak[-1]:.2f} GiB', flush=True)
-        check_eloc(f'{label} (trained weights, last walkers)', wf, make_wf,
-                   molecule_state(state.sampler)[1]['r'])
+        check_eloc_64(f'{label} (trained weights, last walkers)', hamil, R, wf, make_wf,
+                      molecule_state(state.sampler)[1]['r'])
         del wf, state
         torch.cuda.empty_cache()
         shutil.rmtree(workdir)
@@ -1959,6 +1989,180 @@ def benzene_path(dq, smi, counts, zero_counts):
     return {k: eval_launches[k] + train_launches[k] for k in eval_launches}
 
 
+# deeperwin path: the DeepErwin preset at full width on H2O (32 full
+# determinants, embedding 256, 4 interactions, two-particle width 32; seed-0
+# weights), 3 evaluation steps at 2048 walkers; one evaluation step of the
+# transferable components at the widths of tests/test_transferable.py; the
+# default task (train.yaml: 1000 walkers, decorr_langevin, KFAC, SCF
+# pretraining) through the command line with ansatz=deeperwin, cut to 5
+# pretraining steps, 5 equilibration calls and 6 fit steps
+DW_WALKERS, DW_EVAL_STEPS = 2048, 3
+DW_CLI_PRETRAIN_STEPS, DW_CLI_EQ_STEPS, DW_CLI_STEPS = 5, 5, 6
+DW_CLI_TIMEOUT_S = 120
+
+
+def transferable_ansatz(hamil, seed=0):
+    """``tests/test_transferable.py``'s ansatz on the port's classes: atom-type
+    nuclear embeddings (16) through an MLP, two combined attention layers over
+    nuclei and electrons (2 heads of 8), a ``NuclearGNNHead`` of zetas and
+    pis feeding ``SimplifiedNucleusDependentEnvelopes`` (4 per nucleus,
+    per-orbital exponents), 2 full determinants, and the nuclear cusp."""
+    from functools import partial
+
+    from deepqmc_tpu_torch import fwdlap, nn
+    from deepqmc_tpu_torch.gnn import ElectronGNN, ElectronGNNLayer
+    from deepqmc_tpu_torch.gnn.electron_gnn import ElectronEmbedding, NucleiEmbedding
+    from deepqmc_tpu_torch.gnn.update_features import CombinedNodeAttentionUpdateFeature
+    from deepqmc_tpu_torch.presets import _dist_diff_features, _mlp, build_ansatz
+    from deepqmc_tpu_torch.wf.cusp import NuclearCuspAsymptotic, PsiformerCusp
+    from deepqmc_tpu_torch.wf.env import SimplifiedNucleusDependentEnvelopes
+    from deepqmc_tpu_torch.wf.nn_wave_function import BackflowOp
+    from deepqmc_tpu_torch.wf.omni import Backflow, NuclearGNNHead, OmniNet
+
+    n_env, n_det, n_orb = 4, 2, hamil.n_up + hamil.n_down
+    gnn = partial(
+        ElectronGNN, n_interactions=2,
+        nuclei_embedding=partial(NucleiEmbedding, embedding_dim=16, atom_type_embedding=True,
+                                 subnet_type='mlp', edge_features=None),
+        electron_embedding=partial(ElectronEmbedding,
+                                   positional_embeddings={'ne': _dist_diff_features()},
+                                   use_spin=True, project_to_embedding_dim=True),
+        two_particle_stream_dim=8, self_interaction=True, edge_features=None,
+        layer_factory=partial(
+            ElectronGNNLayer, subnet_factory=nn.Identity, electron_residual=False,
+            nucleus_residual=False, two_particle_residual=False, deep_features=False,
+            update_rule='concatenate',
+            update_features=[partial(
+                CombinedNodeAttentionUpdateFeature, num_heads=2,
+                mlp_factory=_mlp(['log', 1], True, False, fwdlap.tanh, 'ferminet'),
+                attention_residual=nn.ResidualConnection(normalize=False),
+                mlp_residual=nn.ResidualConnection(normalize=False), elec_to_nuc=True)]),
+    )
+    shape = (n_orb * n_det * n_env,)
+    return build_ansatz(hamil, dict(
+        omni_factory=partial(
+            OmniNet, embedding_dim=16, jastrow_factory=None,
+            backflow_factory=partial(Backflow, subnet_factory=_mlp(
+                ['log', 1], False, True, None, 'ferminet')),
+            nuclear_gnn_head=partial(NuclearGNNHead,
+                                     one_particle_parameters={'zetas': shape, 'pis': shape}),
+            gnn_factory=gnn),
+        envelope=partial(SimplifiedNucleusDependentEnvelopes, n_envelope_per_nucleus=n_env,
+                         per_orbital_exponent=True, fixed_pi=False),
+        backflow_op=partial(BackflowOp, mult_act=lambda x: x), n_determinants=n_det,
+        full_determinant=True, cusp_electrons=None,
+        cusp_nuclei=partial(NuclearCuspAsymptotic, trainable_alpha=True,
+                            cusp_function=PsiformerCusp()),
+        backflow_transform='mult', conf_coeff=nn.SumPool,
+    ), seed=seed)
+
+
+def deeperwin_path(dq, hamil, R, smi, counts, zero_counts):
+    """Phase 16: the DeepErwin preset's evaluation (kernel 2 once a local energy,
+    nothing else) and E_loc gate; one evaluation step of the transferable
+    components (kernel 2 once, kernel 1 once a layer) and their E_loc gate;
+    ``ansatz=deeperwin`` trained through the command line in a subprocess
+    (every step finite, launching kernel 2 once, changing the parameters, as
+    its checkpoints show).  Returns the kernel launches of the phase."""
+    from functools import partial
+
+    import torch
+
+    from deepqmc_tpu_torch.fit import molecule_state
+    from deepqmc_tpu_torch.log import CheckpointStore
+    from deepqmc_tpu_torch.utils import cuda_median_ms
+
+    total = dict.fromkeys(counts(), 0)
+    slogdet_once = dict.fromkeys(total, 0) | {'fl_slogdet_traces': 1}
+    models = (
+        ('deeperwin', partial(dq.deeperwin_ansatz, hamil, seed=0), DW_EVAL_STEPS, slogdet_once),
+        ('transferable components', partial(transferable_ansatz, hamil), 1,
+         slogdet_once | {'fl_attention': 2}),
+    )
+    for label, make_wf, n_steps, per_eloc in models:
+        wf = make_wf()
+        n_params = sum(p.numel() for p in wf.parameters())
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        seen, step_s, last = counts(), [], None
+        t0 = time.monotonic()
+        for step, state, E_loc, stats in dq.evaluate(hamil, wf, n_walkers=DW_WALKERS,
+                                                     steps=n_steps, decorr=10, seed=0):
+            torch.cuda.synchronize()
+            step_s.append(time.monotonic() - t0)
+            now = counts()
+            launches = {k: now[k] - seen[k] for k in now}
+            seen = now
+            print(f'{label} step {step}: E_loc mean {stats["local_energy/mean"].item():.6f} std '
+                  f'{stats["local_energy/std"].item():.6f} acceptance '
+                  f'{stats["sampling/acceptance"].item():.4f} time {step_s[-1]:.3f} s; '
+                  f'launches {launches}', flush=True)
+            if not torch.isfinite(E_loc).all() or E_loc.shape != (DW_WALKERS,):
+                raise SystemExit(f'{label} step {step}: E_loc not finite or of shape '
+                                 f'{tuple(E_loc.shape)}')
+            if launches != per_eloc:
+                raise SystemExit(f'{label} step {step} launched {launches}, want {per_eloc}')
+            last = molecule_state(state)[1]
+            t0 = time.monotonic()
+        for k, v in counts().items():
+            total[k] += v
+        with torch.inference_mode():
+            pc = dq.PhysicalConfiguration(
+                R, last['r'], torch.zeros(DW_WALKERS, dtype=torch.long, device='cuda'))
+            eloc_ms = cuda_median_ms(lambda: hamil.local_energy(wf, pc), runs=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f'{smi} | deeperwin path {label} ({n_params} parameters), {DW_WALKERS} walkers: '
+              f'median evaluation step {_median(step_s):.3f} s (steps '
+              f'{", ".join(f"{t:.3f}" for t in step_s)} s); local energy alone {eloc_ms:.1f} '
+              f'ms; launches a local energy {per_eloc}; peak device memory {peak:.2f} GiB',
+              flush=True)
+        check_eloc_64(f'deeperwin path {label}', hamil, R, wf, make_wf, last['r'])
+        del wf, pc, last, state
+        torch.cuda.empty_cache()
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    workdir = os.path.join(root, 'runs', 'deeperwin_path')
+    shutil.rmtree(workdir, ignore_errors=True)
+    cmd = [sys.executable, '-m', 'deepqmc_tpu_torch', 'ansatz=deeperwin', 'hamil/mol=H2O',
+           f'task.steps={DW_CLI_STEPS}', f'task.pretrain_steps={DW_CLI_PRETRAIN_STEPS}',
+           f'+task.max_eq_steps={DW_CLI_EQ_STEPS}', '+task.chkpt_constructor.interval=1',
+           *CLI_SINKS_OFF, f'--workdir={workdir}']
+    print(f'deeperwin path: python3 {" ".join(cmd[1:])} (train.yaml: 1000 walkers, '
+          f'decorr_langevin, KFAC; cut: pretraining {DW_CLI_PRETRAIN_STEPS} steps of 100, '
+          f'equilibration {DW_CLI_EQ_STEPS} calls, fit {DW_CLI_STEPS} steps of 1000, a '
+          'checkpoint every step)', flush=True)
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=DW_CLI_TIMEOUT_S)
+    wall_s = time.time() - t0
+    if proc.returncode:
+        print(proc.stderr[-6000:], file=sys.stderr, flush=True)
+        raise SystemExit(f'deeperwin path: the training run exited with {proc.returncode}')
+    steps, text, peak_gib = _log_steps(workdir, 'training')
+    step_s = _check_steps('deeperwin path training', steps, DW_CLI_STEPS, slogdet_once)
+    for line in text.splitlines():
+        if 'SCF solution in' in line or 'Pretraining completed' in line:
+            print(f'deeperwin path training: {line}', flush=True)
+    params = [CheckpointStore.load(os.path.join(workdir, 'training', f'chkpt-{i}.pt'))[1].params
+              for i in range(DW_CLI_STEPS + 1)]
+    for i, (before, after) in enumerate(zip(params, params[1:])):
+        if not all(torch.isfinite(v).all() for v in after.values()):
+            raise SystemExit(f'deeperwin path training: step {i} left parameters not finite')
+        if all(torch.equal(before[k], after[k]) for k in before):
+            raise SystemExit(f'deeperwin path training: step {i} left the parameters unchanged')
+    print(f'deeperwin path training: each of the {DW_CLI_STEPS} fit steps changed the '
+          'parameters (checkpoints 0-6), all finite', flush=True)
+    print(f'{smi} | deeperwin path training run (1000 walkers): subprocess wall time '
+          f'{wall_s:.1f} s, first fit step logged {steps[0][0] - t0:.1f} s after the start, '
+          f'median fit step {1e3 * _median(step_s):.1f} ms (steps '
+          f'{", ".join(f"{1e3 * t:.1f}" for t in step_s)} ms), peak device memory '
+          f'{peak_gib:.3f} GiB', flush=True)
+    for k in total:
+        total[k] += steps[-1][2]['launches'][k]
+    shutil.rmtree(workdir)
+    return total
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2117,6 +2321,8 @@ def main() -> int:
             # walkers (its full determinants)
             (ZOO_EVAL_WALKERS, dict(K=30, D=16, nu=3, nd=2)),
             (ZOO_RUNS['default'][1], dict(K=30, D=16, nu=5, nd=5)),
+            # the deeperwin path's: 32 full determinants of H2O at its walkers
+            (DW_WALKERS, dict(K=30, D=32, nu=5, nd=5)),
         )
         for B, kw in slogdet_shapes:
             for name, kernel, plain, make in slogdet_kernels:
@@ -2133,16 +2339,20 @@ def main() -> int:
                 del got
                 if B > 5:
                     ms = cuda_median_ms(lambda: kernel(*args), runs=5, warmup=1)
+                    plain_ms = cuda_median_ms(lambda: plain(*args), runs=5, warmup=1)
                     bound_ms, nbytes, flops = slogdet_bound_ms(
                         B, kw['K'], kw['D'], kw['nu'] + kw['nd'],
                         with_l=name != 'fl_slogdet_traces')
-                    print(f'{name} B={B} {kw}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms '
-                          f'({nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP)', flush=True)
+                    print(f'{name} B={B} {kw}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+                          f'bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB, '
+                          f'{flops / 1e9:.2f} GFLOP)', flush=True)
                 del args
                 torch.cuda.empty_cache()
         # the attention kernel beyond H2O's 10 tokens: benzene's 42 and its
-        # largest instance, 64, at the preset's 4 heads of 64
-        for B, kw in ((64, dict(K=126, n=42)), (32, dict(K=192, n=64))):
+        # largest instance, 64, at the preset's 4 heads of 64; the transferable
+        # components' 3 nuclei and 10 electrons, 2 heads of 8, at their walkers
+        for B, kw in ((64, dict(K=126, n=42)), (32, dict(K=192, n=64)),
+                      (DW_WALKERS, dict(K=30, n=13, H=2, dh=8))):
             args = attention_inputs(gen, B, **kw)
             for label, o, r in zip(('t', 'J_t', 'L_t'), mha_core_fl(*args), mha_core_fl_plain(*args)):
                 err, rel = max_errors(o, r)
@@ -2617,6 +2827,14 @@ def main() -> int:
         print(f'launches during the benzene path: {benzene_launches}', flush=True)
         for name, n in benzene_launches.items():
             by_name[name]['benzene_launches'] = n
+
+    with Phase('deeperwin_path'):
+        dw_launches = deeperwin_path(dq, hamil, R, smi, counts, zero_counts)
+        print(f'launches during the deeperwin path: {dw_launches}', flush=True)
+        if dw_launches['fl_slogdet_traces'] == 0:
+            raise SystemExit('the deeperwin path never launched kernel 2')
+        for name, n in dw_launches.items():
+            by_name[name]['deeperwin_launches'] = n
 
     print(json.dumps({'kernels': kernels}), flush=True)
     print(f'{smi} | whole run {time.monotonic() - _T0:.1f} s', flush=True)

@@ -31,5 +31,11 @@ from . import force, train  # noqa: F401  (train.train is the run, fit.train the
 from .fit import eval_step, evaluate  # noqa: F401
 from .hamil import MolecularHamiltonian  # noqa: F401
 from .molecule import Molecule  # noqa: F401
-from .presets import ansatz_preset, default_ansatz, ferminet_ansatz, psiformer_ansatz  # noqa: F401
+from .presets import (  # noqa: F401
+    ansatz_preset,
+    deeperwin_ansatz,
+    default_ansatz,
+    ferminet_ansatz,
+    psiformer_ansatz,
+)
 from .types import PhysicalConfiguration, Psi  # noqa: F401

@@ -182,8 +182,8 @@ def main(argv=None):
     gen = torch.Generator('cuda').manual_seed(0)
     x, J, L = (torch.randn(*s, generator=gen, device='cuda')
                for s in ((B, n, d), (B, K, n, d), (B, n, d)))
-    layer = NodeAttentionElectronUpdateFeature(d, num_heads=H,
-                                               gen=torch.Generator().manual_seed(0)).cuda()
+    layer = NodeAttentionElectronUpdateFeature.psiformer(
+        d, num_heads=H, gen=torch.Generator().manual_seed(0)).cuda()
     weights = [w.detach() for w in layer.block_weights()]
     with torch.inference_mode():
         if not errors_only:

@@ -1,6 +1,6 @@
 """The ``ansatz`` group (``deepqmc_tpu/conf/ansatz/*.yaml``).  The port builds
-these trees through :func:`..presets.ansatz_from_config`, which reads them
-into the presets' arguments; ``deeperwin`` raises there."""
+these trees through :func:`..presets.ansatz_from_config`, which instantiates
+each node onto the port's counterpart of its target."""
 
 OPTIONS = {
     'deeperwin': {

@@ -22,7 +22,9 @@ YAML files:
 
 A node whose target is in :data:`TREE_READERS` is not called with its
 instantiated keywords: its reader gets the node as composed.  The ansatz
-trees take this route (:func:`.presets.ansatz_from_config`).
+trees take this route (:func:`.presets.ansatz_from_config`), which
+instantiates the tree's nodes and builds the wave function from them inside
+a seeded generator, as the presets do.
 """
 
 import copy
@@ -52,6 +54,9 @@ TARGET_ALIASES = {
     'haiku.Linear': 'deepqmc_tpu_torch.nn.Linear',
     'kfac_jax.Optimizer': 'deepqmc_tpu_torch.kfac.KFAC',
     'jax.numpy.tanh': 'deepqmc_tpu_torch.fwdlap.tanh',
+    'jax.nn.sigmoid': 'deepqmc_tpu_torch.fwdlap.sigmoid',
+    'jax.nn.silu': 'deepqmc_tpu_torch.fwdlap.silu',
+    'jax.nn.softplus': 'deepqmc_tpu_torch.fwdlap.softplus',
     'jax.numpy.ones': 'deepqmc_tpu_torch.nn.ones_init',
     'optax.adamw': 'deepqmc_tpu_torch.optimizer.adamw',
 }

@@ -2,7 +2,11 @@
 
 The JAX package keeps parameters as ``{module/path: {name: array}}``; the port
 records each parameter's JAX address (``nn.core.jax_param_paths``), so the
-conversion is a lookup.  Weights share the JAX layout (``[in, out]``), and so
+conversion is a lookup, with no table of paths: the port's modules name
+themselves as the JAX package's do, so every path of the ansatz zoo (the
+per-type ``u{type}``, ``g_nuc``, the per-channel ``g_{name}``, the nuclear
+``embeddings``, the head's readouts and biases, the envelopes and cusps)
+maps as it is.  Weights share the JAX layout (``[in, out]``), and so
 do the KFAC factors and inverses, which both packages key by the layer's path.
 Several electronic states: JAX stacks every parameter on a leading state
 axis, and keeps one KFAC factor and inverse dict per state in a list; the

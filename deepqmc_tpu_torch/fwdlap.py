@@ -177,6 +177,10 @@ class FL:
         dim = _neg(dim)
         return FL(self.x.squeeze(dim), self.jac.squeeze(dim), self.lap.squeeze(dim))
 
+    def transpose(self, dim0: int, dim1: int) -> 'FL':
+        d0, d1 = _neg(dim0), _neg(dim1)
+        return FL(self.x.transpose(d0, d1), self.jac.transpose(d0, d1), self.lap.transpose(d0, d1))
+
     def flatten(self, start_dim: int, end_dim: int = -1) -> 'FL':
         s, e = _neg(start_dim), _neg(end_dim)
         return FL(self.x.flatten(s, e), self.jac.flatten(s, e), self.lap.flatten(s, e))
@@ -270,6 +274,47 @@ def tanh(v):
     return _elementwise(v, y, d1, -2 * y * d1)
 
 
+def _softplus(x):
+    # log(1 + e^x) without overflow, exact for large x (jax.nn.softplus)
+    return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def softplus(v):
+    """log(1 + e^x), with f' = sigmoid(x) and f'' = sigmoid(x) (1 - sigmoid(x))."""
+    if not is_fl(v):
+        return _softplus(v)
+    s = torch.sigmoid(v.x)
+    return _elementwise(v, _softplus(v.x), s, s * (1 - s))
+
+
+def sigmoid(v):
+    if not is_fl(v):
+        return torch.sigmoid(v)
+    y = torch.sigmoid(v.x)
+    d1 = y * (1 - y)
+    return _elementwise(v, y, d1, d1 * (1 - 2 * y))
+
+
+def silu(v):
+    """x sigmoid(x), with f' = s (1 + x (1 - s)) and f'' = s (1 - s) (2 + x (1 - 2 s))."""
+    if not is_fl(v):
+        return v * torch.sigmoid(v)
+    x = v.x
+    s = torch.sigmoid(x)
+    return _elementwise(v, x * s, s * (1 + x * (1 - s)), s * (1 - s) * (2 + x * (1 - 2 * s)))
+
+
+def amin(v, dim: int):
+    """The minimum over the feature axis ``dim``: each channel taken where the
+    primal is least."""
+    if not is_fl(v):
+        return v.amin(dim)
+    dim = _neg(dim)
+    idx = v.x.argmin(dim, keepdim=True)
+    jdx = idx.unsqueeze(1).expand(idx.shape[0], v.jac.shape[1], *idx.shape[1:])
+    return FL(v.x.gather(dim, idx), v.jac.gather(dim, jdx), v.lap.gather(dim, idx)).squeeze(dim)
+
+
 def log(v):
     if not is_fl(v):
         return torch.log(v)
@@ -360,21 +405,32 @@ def primal(v) -> torch.Tensor:
 # --- fused rules (kernel-backed) ---------------------------------------------
 
 
-def mha_core(q2, k2, v2, num_heads: int, core=None):
+def mha_core(q2, k2, v2, num_heads: int, core=None, mask=None):
     """softmax(q k^T / sqrt(dh)) v on head-flat ``[B, n, H*dh]`` operands.
 
     Counterpart of ``nn/modules.py`` ``_mha_core_flat`` and of the
     attention-core rule ``fwdlap._mha_core_flat_rule``: on FL operands the
     whole core goes through ``core`` on per-head operands, by default
     :func:`ops.fl_attention.mha_core_fl` (the CUDA kernel on the card).  The
-    head split is a view of the flat layout.
+    head split is a view of the flat layout.  With a boolean ``mask``
+    ``[n, n]`` (query, key) the keys where it is False are left out, as the
+    JAX package's masked branch does per primitive: the core is then the
+    kernel's plain version with the mask, on any device.
     """
     if not any(is_fl(v) for v in (q2, k2, v2)):
         q, k, v = (t.unflatten(-1, (num_heads, -1)) for t in (q2, k2, v2))
         logits = torch.einsum('bihd,bjhd->bhij', q, k) / q.shape[-1] ** 0.5
+        if mask is not None:
+            logits = torch.where(mask, logits, -1e30)
         att = torch.einsum('bhij,bjhd->bihd', torch.softmax(logits, -1), v)
         return att.flatten(-2)
-    if core is None:
+    if mask is not None:
+        from functools import partial
+
+        from .ops.fl_attention import mha_core_fl_plain
+
+        core = partial(mha_core_fl_plain, mask=mask)
+    elif core is None:
         from .ops.fl_attention import mha_core_fl, mha_core_fl_plain
 
         core = mha_core_fl_plain if uses_plain_cores() else mha_core_fl

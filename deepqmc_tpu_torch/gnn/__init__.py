@@ -1,3 +1,9 @@
 """Graph neural networks of the port."""
 
-from .electron_gnn import ElectronEmbedding, ElectronGNN, ElectronGNNLayer  # noqa: F401
+from .electron_gnn import (  # noqa: F401
+    ElectronEmbedding,
+    ElectronGNN,
+    ElectronGNNLayer,
+    NucleiEmbedding,
+    PermutationInvariantEmbedding,
+)

@@ -5,9 +5,10 @@ An edge block is ``[B, n_sender, n_receiver, feat]``, senders on axis -3 as in
 the JAX package, a tensor or an :class:`~deepqmc_tpu_torch.fwdlap.FL`.  An
 edge is the receiver's position minus the sender's, formed by one subtraction
 of the electron FL from itself: a kept self-edge (FermiNet's ``up``/``down``)
-then has a Jacobian of exactly 0.  Self-edges are removed structurally: the
-sender axis of a masked block has n - 1 entries, gathered by
-:func:`offdiagonal_sender_idx`.
+then has a Jacobian of exactly 0.  The nuclei are constants: 'nn' edges are
+plain tensors, 'ne' and 'en' edges FLs when the electrons are.  Self-edges
+are removed structurally: the sender axis of a masked block has n - 1
+entries, gathered by :func:`offdiagonal_sender_idx`.
 
 ``single_array`` is what the edge networks see: the block itself for the
 simple containers, both blocks flattened to ``[B, n_edges, feat]`` and
@@ -35,7 +36,7 @@ def offdiagonal_sender_idx(n_node: int, device=None) -> torch.Tensor:
 
 def compute_edges(pos_sender, pos_receiver, filter_diagonal: bool):
     """Receiver minus sender ``[B, n_s, n_r, 3]``."""
-    diffs = pos_receiver[..., None, :, :] - pos_sender[..., :, None, :]
+    diffs = fl.add(pos_receiver[..., None, :, :], fl.neg(pos_sender[..., :, None, :]))
     if filter_diagonal:
         n_node = pos_sender.shape[-2]
         device = fl.primal(pos_receiver).device
@@ -172,31 +173,36 @@ class AntiGraphEdges:
         return type(self)(du, ud).sum_senders(normalize)
 
 
-def MolecularGraphEdgeBuilder(n_up, n_down, edge_types, *, self_interaction):
-    """``r [B, n_el, 3] -> {type: edges}`` for the electron-electron types
-    'same', 'anti', 'up' and 'down'.  Same-spin blocks lose their self-edges
-    unless ``self_interaction``; 'up' and 'down' keep them always.  (The
-    embedding forms the electron-nucleus differences itself.)"""
+def MolecularGraphEdgeBuilder(n_nuc, n_up, n_down, edge_types, *, self_interaction):
+    """``(r [B, n_el, 3], R [B, n_nuc, 3]) -> {type: edges}`` for the types
+    'nn', 'ne', 'en', 'same', 'anti', 'up' and 'down'.  'nn' and same-spin
+    blocks lose their self-edges unless ``self_interaction``; the others keep
+    every pair."""
     masked = not self_interaction
     build_rules = {
-        'same': lambda r: SameGraphEdges(
+        'nn': lambda r, R: SimpleGraphEdges(compute_edges(R, R, masked)),
+        'ne': lambda r, R: SimpleGraphEdges(compute_edges(R, r, False)),
+        'en': lambda r, R: SimpleGraphEdges(compute_edges(r, R, False)),
+        'same': lambda r, R: SameGraphEdges(
             compute_edges(r[..., :n_up, :], r[..., :n_up, :], masked),
             compute_edges(r[..., n_up:, :], r[..., n_up:, :], masked),
         ),
-        'anti': lambda r: AntiGraphEdges(
+        'anti': lambda r, R: AntiGraphEdges(
             compute_edges(r[..., n_up:, :], r[..., :n_up, :], False),
             compute_edges(r[..., :n_up, :], r[..., n_up:, :], False),
         ),
-        'up': lambda r: UpGraphEdges(compute_edges(r[..., :n_up, :], r, False)),
-        'down': lambda r: DownGraphEdges(compute_edges(r[..., n_up:, :], r, False)),
+        'up': lambda r, R: UpGraphEdges(compute_edges(r[..., :n_up, :], r, False)),
+        'down': lambda r, R: DownGraphEdges(compute_edges(r[..., n_up:, :], r, False)),
     }
     unknown = set(edge_types) - set(build_rules)
     if unknown:
-        raise ValueError(f'edge types {sorted(unknown)} are not ported (ROADMAP.md, queue 1 item 8)')
+        raise ValueError(f'unknown edge types {sorted(unknown)}')
 
-    def build(r):
-        if r.shape[-2] != n_up + n_down:
+    def build(r, R=None):
+        if r is not None and r.shape[-2] != n_up + n_down:
             raise ValueError(f'{r.shape[-2]} electrons, want {n_up + n_down}')
-        return {typ: build_rules[typ](r) for typ in edge_types}
+        if R is not None and R.shape[-2] != n_nuc:
+            raise ValueError(f'{R.shape[-2]} nuclei, want {n_nuc}')
+        return {typ: build_rules[typ](r, R) for typ in edge_types}
 
     return build

@@ -39,8 +39,10 @@ def _softmax_fl(z, Jz, Lz):
     return a, Ja, La
 
 
-def mha_core_fl_plain(q, k, v, Jq, Jk, Jv, Lq, Lk, Lv):
-    """Plain PyTorch version of the kernel; the CPU path and the kernel's oracle."""
+def mha_core_fl_plain(q, k, v, Jq, Jk, Jv, Lq, Lk, Lv, mask=None):
+    """Plain PyTorch version of the kernel; the CPU path and the kernel's oracle.
+    A boolean ``mask`` ``[n, n]`` (query, key) leaves out the keys where it is
+    False (logit -1e30 and no derivative there), which the kernel does not do."""
     scale = 1.0 / q.shape[-1] ** 0.5
     z = torch.einsum('bihd,bjhd->bhij', q, k) * scale
     Jz = (
@@ -51,6 +53,9 @@ def mha_core_fl_plain(q, k, v, Jq, Jk, Jv, Lq, Lk, Lv):
         + torch.einsum('bihd,bjhd->bhij', q, Lk)
         + 2 * torch.einsum('bkihd,bkjhd->bhij', Jq, Jk)
     ) * scale
+    if mask is not None:
+        z = torch.where(mask, z, -1e30)
+        Jz, Lz = torch.where(mask, Jz, 0.0), torch.where(mask, Lz, 0.0)
     a, Ja, La = _softmax_fl(z, Jz, Lz)
     t = torch.einsum('bhij,bjhd->bihd', a, v)
     Jt = torch.einsum('bkhij,bjhd->bkihd', Ja, v) + torch.einsum('bhij,bkjhd->bkihd', a, Jv)

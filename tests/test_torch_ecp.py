@@ -21,7 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import jax_phys_conf, small_kwargs, torch_phys_conf
+from torch_parity import jax_phys_conf, jit_once, small_kwargs, torch_phys_conf
 
 import deepqmc_tpu as dqj
 import deepqmc_tpu_torch as dqt
@@ -114,7 +114,7 @@ def models(mol_name, ecp_type, ecp_mask=None, preset='psiformer', seed=0, **over
     ansatz = instantiate_ansatz(hamil_j, jax_ansatz_preset(preset,
                                                            **small_kwargs(preset, **overrides)))
     pc = hamil_j.init_sample(jax.random.PRNGKey(seed), hamil_j.mol.coords, 1)[0]
-    params = jax.jit(ansatz.init)(jax.random.PRNGKey(seed + 1), pc)
+    params = jit_once(ansatz.init)(jax.random.PRNGKey(seed + 1), pc)
     noise = np.random.default_rng(seed)
     params = {path: {k: np.asarray(v) + 0.1 * noise.normal(size=np.shape(v))
                      for k, v in bundle.items()} for path, bundle in params.items()}
@@ -147,7 +147,7 @@ def case(request):
         return pot.local_potential(pc), pot.nonloc_potential(key, pc, wf_j)
 
     v_loc, v_nl = jax.jit(jax.vmap(one))(keys, pc_j)
-    eloc, stats = jax.jit(jax.vmap(hamil_j.local_energy(ansatz.apply), (0, None, 0)))(
+    eloc, stats = jit_once(jax.vmap(hamil_j.local_energy(ansatz.apply), (0, None, 0)))(
         keys, params, pc_j)
     n_nl = len(pot.nuc_with_nl_pot)
     phi = np.stack([_jax_angles(k, n_nl, r.shape[1]) for k in keys], axis=1)  # [n_nl, B, n]
@@ -232,7 +232,7 @@ def test_presets_with_ecp_match_jax(preset):
     parameters and psi as JAX on H2O with the O ccECP."""
     hamil_j, ansatz, params, hamil_t, wf = models('H2O', 'ccECP', preset=preset)
     r = np.asarray(hamil_j.init_sample(jax.random.PRNGKey(2), hamil_j.mol.coords, 3).r)
-    want = jax.jit(jax.vmap(ansatz.apply, (None, 0)))(params, jax_phys_conf(hamil_j, r))
+    want = jit_once(jax.vmap(ansatz.apply, (None, 0)))(params, jax_phys_conf(hamil_j, r))
     with torch.inference_mode():
         got = wf(torch_phys_conf(hamil_t, r))
     np.testing.assert_array_equal(got.sign.numpy(), np.asarray(want.sign))

@@ -23,6 +23,7 @@ from torch_parity import (
     grads_by_jax_path,
     jax_model,
     jax_phys_conf,
+    jit_once,
     torch_model,
     torch_phys_conf,
     walkers,
@@ -75,7 +76,7 @@ def test_evaluate_spin_matches_jax(mol, preset):
     straddle two forwards); with no down electron the constant S(S+1)."""
     hamil_j, ansatz, (params,), hamil_t, stack = _states(mol, preset, 1)
     r = walkers(hamil_j, 'init_sample', n=B, seed=3)
-    want = jax.jit(jax.vmap(jax_evaluate_spin(hamil_j, ansatz.apply), (None, 0)))(
+    want = jit_once(jax.vmap(jax_evaluate_spin(hamil_j, ansatz.apply), (None, 0)))(
         params, jax_phys_conf(hamil_j, r))
     with torch.no_grad():
         got = evaluate_spin(hamil_t, stack[0], torch_phys_conf(hamil_t, r), chunk=5)

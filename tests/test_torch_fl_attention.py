@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_parity  # noqa: F401  (one intra-op thread per pytest worker)
 
 from deepqmc_tpu.ops.fl_attention import _pallas_blocked
 from deepqmc_tpu.ops.fl_attention import mha_core_fl as jax_mha_core_fl

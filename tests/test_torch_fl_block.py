@@ -70,7 +70,7 @@ def test_plain_matches_interpret_mode_block_kernel(triple):
 
 def _layer(d, heads, seed, block_kernel=False):
     gen = torch.Generator().manual_seed(seed)
-    return NodeAttentionElectronUpdateFeature(
+    return NodeAttentionElectronUpdateFeature.psiformer(
         d, num_heads=heads, gen=gen, block_kernel=block_kernel
     ).double()
 

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_parity  # noqa: F401  (one intra-op thread per pytest worker)
 
 from deepqmc_tpu.fwdlap import forward_laplacian as jax_forward_laplacian
 from deepqmc_tpu.ops.fl_slogdet import (

@@ -4,7 +4,9 @@ Each rule of ``deepqmc_tpu_torch.fwdlap`` propagates (value, Jacobian,
 Laplacian); here small scalar functions of a seeded input built from those
 ops are evaluated through ``FL.seed`` and compared with ``torch.func``'s
 gradient and Hessian trace, at float64 with relative tolerance 1e-12 (a few
-chained ops, so float64 rounding only).
+chained ops, so float64 rounding only).  The elementwise rules of softplus,
+sigmoid and silu carry their own first and second derivatives, so they
+hold where a composition through ``exp`` would overflow.
 """
 
 import numpy as np
@@ -30,6 +32,13 @@ FUNCTIONS = {
     'shape_ops': lambda x: (x[..., :, None] * x[..., None, :]).flatten(-2).unflatten(-1, (3, 3))
     .sum(-1, keepdim=True).squeeze(-1),
     'mha_core': lambda x: fl.mha_core(x @ W, fl.tanh(x @ W), x @ W * 0.5, 2),
+    'mha_core_masked': lambda x: fl.mha_core(x @ W, fl.tanh(x @ W), x @ W * 0.5, 2,
+                                             mask=torch.tensor([[True, False], [True, True]])),
+    # the activations of DeepErwin and the embeddings' MLPs, also where exp(x) overflows
+    'softplus_ssp': lambda x: fl.softplus(x @ W) * (1 + fl.softplus(800 * (x @ W) - 2e3)),
+    'sigmoid': lambda x: fl.sigmoid(x @ W) * fl.sigmoid(-40 * (x @ W)),
+    'silu': lambda x: fl.silu(x @ W) + fl.silu(50 * (x @ W)),
+    'amin_transpose': lambda x: (fl.amin(x[..., :, None] * W, -2) * (x @ W)).transpose(-1, -2),
 }
 
 

@@ -33,7 +33,7 @@ FEATURES = CombinedEdgeFeature(features=[DistancePowerEdgeFeature(powers=[1]),
 
 
 def _edges(x, types, self_interaction):
-    return graph.MolecularGraphEdgeBuilder(N_UP, N_EL - N_UP, types,
+    return graph.MolecularGraphEdgeBuilder(0, N_UP, N_EL - N_UP, types,
                                            self_interaction=self_interaction)(x)
 
 

@@ -15,7 +15,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from torch_parity import jax_model, jax_phys_conf, torch_model, torch_phys_conf, walkers
+from torch_parity import jax_model, jax_phys_conf, jit_once, torch_model, torch_phys_conf, walkers
 
 from deepqmc_tpu_torch.physics import loop_laplacian
 
@@ -29,7 +29,7 @@ def case(request):
     mol, source = request.param
     hamil_j, ansatz, params = jax_model(mol, seed=1)
     r = walkers(hamil_j, source, n=2, seed=3)
-    eloc, stats = jax.jit(jax.vmap(hamil_j.local_energy(ansatz.apply), (None, None, 0)))(
+    eloc, stats = jit_once(jax.vmap(hamil_j.local_energy(ansatz.apply), (None, None, 0)))(
         None, params, jax_phys_conf(hamil_j, r)
     )
     want = {'E_loc': np.asarray(eloc), **{k: np.asarray(stats[f'hamil/{k}']) for k in TERMS}}

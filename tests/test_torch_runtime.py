@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import tensorboardX
 import torch
+import torch_parity  # noqa: F401  (one intra-op thread per pytest worker)
 
 import deepqmc_tpu_torch as dqt
 from deepqmc_tpu_torch import fit

@@ -11,7 +11,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from torch_parity import jax_model, jax_phys_conf, torch_model, torch_phys_conf, walkers
+from torch_parity import jax_model, jax_phys_conf, jit_once, torch_model, torch_phys_conf, walkers
 
 from deepqmc_tpu_torch.convert import state_dict_from_jax
 from deepqmc_tpu_torch.nn import jax_param_paths
@@ -28,7 +28,7 @@ def test_psi_matches_jax(mol, source):
     hamil_j, ansatz, params = jax_model(mol)
     hamil_t, wf = torch_model(mol, params)
     r = walkers(hamil_j, source, n=4)
-    want = jax.jit(jax.vmap(ansatz.apply, (None, 0)))(params, jax_phys_conf(hamil_j, r))
+    want = jit_once(jax.vmap(ansatz.apply, (None, 0)))(params, jax_phys_conf(hamil_j, r))
     with torch.inference_mode():
         got = wf(torch_phys_conf(hamil_t, r))
     np.testing.assert_array_equal(got.sign.numpy(), np.asarray(want.sign))

@@ -5,21 +5,27 @@ The small presets (2 determinants, embedding 16, 2 interactions, two-particle
 width 8) with full and per-spin determinants on H2, LiH, H2O and the
 open-shell Li atom (2 up, 1 down), with JAX's parameters converted by
 ``deepqmc_tpu_torch.convert``; walkers from JAX ``init_sample`` and, for LiH,
-the pinned self-golden walker; the small PsiFormer with per-spin
+the pinned self-golden walker (FermiNet's cases run in
+``test_torch_zoo_ferminet.py``); the small PsiFormer with per-spin
 determinants too.  Sign exactly, log|psi| to relative 1e-10 at float64.
 Also: the conversion covers every parameter both ways, the
 initial weights have the spread of JAX's initialisers, and the presets
 refuse what they cannot build.
 """
 
+import functools
+
 import jax
 import numpy as np
 import pytest
 import torch
 from torch_parity import (
+    init_sample,
     jax_model,
     jax_phys_conf,
+    jit_once,
     molecule,
+    small_kwargs,
     torch_model,
     torch_phys_conf,
     walkers,
@@ -40,27 +46,41 @@ MOLS = [('H2', 'init_sample'), ('LiH', 'init_sample'), ('LiH', 'selfgolden'),
         ('H2O', 'init_sample'), ('Li', 'init_sample')]
 
 
-@pytest.mark.parametrize('preset, mol, source, full_determinant', [
-    *((p, *m, f) for p in PRESETS for m in MOLS for f in (True, False)),
-    # the PsiFormer takes the JAX preset's full_determinant too
-    ('psiformer', 'H2O', 'init_sample', False), ('psiformer', 'Li', 'init_sample', False),
-])
-def test_psi_matches_jax(preset, mol, source, full_determinant):
+@functools.cache
+def _jax_model(mol, preset, full_determinant=True):
+    """``jax_model`` of the small preset, initialised once per module (the
+    LiH walkers of both sources and the conversion test share it)."""
+    return jax_model(mol, preset=preset, full_determinant=full_determinant)
+
+
+def check_psi(preset, mol, source, full_determinant):
+    """Sign exactly and log|psi| to RTOL against JAX on 4 walkers of ``source``."""
     over = {'full_determinant': full_determinant}
-    hamil_j, ansatz, params = jax_model(mol, preset=preset, **over)
+    hamil_j, ansatz, params = _jax_model(mol, preset, full_determinant)
     hamil_t, wf = torch_model(mol, params, preset=preset, overrides=over)
     r = walkers(hamil_j, source, n=4)
-    want = jax.jit(jax.vmap(ansatz.apply, (None, 0)))(params, jax_phys_conf(hamil_j, r))
+    want = jit_once(jax.vmap(ansatz.apply, (None, 0)))(params, jax_phys_conf(hamil_j, r))
     with torch.inference_mode():
         got = wf(torch_phys_conf(hamil_t, r))
     np.testing.assert_array_equal(got.sign.numpy(), np.asarray(want.sign))
     np.testing.assert_allclose(got.log.numpy(), np.asarray(want.log), rtol=RTOL)
 
 
+# the ``default`` preset's cases; FermiNet's are in test_torch_zoo_ferminet.py
+@pytest.mark.parametrize('preset, mol, source, full_determinant', [
+    *(('default', *m, f) for m in MOLS for f in (True, False)),
+    # the PsiFormer takes the JAX preset's full_determinant too
+    ('psiformer', 'H2O', 'init_sample', False), ('psiformer', 'Li', 'init_sample', False),
+])
+def test_psi_matches_jax(preset, mol, source, full_determinant):
+    check_psi(preset, mol, source, full_determinant)
+
+
 @pytest.mark.parametrize('preset', PRESETS)
 def test_conversion_covers_every_parameter(preset):
     """JAX's parameter paths are the port's, one to one, and a foreign path is refused."""
-    _, _, params = jax_model('LiH', preset=preset)
+    _, _, params = _jax_model('LiH', preset)
+    params = {path: dict(bundle) for path, bundle in params.items()}
     _, wf = torch_model('LiH', params, preset=preset)
     paths = jax_param_paths(wf)
     assert len(params) == N_GROUPS[preset]
@@ -84,8 +104,8 @@ def test_initial_weights_have_the_spread_of_jax_inits(preset):
     the ones of ``conf_coeff``, the envelopes) exactly equal."""
     hamil_j = dqj.MolecularHamiltonian(mol=molecule(dqj, 'LiH'))
     ansatz = instantiate_ansatz(hamil_j, jax_ansatz_preset(preset))
-    pc = hamil_j.init_sample(jax.random.PRNGKey(0), hamil_j.mol.coords, 1)[0]
-    want = ansatz.init(jax.random.PRNGKey(1), pc)
+    pc = init_sample(hamil_j, 1, 0)[0]
+    want = jit_once(ansatz.init)(jax.random.PRNGKey(1), pc)
     hamil_t = dqt.MolecularHamiltonian(mol=molecule(dqt, 'LiH'))
     wf = dqt.ansatz_preset(preset, seed=3)(hamil_t)
     n_random = 0
@@ -113,10 +133,49 @@ def test_presets_refuse_an_empty_spin(preset):
 
 def test_ansatz_preset_names():
     hamil = dqt.MolecularHamiltonian(mol=molecule(dqt, 'H2'))
-    with pytest.raises(NotImplementedError, match='queue 1 item 8'):
-        dqt.ansatz_preset('deeperwin')
+    wf = dqt.ansatz_preset('deeperwin', n_determinants=2, embedding_dim=8, n_interactions=2,
+                           two_particle_stream_dim=4)(hamil)
+    assert wf.n_det == 2 and len(wf.omni.gnn.layers) == 2
+    assert wf.omni.gnn.out_dims == (32, 8) and wf.omni.gnn.nuclei_embedding is not None
+    with pytest.raises(ValueError, match='block_kernel'):  # no PsiFormer block to fuse
+        dqt.ansatz_preset('ferminet', embedding_dim=8, n_interactions=1, block_kernel=True)(hamil)
     with pytest.raises(ValueError, match='unknown ansatz preset'):
         dqt.ansatz_preset('paulinet')
     wf = dqt.ansatz_preset('psiformer', n_determinants=2, embedding_dim=8, n_interactions=1,
                            num_heads=2)(hamil)
     assert wf.n_det == 2 and len(wf.omni.gnn.layers) == 1
+
+
+TREE_SMALL = {
+    'default': ['ansatz.omni_factory.gnn_factory.two_particle_stream_dim=8'],
+    'ferminet': ['ansatz.omni_factory.gnn_factory.two_particle_stream_dim=8'],
+    'deeperwin': ['ansatz.omni_factory.gnn_factory.two_particle_stream_dim=8'],
+    'psiformer': ['ansatz.omni_factory.embedding_dim=32'],
+}
+
+
+@pytest.mark.parametrize('preset', sorted(TREE_SMALL))
+def test_packaged_tree_builds_its_preset(preset):
+    """``ansatz=<preset>`` through the tree reader and ``ansatz_preset`` at the
+    same small widths: the same parameters (names, shapes, count) and, on
+    the same weights, the same log|psi| bit for bit."""
+    from deepqmc_tpu_torch import config
+
+    small = small_kwargs(preset, **({'num_heads': 4} if preset == 'psiformer' else {}))
+    overrides = [f'ansatz={preset}', 'hamil/mol=LiH', 'ansatz.n_determinants=2',
+                 'ansatz.omni_factory.gnn_factory.n_interactions=2', *TREE_SMALL[preset]]
+    if preset != 'psiformer':
+        overrides.append('ansatz.omni_factory.embedding_dim=16')
+    cfg = config.compose(overrides=overrides)
+    hamil = config.instantiate(cfg['hamil'], root=cfg)
+    tree = config.instantiate(cfg['ansatz'], root=cfg)(hamil).double()
+    preset_wf = dqt.ansatz_preset(preset, **small, seed=1)(hamil).double()
+    assert {k: v.shape for k, v in tree.state_dict().items()} == {
+        k: v.shape for k, v in preset_wf.state_dict().items()}
+    assert jax_param_paths(tree) == jax_param_paths(preset_wf)
+    tree.load_state_dict(preset_wf.state_dict())
+    r = torch.as_tensor(np.random.default_rng(0).normal(size=(3, hamil.n_up + hamil.n_down, 3)))
+    pc = torch_phys_conf(hamil, r.numpy())
+    with torch.inference_mode():
+        a, b = tree(pc), preset_wf(pc)
+    assert torch.equal(a.log, b.log) and torch.equal(a.sign, b.sign)

@@ -6,7 +6,8 @@ plain twin on the CPU) against JAX ``hamil.local_energy`` and against the
 port's nested-autograd oracle (``physics.loop_laplacian``), at float64, the
 small presets with JAX's parameters, the same walkers; relative 1e-9, the
 tolerance of ``test_torch_hamil.py``.  Per-spin determinants on H2O and the Li
-atom, full determinants on LiH's pinned walker, H2O and Li.  The ``default``
+atom, full determinants on LiH's pinned walker, H2O and Li (FermiNet's
+cases run in ``test_torch_zoo_hamil_ferminet.py``).  The ``default``
 preset's Langevin force (autograd against ``jax.grad``, cleaned) to 1e-10.
 """
 
@@ -15,7 +16,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import assert_close, jax_model, jax_phys_conf, torch_model, torch_phys_conf
+from torch_parity import (
+    assert_close,
+    jax_model,
+    jax_phys_conf,
+    jit_once,
+    torch_model,
+    torch_phys_conf,
+)
 from torch_parity import walkers as draw_walkers
 
 from deepqmc_tpu.sampling import electron_samplers as jax_samplers
@@ -28,18 +36,23 @@ CASES = [('LiH', 'selfgolden', True), ('H2O', 'init_sample', True), ('Li', 'init
          ('H2O', 'init_sample', False), ('Li', 'init_sample', False)]
 
 
-@pytest.fixture(scope='module', params=[(p, *c) for p in ('default', 'ferminet') for c in CASES],
-                ids=lambda p: '-'.join(map(str, p)))
-def case(request):
-    preset, mol, source, full = request.param
+def make_case(preset, mol, source, full):
+    """(model, JAX's parameters, walkers, JAX's E_loc and terms) of one case."""
     over = {'full_determinant': full}
     hamil_j, ansatz, params = jax_model(mol, seed=1, preset=preset, **over)
     r = draw_walkers(hamil_j, source, n=2, seed=3)
-    eloc, stats = jax.jit(jax.vmap(hamil_j.local_energy(ansatz.apply), (None, None, 0)))(
+    eloc, stats = jit_once(jax.vmap(hamil_j.local_energy(ansatz.apply), (None, None, 0)))(
         None, params, jax_phys_conf(hamil_j, r)
     )
     want = {'E_loc': np.asarray(eloc), **{k: np.asarray(stats[f'hamil/{k}']) for k in TERMS}}
     return (preset, mol, over), params, r, want
+
+
+# the ``default`` preset's cases; FermiNet's are in test_torch_zoo_hamil_ferminet.py
+@pytest.fixture(scope='module', params=[('default', *c) for c in CASES],
+                ids=lambda p: '-'.join(map(str, p)))
+def case(request):
+    return make_case(*request.param)
 
 
 def _port(model, params, r, **hamil_kwargs):
@@ -74,7 +87,7 @@ def test_langevin_force_of_default_matches_jax(mol, tau=0.1):
     hamil_j, ansatz, params = jax_model(mol, preset='default')
     hamil_t, wf = torch_model(mol, params, preset='default')
     r = draw_walkers(hamil_j, 'init_sample', n=8, seed=5)
-    want = jax.jit(jax_samplers.LangevinSampler(hamil_j, ansatz.apply, tau=tau).update)(
+    want = jit_once(jax_samplers.LangevinSampler(hamil_j, ansatz.apply, tau=tau).update)(
         {'r': jnp.asarray(r), 'age': jnp.zeros(len(r), jnp.int32), 'tau': jnp.asarray(tau)},
         params, jnp.asarray(hamil_j.mol.coords))
     with torch.no_grad():

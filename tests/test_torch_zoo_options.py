@@ -7,6 +7,7 @@ convolutions summed), with and without normalisation.  The Li atom (2 up,
 1 down) has an empty down-down block, whose normalised sum divides by 1 in
 both packages.  JAX's parameters converted; log|psi| to relative 1e-10, sign
 exactly, and the local energy with its terms to relative 1e-9, at float64.
+The options of the ``conf/ansatz`` trees are in ``test_torch_zoo_tree_options.py``.
 """
 
 from functools import partial
@@ -15,7 +16,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from torch_parity import jax_model, jax_phys_conf, torch_model, torch_phys_conf, walkers
+from torch_parity import jax_model, jax_phys_conf, jit_once, torch_model, torch_phys_conf, walkers
 
 import deepqmc_tpu.gnn.update_features as jax_uf
 import deepqmc_tpu.presets as jax_presets
@@ -61,8 +62,8 @@ def case(request):
         hamil_t, wf = torch_model(mol, params, preset='default')
         r = walkers(hamil_j, 'init_sample', n=2, seed=3)
         pc = jax_phys_conf(hamil_j, r)
-        psi = jax.jit(jax.vmap(ansatz.apply, (None, 0)))(params, pc)
-        eloc, stats = jax.jit(jax.vmap(hamil_j.local_energy(ansatz.apply), (None, None, 0)))(
+        psi = jit_once(jax.vmap(ansatz.apply, (None, 0)))(params, pc)
+        eloc, stats = jit_once(jax.vmap(hamil_j.local_energy(ansatz.apply), (None, None, 0)))(
             None, params, pc)
     want = {'E_loc': np.asarray(eloc), **{k: np.asarray(stats[f'hamil/{k}']) for k in TERMS}}
     return hamil_t, wf, r, psi, want
@@ -96,3 +97,4 @@ def test_local_energy_with_options_matches_jax(case):
     got = {'E_loc': eloc.numpy(), **{k: stats[f'hamil/{k}'].numpy() for k in TERMS}}
     for key, value in want.items():
         np.testing.assert_allclose(got[key], value, rtol=ELOC_RTOL, err_msg=key)
+

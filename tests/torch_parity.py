@@ -19,6 +19,19 @@ import jax
 import numpy as np
 import torch
 
+# The suite runs one pytest worker per core (xdist): each worker's CPU
+# tensors take one thread, as intra-op threads over every core in every
+# worker oversubscribe the machine and slow the port's tests by about a third
+torch.set_num_threads(1)
+
+
+def jit_once(fun, **kwargs):
+    """``jax.jit`` of a JAX reference that runs once (an init, psi or E_loc of
+    a few walkers): compiled at XLA's optimisation level 0, which takes about
+    0.6 of the compile time at these sizes, where LLVM's passes dominate."""
+    return jax.jit(fun, compiler_options={'xla_backend_optimization_level': 0}, **kwargs)
+
+
 SMALL = {'n_determinants': 2, 'embedding_dim': 32, 'n_interactions': 2, 'num_heads': 2}
 # the small FermiNet and default presets (tests/test_wf.py's, embedding 16)
 SMALL_ZOO = {'n_determinants': 2, 'embedding_dim': 16, 'n_interactions': 2,
@@ -53,8 +66,8 @@ def jax_model(mol_name: str, seed: int = 0, preset: str = 'psiformer', **overrid
 
     hamil = dqj.MolecularHamiltonian(mol=molecule(dqj, mol_name))
     ansatz = instantiate_ansatz(hamil, ansatz_preset(preset, **small_kwargs(preset, **overrides)))
-    pc = hamil.init_sample(jax.random.PRNGKey(seed), hamil.mol.coords, 1)[0]
-    params = jax.jit(ansatz.init)(jax.random.PRNGKey(seed + 1), pc)
+    pc = init_sample(hamil, 1, seed)[0]
+    params = jit_once(ansatz.init)(jax.random.PRNGKey(seed + 1), pc)
     rng = np.random.default_rng(seed)
     params = {
         path: {k: np.asarray(v) + 0.1 * rng.normal(size=np.shape(v)) for k, v in bundle.items()}
@@ -79,11 +92,26 @@ def torch_model(mol_name: str, params, block_kernel: bool = False, preset: str =
     return hamil, wf
 
 
+_SAMPLES: dict = {}
+
+
+def init_sample(hamil_jax, n: int, seed: int):
+    """``hamil_jax.init_sample(PRNGKey(seed), its coordinates, n)``, drawn once
+    per process for each molecule, electron split, valence and ``n``, ``seed``
+    (an eager JAX program of many small operations, about a second a call)."""
+    mol = hamil_jax.mol
+    key = (np.asarray(mol.coords).tobytes(), np.asarray(mol.charges).tobytes(), mol.charge,
+           mol.spin, hamil_jax.n_up, hamil_jax.n_down,
+           np.asarray(hamil_jax.ns_valence).tobytes(), n, seed)
+    if key not in _SAMPLES:
+        _SAMPLES[key] = hamil_jax.init_sample(jax.random.PRNGKey(seed), mol.coords, n)
+    return _SAMPLES[key]
+
+
 def walkers(hamil_jax, source: str, n: int = 3, seed: int = 0) -> np.ndarray:
     """Electron positions [n, n_elec, 3] from ``init_sample`` or the self-goldens."""
     if source == 'init_sample':
-        pcs = hamil_jax.init_sample(jax.random.PRNGKey(seed), hamil_jax.mol.coords, n)
-        return np.asarray(pcs.r)
+        return np.asarray(init_sample(hamil_jax, n, seed).r)
     # the pinned LiH walker: edges_ne[I, i] = r_i - R_I
     edges_ne = np.load(SELFGOLDENS)['edges_ne']
     r = edges_ne[0] + np.asarray(hamil_jax.mol.coords)[0]
