@@ -237,6 +237,36 @@ Phases, each with a start and an end line and its own time budget:
    (checkpoints 0-6, all finite).  It prints the step times, the local
    energy's time, the peak device memory, the fit step and the time to the
    first step.
+17. mol batch path: the full-width H2O PsiFormer (seed-0 weights) on four
+   geometries of H2O (both O-H bonds at 0.9, 1.0, 1.1 and 1.25 times
+   ``molecule.py``'s, built in memory), two a step (``molecule_batch_size=2``)
+   at 2048 walkers a molecule through ``train.train``: no pretraining, 5
+   equilibration calls, 5 KFAC fit steps (bench.py's KFAC, decorr 10), then
+   2 evaluation steps from its state (``opt=None``).  Each step takes both
+   molecules' walkers through one local energy, so it launches the attention
+   kernel 4 times and the flat slogdet kernel once, at B = 4096; every step
+   finite, the fit changing the parameters, the energy EWM set for every
+   molecule a step touched.  E_loc, the gradient and one KFAC update (from
+   the run's optimizer state) on 64 walkers a molecule of two molecules, the
+   card in float32 against the plain path in float64 on the CPU by the local
+   energy's rule.  It prints the fit and evaluation step times and the peak
+   device memory;
+18. dp path: data parallelism over two ranks on the one card (``gloo``, which
+   takes CUDA tensors; NCCL refuses two ranks on one GPU), started by this
+   script as two processes of itself (``--dp-rank``) after its build, so they
+   load the built library.  The same PsiFormer (seed-0 weights) and two of
+   the geometries, 2048 walkers a molecule in all (1024 a rank).  On fixed
+   walkers this script writes under ``runs/dp_path`` each rank takes
+   the gradient and one KFAC update: rank 0's must hold to this process's on
+   the whole batch by the local energy's rule (the bars the mol batch path's
+   plain float32 path set); one local energy launches the attention kernel 4
+   times and the flat slogdet kernel once on each rank (B = 2048).  Then 3
+   KFAC steps through ``fit.train`` on each rank, each with those launches
+   and finite, after which the parameters must be bitwise equal across the
+   ranks.  A rank that fails fails the phase; one that hangs is stopped by
+   the phase's budget.  Then one ``nccl`` process group of one rank in this
+   process takes one step of the same run, so the NCCL code path runs.  It
+   prints the step times of the two ranks and of the one-rank group.
 
 The kernels phase also takes kernel 2 (and the square kernels) at the
 deeperwin path's shape, B = 2048, K = 30, D = 32, n = 10 split 5/5, and
@@ -265,7 +295,7 @@ PHASE_BUDGET_S = {
     'device': 60, 'build': 240, 'kernels': 300, 'main_path': 300, 'block_path': 180,
     'square_path': 120, 'train_path': 240, 'sampling_path': 240, 'run_path': 300,
     'zoo_path': 300, 'excited_path': 240, 'cli_path': 240, 'force_path': 240, 'ecp_path': 240,
-    'benzene_path': 240, 'deeperwin_path': 180,
+    'benzene_path': 240, 'deeperwin_path': 180, 'mol_batch_path': 150, 'dp_path': 150,
 }
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
@@ -721,7 +751,7 @@ def _recording_sinks(counts, wf):
         def update(self, step, stats, multi_stats, mol_idxs, prefix=None):
             torch.cuda.synchronize()
             records.append(dict(t=time.monotonic(), prefix=prefix, step=step, counts=counts(),
-                                stats={**multi_stats, **stats},
+                                stats={**multi_stats, **stats}, mol_idxs=list(mol_idxs),
                                 params=None if prefix else flat_params(wf)))
 
         def close(self):
@@ -1121,7 +1151,7 @@ def excited_path(dq, hamil, R, smi, counts, zero_counts, per_op_step):
     import numpy as np
     import torch
 
-    from deepqmc_tpu_torch.fit import TrainState, molecule_conf
+    from deepqmc_tpu_torch.fit import TrainState
     from deepqmc_tpu_torch.log import CheckpointStore
     from deepqmc_tpu_torch.loss import (
         create_loss_fn,
@@ -1281,17 +1311,15 @@ def excited_path(dq, hamil, R, smi, counts, zero_counts, per_op_step):
         ev[0].record()
         with torch.no_grad():
             smpl_state, pc, _ = sampler.sample(split_gen, smpl_state, torch.tensor([0]))
-        conf = molecule_conf(pc)
         ev[1].record()
         E = []
         for s, wf in enumerate(stack):
-            E.append(compute_local_energy(hamil, wf, conf.replace(r=conf.r[s],
-                                                                   mol_idx=conf.mol_idx[s]))[0])
+            E.append(compute_local_energy(hamil, wf, pc.state(s))[0])
             ev[2 + s].record()
-        ratio = loss_s.overlap_penalty.ratios(list(stack), conf)
+        ratio = loss_s.overlap_penalty.ratios(list(stack), pc)
         ev[2 + EXC_STATES].record()
         terms = Terms(torch.zeros(()), torch.stack(E)[None], ratio, None, {})
-        g, sums = loss_s.grad_and_taps(conf, weight, terms, taps=True, data=data_t)
+        g, sums = loss_s.grad_and_taps(pc, weight, terms, taps=True, data=data_t)
         ev[3 + EXC_STATES].record()
         opt_state, _ = opt_s.kfac.update(opt_state, g, sums, EXC_WALKERS)
         ev[4 + EXC_STATES].record()
@@ -2163,6 +2191,368 @@ def deeperwin_path(dq, hamil, R, smi, counts, zero_counts):
     return total
 
 
+MB_SCALES = (0.9, 1.0, 1.1, 1.25)  # the O-H bonds of the mol batch path's geometries
+MB_WALKERS, MB_EQ_STEPS, MB_FIT_STEPS, MB_EVAL_STEPS = 2048, 5, 5, 2
+MB_CHECK_WALKERS = 64  # a molecule, for the float64 gate
+DP_WALKERS, DP_STEPS = 2048, 3  # a molecule over both ranks
+DP_RANK_TIMEOUT_S = 120
+DP_DIR = os.path.join('runs', 'dp_path')  # git-ignored; removed at the end of the phase
+
+
+def h2o_geometries(dq, hamil, scales=MB_SCALES):
+    """H2O with both O-H bonds at ``scales`` times ``hamil.mol``'s (O first)."""
+    import numpy as np
+
+    mol = hamil.mol
+    coords = np.asarray(mol.coords)
+    return [dq.Molecule(coords=np.concatenate([coords[:1], coords[:1] + s * (coords[1:]
+                                                                             - coords[:1])]),
+                        charges=mol.charges, charge=mol.charge, spin=mol.spin) for s in scales]
+
+
+def _grid_replicas(dq, hamil, weights, R, r):
+    """(wave function, loss, walkers, unit weights) of the PsiFormer holding
+    ``weights`` on the grid ``R`` ``[m, n_nuc, 3]``, ``r`` ``[m, 1, B, n, 3]``:
+    the card in float32 and the plain path on the CPU in float64 and float32."""
+    import torch
+
+    from deepqmc_tpu_torch.loss import create_loss_fn, median_log_squeeze_and_mask
+
+    out = {}
+    for name, dtype, device in (('card', torch.float32, 'cuda'),
+                                ('plain_f64', torch.float64, 'cpu'),
+                                ('plain_f32', torch.float32, 'cpu')):
+        wf = dq.psiformer_ansatz(hamil, seed=0).to(device=device, dtype=dtype)
+        wf.load_state_dict({k: v.to(dtype) for k, v in weights.items()})
+        m, _, B = r.shape[:3]
+        pc = dq.PhysicalConfiguration(
+            R.to(device, dtype), r.to(device, dtype),
+            torch.arange(m, device=device)[:, None, None].expand(m, 1, B).clone())
+        ones = torch.ones(m, 1, B, dtype=dtype, device=device)
+        out[name] = wf, create_loss_fn(hamil, wf, median_log_squeeze_and_mask), pc, ones
+    return out
+
+
+def _gradient_and_update(loss, wf, pc, ones, opt_state=None):
+    """(E_loc, the flat gradient, the flat KFAC update) of one KFAC step from
+    ``opt_state`` (a fresh state for None) on the walkers ``pc``."""
+    import torch
+
+    from deepqmc_tpu_torch.fit import DEFAULT_OPT_KWARGS
+    from deepqmc_tpu_torch.kfac import KFAC
+
+    (_, (E, _, _)), g = loss.value_and_grad(pc, ones)
+    kfac = KFAC(loss, **DEFAULT_OPT_KWARGS['kfac'])
+    state = kfac.init(pc) if opt_state is None else opt_state
+    if opt_state is not None:
+        kfac.init(pc)
+    before = flat_params(wf)
+    kfac.step(state, pc, ones)
+    return E, torch.cat([t.flatten() for t in g.values()]), flat_params(wf) - before
+
+
+def _per_step_launches(label, records, want):
+    """Each record's launches since the one before it, each against ``want``."""
+    prev = None
+    for r in records:
+        if prev is not None:
+            launches = {k: r['counts'][k] - prev[k] for k in prev}
+            if launches != want:
+                raise SystemExit(f'{label} step {r["step"]} launched {launches}, want {want}')
+        prev = r['counts']
+
+
+def mol_batch_path(dq, hamil, smi, counts, zero_counts, per_op_step):
+    """Phase 17: two of four H2O geometries a step through ``train.train``,
+    then 2 evaluation steps; the float64 gate on 64 walkers a molecule.
+    Returns (the launches of the run, the walkers and nuclei of two molecules
+    for the dp path, the plain float32 path's errors as the dp path's bars)."""
+    from functools import partial
+
+    import numpy as np
+    import torch
+
+    from deepqmc_tpu_torch.fit import DEFAULT_OPT_KWARGS, electron_sampler
+    from deepqmc_tpu_torch.log import no_sink
+    from deepqmc_tpu_torch.optimizer import KFACOptimizer
+    from deepqmc_tpu_torch.sampling import initialize_sampling
+    from deepqmc_tpu_torch.train import train
+
+    mols = h2o_geometries(dq, hamil)
+    wf = dq.psiformer_ansatz(hamil, seed=0).cuda()
+    records, _, Metrics, _ = _recording_sinks(counts, wf)
+    workdir = os.path.join('runs', 'mol_batch_path')
+    shutil.rmtree(workdir, ignore_errors=True)
+    common = dict(sampler_factory=partial(initialize_sampling,
+                                          elec_sampler=electron_sampler(None, 10)),
+                  seed=0, electron_batch_size=MB_WALKERS, molecule_batch_size=2, mols=mols,
+                  workdir=workdir, chkpt_constructor=no_sink, metric_logger_constructor=Metrics,
+                  h5_logger_constructor=no_sink, device='cuda')
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    before = flat_params(wf)
+    state = train(hamil, wf, partial(KFACOptimizer, **DEFAULT_OPT_KWARGS['kfac']),
+                  steps=MB_FIT_STEPS, max_eq_steps=MB_EQ_STEPS, eq_allow_early_stopping=False,
+                  **common)
+    fit = [r for r in records if r['prefix'] is None]
+    eq = [r for r in records if r['prefix'] == 'equilibration']
+    eval_records = len(records)
+    train(hamil, wf, None, train_state=state, steps=MB_EVAL_STEPS, **common)
+    torch.cuda.synchronize()
+    evals = records[eval_records:]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    shutil.rmtree(workdir, ignore_errors=True)
+    if len(fit) != MB_FIT_STEPS or len(eq) != MB_EQ_STEPS or len(evals) != MB_EVAL_STEPS:
+        raise SystemExit('mol batch path: the run did not take the steps it was given')
+    if any(eq[-1]['counts'].values()):
+        raise SystemExit(f'mol batch path: equilibration launched {eq[-1]["counts"]}')
+    _per_step_launches('mol batch path fit', [eq[-1], *fit], per_op_step)
+    _per_step_launches('mol batch path evaluation', [fit[-1], *evals], per_op_step)
+    ewm, prev_params = {}, before
+    for r in [*fit, *evals]:
+        stats = r['stats']
+        E = np.asarray(stats['local_energy/mean'])
+        print(f'mol batch step {r["step"]} ({"fit" if r in fit else "evaluation"}): molecules '
+              f'{r["mol_idxs"]} E_loc mean {np.round(E.ravel(), 6).tolist()} energy EWM '
+              f'{np.round(np.asarray(stats["energy/ewm"]).ravel(), 6).tolist()} step time '
+              f'{stats["perf/step_time"]:.3f} s', flush=True)
+        if E.shape != (2, 1) or not all(np.isfinite(v).all() for v in stats.values()):
+            raise SystemExit(f'mol batch step {r["step"]}: stats not finite or E of shape '
+                             f'{E.shape}')
+        for i, m in enumerate(r['mol_idxs']):
+            ewm[int(m)] = float(np.asarray(stats['energy/ewm'])[i, 0])
+        if r in fit:
+            if torch.equal(r['params'], prev_params):
+                raise SystemExit(f'mol batch fit step {r["step"]} left the parameters unchanged')
+            prev_params = r['params']
+        elif not torch.equal(r['params'], prev_params):
+            raise SystemExit(f'mol batch evaluation step {r["step"]} changed the parameters')
+    if sorted(ewm) != list(range(len(mols))) or not all(map(math.isfinite, ewm.values())):
+        raise SystemExit(f'mol batch path: the energy EWMs of the molecules touched: {ewm}')
+    fit_s = [r['stats']['perf/step_time'] for r in fit]
+    eval_s = [r['stats']['perf/step_time'] for r in evals]
+    print(f'{smi} | mol batch fit step (2 of 4 H2O geometries, {MB_WALKERS} walkers a '
+          f'molecule, KFAC): median {1e3 * _median(fit_s):.1f} ms (steps '
+          f'{", ".join(f"{1e3 * t:.1f}" for t in fit_s)} ms); launches a step {per_op_step} '
+          f'at B = {2 * MB_WALKERS}', flush=True)
+    print(f'{smi} | mol batch evaluation step: {", ".join(f"{1e3 * t:.1f}" for t in eval_s)} '
+          f'ms; peak device memory {peak_gib:.2f} GiB', flush=True)
+
+    # the float64 gate on 64 walkers of each of two molecules
+    elec = state.sampler['elec']
+    r = elec['r'][:2, :, :MB_CHECK_WALKERS].detach()
+    R = state.sampler['nuc']['R'][:2]
+    weights = {k: v.cpu() for k, v in wf.state_dict().items()}
+    from deepqmc_tpu_torch.log import copy_train_state
+
+    opt_state = copy_train_state(state).opt
+    vals = {}
+    for name, (wf_r, loss_r, pc, ones) in _grid_replicas(dq, hamil, weights, R, r).items():
+        dtype, device = ones.dtype, ones.device
+        vals[name] = _gradient_and_update(loss_r, wf_r, pc, ones,
+                                          kfac_state_to(opt_state, dtype, device))
+    ref_E = vals['plain_f64'][0]
+    scale = ref_E.abs().clamp(min=1.0)
+    rel = {n: ((vals[n][0].double().cpu() - ref_E) / scale).abs().max().item()
+           for n in ('card', 'plain_f32')}
+    bars = {}
+    for i, what in ((0, 'E_loc'), (1, 'gradient'), (2, 'KFAC update')):
+        if i:
+            rel = {n: rel_l2(vals[n][i], vals['plain_f64'][i]) for n in ('card', 'plain_f32')}
+        tol = ELOC_FACTOR * rel['plain_f32'] + ELOC_FLOOR
+        bars[what] = rel['plain_f32']
+        ok = rel['card'] <= tol
+        print(f'mol batch {what} on {MB_CHECK_WALKERS} walkers of 2 molecules against the '
+              f'plain path in f64 (CPU): card (f32, kernels) rel err {rel["card"]:.3e}; plain '
+              f'path (f32, CPU) rel err {rel["plain_f32"]:.3e}; tol {tol:.3e} '
+              f'{"ok" if ok else "FAIL"}', flush=True)
+        if not ok:
+            raise SystemExit(f'mol batch path: the {what} on the card disagrees with float64')
+    launches = {k: evals[-1]['counts'][k] for k in evals[-1]['counts']}
+    walkers = (elec['r'][:2, :, :DP_WALKERS].detach().clone(), R.detach().clone())
+    del wf, state, records
+    torch.cuda.empty_cache()
+    return launches, walkers, bars
+
+
+def dp_rank(rank: int, world: int, port: int) -> int:
+    """One rank of the dp path: the gradient and a KFAC update on the fixed
+    walkers of ``DP_DIR``, then ``DP_STEPS`` KFAC steps through ``fit.train``;
+    writes what it computed to ``DP_DIR/rank<rank>.pt``."""
+    faulthandler.dump_traceback_later(DP_RANK_TIMEOUT_S, exit=True)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+    import torch.distributed as dist
+
+    import deepqmc_tpu_torch as dq
+    from deepqmc_tpu_torch import parallel
+    from deepqmc_tpu_torch.ops import _cuda
+    from deepqmc_tpu_torch.ops.fl_attention import mha_core_fl
+    from deepqmc_tpu_torch.ops.fl_slogdet import slogdet_traces
+    from deepqmc_tpu_torch.utils import set_true_fp32
+
+    if not _cuda.library_path().exists():
+        raise SystemExit(f'rank {rank}: the kernels are not built')
+    set_true_fp32()
+    # gloo: NCCL takes one rank a GPU, and both ranks share the one card here
+    parallel.maybe_init_multi_host('cuda', environ=_multihost_env(port, world, rank),
+                                   backend='gloo')
+    counters = (mha_core_fl, slogdet_traces)
+    want = [4, 1]
+
+    def launches():
+        return [c.launches for c in counters]
+
+    data = torch.load(os.path.join(DP_DIR, 'walkers.pt'), weights_only=True)
+    hamil = dq.MolecularHamiltonian(mol=dq.Molecule.from_name('H2O'))
+    mols = h2o_geometries(dq, hamil)[:2]
+    wf = dq.psiformer_ansatz(hamil, seed=0).cuda()
+    from deepqmc_tpu_torch.loss import create_loss_fn, median_log_squeeze_and_mask
+
+    loss = create_loss_fn(hamil, wf, median_log_squeeze_and_mask)
+    r = parallel.shard_walkers(data['r'].cuda())
+    pc = dq.PhysicalConfiguration(data['R'].cuda(), r, torch.arange(
+        2, device='cuda')[:, None, None].expand(r.shape[:3]).clone())
+    for c in counters:
+        c.launches = 0
+    with torch.inference_mode():
+        loss.terms(pc, torch.ones(r.shape[:3], device='cuda'))
+    torch.cuda.synchronize()
+    eloc_launches = launches()
+    E, grad, update = _gradient_and_update(loss, wf, pc, torch.ones(r.shape[:3], device='cuda'))
+    out = {'eloc_launches': eloc_launches, 'E': torch.as_tensor(parallel.gather_on_host(E)),
+           'grad': grad.cpu(),
+           'update': update.cpu()}
+
+    wf = dq.psiformer_ansatz(hamil, seed=0).cuda()
+    step_s, step_launches, t0, seen = [], [], time.monotonic(), launches()
+    for step, _, E_loc, stats in dq.fit.train(hamil, wf, n_walkers=DP_WALKERS, steps=DP_STEPS,
+                                              decorr=10, seed=0, mols=mols,
+                                              molecule_batch_size=2, device='cuda'):
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        now = launches()
+        step_launches.append([a - b for a, b in zip(now, seen)])
+        seen = now
+        if not (torch.isfinite(E_loc).all() and all(torch.isfinite(v).all()
+                                                    for v in stats.values())):
+            raise SystemExit(f'rank {rank} step {step}: not finite')
+        t0 = time.monotonic()
+    out |= {'step_s': step_s, 'step_launches': step_launches, 'params': flat_params(wf).cpu(),
+            'walkers': list(r.shape)}
+    torch.save(out, os.path.join(DP_DIR, f'rank{rank}.pt'))
+    dist.destroy_process_group()
+    if eloc_launches != want or any(n != want for n in step_launches):
+        raise SystemExit(f'rank {rank}: launches {eloc_launches}, {step_launches}, want {want}')
+    return 0
+
+
+def _multihost_env(port: int, world: int, rank: int) -> dict:
+    """The variables that start rank ``rank`` of ``world`` (``DEEPQMC_TPU_*``)."""
+    return {'DEEPQMC_TPU_MULTIHOST': '1', 'DEEPQMC_TPU_COORDINATOR_ADDRESS': f'127.0.0.1:{port}',
+            'DEEPQMC_TPU_NUM_PROCESSES': str(world), 'DEEPQMC_TPU_PROCESS_ID': str(rank)}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def dp_path(dq, hamil, smi, counts, zero_counts, walkers, bars):
+    """Phase 18: two ``gloo`` ranks on the card against this process on the
+    same walkers, their parameters after 3 steps, then one ``nccl`` group of
+    one rank; returns the launches of rank 0's run."""
+    import torch
+    import torch.distributed as dist
+
+    r, R = walkers
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    torch.save({'r': r.cpu(), 'R': R.cpu()}, os.path.join(DP_DIR, 'walkers.pt'))
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), '--dp-rank', str(rank),
+                               '2', str(port)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    # one process on the whole batch meanwhile
+    wf = dq.psiformer_ansatz(hamil, seed=0).cuda()
+    from deepqmc_tpu_torch.loss import create_loss_fn, median_log_squeeze_and_mask
+
+    loss = create_loss_fn(hamil, wf, median_log_squeeze_and_mask)
+    pc = dq.PhysicalConfiguration(R, r, torch.arange(2, device='cuda')[:, None, None].expand(
+        r.shape[:3]).clone())
+    _, grad, update = _gradient_and_update(loss, wf, pc, torch.ones(r.shape[:3], device='cuda'))
+    del wf, loss
+    failed = []
+    for rank, proc in enumerate(procs):
+        try:
+            log, _ = proc.communicate(timeout=DP_RANK_TIMEOUT_S + 20)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.communicate()
+            raise SystemExit(f'dp path: rank {rank} hung')
+        print(f'--- rank {rank} (exit {proc.returncode})\n{log[-2000:]}', flush=True)
+        if proc.returncode != 0:
+            failed.append(rank)
+    if failed:
+        raise SystemExit(f'dp path: ranks {failed} failed')
+    ranks = [torch.load(os.path.join(DP_DIR, f'rank{k}.pt'), weights_only=True) for k in range(2)]
+    for what, got, ref in (('gradient', ranks[0]['grad'], grad),
+                           ('KFAC update', ranks[0]['update'], update)):
+        rel = rel_l2(got, ref)
+        tol = ELOC_FACTOR * bars[what] + ELOC_FLOOR
+        ok = rel <= tol
+        print(f'dp path {what}: rank 0 of 2 (gloo, {ranks[0]["walkers"][2]} walkers a molecule '
+              f'a rank) against one process on the {r.shape[2]} walkers a molecule: rel err '
+              f'{rel:.3e}; tol {tol:.3e} (the mol batch path\'s plain f32 error {bars[what]:.3e}) '
+              f'{"ok" if ok else "FAIL"}', flush=True)
+        if not ok:
+            raise SystemExit(f'dp path: the {what} of two ranks disagrees with one process')
+    same = torch.equal(ranks[0]['params'], ranks[1]['params'])
+    print(f'dp path: parameters after {DP_STEPS} KFAC steps bitwise equal across the ranks: '
+          f'{same}', flush=True)
+    if not same:
+        raise SystemExit('dp path: the ranks\' parameters differ')
+    for k, rk in enumerate(ranks):
+        print(f'{smi} | dp path rank {k} of 2 (gloo, one card): step times '
+              f'{", ".join(f"{1e3 * t:.1f}" for t in rk["step_s"])} ms; launches a local '
+              f'energy {rk["eloc_launches"]}, a step {rk["step_launches"]}', flush=True)
+
+    # one NCCL group of one rank: the same code path over NCCL
+    from deepqmc_tpu_torch import parallel
+
+    if not parallel.maybe_init_multi_host('cuda', environ=_multihost_env(_free_port(), 1, 0)):
+        raise SystemExit('dp path: the NCCL group did not form')
+    if dist.get_backend() != 'nccl':
+        raise SystemExit(f'dp path: the group took {dist.get_backend()}, not nccl')
+    try:
+        wf = dq.psiformer_ansatz(hamil, seed=0).cuda()
+        zero_counts()
+        t0 = time.monotonic()
+        for step, _, E_loc, stats in dq.fit.train(
+                hamil, wf, n_walkers=DP_WALKERS, steps=1, decorr=10, seed=0,
+                mols=h2o_geometries(dq, hamil)[:2], molecule_batch_size=2, device='cuda'):
+            torch.cuda.synchronize()
+            nccl_s = time.monotonic() - t0
+            if not torch.isfinite(E_loc).all():
+                raise SystemExit('dp path: the NCCL step is not finite')
+        nccl_launches = counts()
+    finally:
+        dist.destroy_process_group()
+    print(f'{smi} | dp path NCCL group of one rank: a fit step (with its set-up) '
+          f'{1e3 * nccl_s:.1f} ms; launches {nccl_launches}', flush=True)
+    shutil.rmtree(DP_DIR)
+    if nccl_launches['fl_attention'] != 4 or nccl_launches['fl_slogdet_traces'] != 1:
+        raise SystemExit(f'dp path: the NCCL step launched {nccl_launches}')
+    del wf
+    torch.cuda.empty_cache()
+    return {'fl_attention': sum(n[0] for n in ranks[0]['step_launches']) + 4,
+            'fl_slogdet_traces': sum(n[1] for n in ranks[0]['step_launches']) + 1}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2836,6 +3226,19 @@ def main() -> int:
         for name, n in dw_launches.items():
             by_name[name]['deeperwin_launches'] = n
 
+    with Phase('mol_batch_path'):
+        mb_launches, mb_walkers, mb_bars = mol_batch_path(dq, hamil, smi, counts, zero_counts,
+                                                          per_op_step)
+        print(f'launches during the mol batch path: {mb_launches}', flush=True)
+        for name, n in mb_launches.items():
+            by_name[name]['mol_batch_launches'] = n
+
+    with Phase('dp_path'):
+        dp_launches = dp_path(dq, hamil, smi, counts, zero_counts, mb_walkers, mb_bars)
+        print(f'launches of rank 0 during the dp path: {dp_launches}', flush=True)
+        for name in by_name:
+            by_name[name]['dp_launches'] = dp_launches.get(name, 0)
+
     print(json.dumps({'kernels': kernels}), flush=True)
     print(f'{smi} | whole run {time.monotonic() - _T0:.1f} s', flush=True)
     faulthandler.cancel_dump_traceback_later()
@@ -2847,4 +3250,6 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--dp-rank']:  # one rank of the dp path, started by main
+        sys.exit(dp_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])))
     sys.exit(main())

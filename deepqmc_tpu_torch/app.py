@@ -1,6 +1,7 @@
 """Command line of the port (counterpart of ``deepqmc_tpu/app.py``).
 
-    python -m deepqmc_tpu_torch [--workdir=DIR] [--device=cuda|cpu] [overrides...]
+    python -m deepqmc_tpu_torch [--workdir=DIR] [--device=cuda|cpu] [--slurm|--slurm-dry]
+                                [overrides...]
 
 The overrides compose the port's configuration tree (:mod:`.conf`, the JAX
 package's ``conf/`` as Python data) with the grammar of the JAX command
@@ -12,6 +13,13 @@ composed config as ``.hydra/config.json``; ``task=restart``,
 read that file and the last checkpoint of ``task.restdir``.  The run is on the GPU unless
 ``--device=cpu``; without a GPU the default raises.
 
+Several processes, one per GPU, run one training with the walkers sharded
+(:mod:`.parallel`) when started with ``DEEPQMC_TPU_MULTIHOST=1`` and either
+``DEEPQMC_TPU_COORDINATOR_ADDRESS`` (host:port), ``DEEPQMC_TPU_NUM_PROCESSES``
+and ``DEEPQMC_TPU_PROCESS_ID``, or as SLURM tasks.  ``--slurm`` writes an
+sbatch script into the working directory that does that and submits it;
+``--slurm-dry`` only writes it (:mod:`.slurm`).
+
 Where the card's machine lacks tensorboardX or h5py, turn their sinks off:
 ``task.metric_logger_constructor=null task.h5_logger_constructor=null``
 (in this command line, a null sink constructor means no such sink), and for
@@ -21,6 +29,7 @@ Where the card's machine lacks tensorboardX or h5py, turn their sinks off:
 import json
 import logging
 import os
+import platform
 import sys
 from functools import partial
 from pathlib import Path
@@ -28,6 +37,7 @@ from typing import Optional, Union
 
 from .config import compose, instantiate
 from .molecule import Molecule, read_molecule_dataset
+from .parallel import get_process_count, get_process_index, maybe_init_multi_host
 from .utils import resolve_device
 from .validate_kwargs import validate_kwargs
 
@@ -90,8 +100,9 @@ def task_from_workdir(workdir, chkpt, device=None):
     cfg = json.loads(cfg_path.read_text())
     if chkpt == 'LAST':
         chkpts = list(workdir.glob(CheckpointStore.PATTERN.format('*')))
-        if not chkpts:
-            chkpts = list((workdir / 'training').glob(CheckpointStore.PATTERN.format('*')))
+        for sub in ('training', 'training_0'):  # one process's run, or rank 0's of several
+            if not chkpts:
+                chkpts = list((workdir / sub).glob(CheckpointStore.PATTERN.format('*')))
         if not chkpts:
             raise ValueError(f'no checkpoint in {workdir}')
         chkpt = sorted(chkpts,
@@ -151,9 +162,26 @@ def setup_logging(cfg, workdir: str):
     PACKAGE_LOGGER.setLevel((cfg.get('logging') or {}).get('deepqmc_tpu', logging.INFO))
 
 
+def detect_devices(device):
+    """Log this process's host and the devices and processes of the run."""
+    import torch
+
+    n_process = get_process_count()
+    kind = torch.cuda.get_device_name(device) if device.type == 'cuda' else 'the CPU'
+    log.info(f'Process {get_process_index()} running on {platform.node()}')
+    log.info(f'Running on {kind} with {n_process} process{"" if n_process == 1 else "es"}')
+
+
 def main(cfg: dict, workdir: Optional[str] = None, device=None):
-    """Run the composed config's task in ``workdir`` on ``device`` (None: CUDA)."""
+    """Run the composed config's task in ``workdir`` on ``device`` (None:
+    CUDA), as one process of several where the environment asks for that
+    (:func:`.parallel.maybe_init_multi_host`)."""
     device = resolve_device(device)
+    maybe_init_multi_host(device)
+    if device.type == 'cuda':
+        import torch
+
+        device = torch.device('cuda', torch.cuda.current_device())
     workdir = workdir or cfg['task'].get('workdir')
     if not workdir or workdir == '???':
         workdir = str(Path.cwd())
@@ -162,12 +190,7 @@ def main(cfg: dict, workdir: Optional[str] = None, device=None):
     os.makedirs(workdir, exist_ok=True)
     setup_logging(cfg, workdir)
     log.info('Entering application')
-    if device.type == 'cuda':
-        import torch
-
-        log.info(f'Running on {torch.cuda.get_device_name(device)}')
-    else:
-        log.info(f'Running on the {device.type.upper()}')
+    detect_devices(device)
     log.info(f'Will work in {workdir}')
     path = Path(workdir) / CONFIG_PATH
     path.parent.mkdir(exist_ok=True)
@@ -179,15 +202,15 @@ def main(cfg: dict, workdir: Optional[str] = None, device=None):
 def cli(argv: Optional[list[str]] = None):
     """Entry point: ``python -m deepqmc_tpu_torch key=value group=option ...``."""
     argv = sys.argv[1:] if argv is None else argv
-    workdir, device, overrides = None, 'cuda', []
+    workdir, device, overrides, slurm_mode = None, 'cuda', [], None
     for arg in argv:
         if arg.startswith('--workdir='):
             workdir = arg.split('=', 1)[1]
         elif arg.startswith('--device='):
             device = arg.split('=', 1)[1]
         elif arg in ('--slurm', '--slurm-dry'):
-            raise NotImplementedError(f'{arg}: SLURM submission is not ported yet (ROADMAP.md, '
-                                      'queue 1 item 9)')
+            # submit (or only write, with --slurm-dry) this run as a SLURM batch job
+            slurm_mode = arg
         elif arg.startswith('--platform='):
             raise ValueError(f'{arg}: the port takes --device=cuda or --device=cpu')
         elif arg in ('-h', '--help'):
@@ -196,6 +219,14 @@ def cli(argv: Optional[list[str]] = None):
         else:
             overrides.append(arg)
     cfg = compose(overrides=overrides)
+    if slurm_mode:
+        from .slurm import submit
+
+        logging.basicConfig(level=logging.INFO)
+        workdir = workdir or cfg['task'].get('workdir')
+        if not workdir or workdir == '???':
+            workdir = str(Path.cwd())
+        return submit(workdir, overrides, cfg.get('slurm'), dry_run=slurm_mode == '--slurm-dry')
     try:
         return main(cfg, workdir=workdir, device=device)
     except KeyboardInterrupt:

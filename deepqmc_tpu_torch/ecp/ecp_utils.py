@@ -55,8 +55,10 @@ def get_quadrature_points(nucleus: torch.Tensor, r: torch.Tensor,
                           phi_random: torch.Tensor) -> torch.Tensor:
     """Electron configurations ``[B, n, 12, n, 3]``: for walker b and electron
     i, the 12 copies of ``r[b]`` with electron i moved to each vertex on its
-    sphere around ``nucleus`` ``[3]``, turned by ``phi_random`` ``[B, n]``."""
+    sphere around ``nucleus`` ``[3]`` (or per walker ``[B, 3]``), turned by
+    ``phi_random`` ``[B, n]``."""
     B, n, _ = r.shape
+    nucleus = nucleus if nucleus.dim() == 1 else nucleus[:, None]
     rel = r - nucleus
     norm = torch.linalg.vector_norm(rel, dim=-1)
     theta = torch.arccos(torch.clamp(rel[..., 2] / norm, -1.0, 1.0))
@@ -64,7 +66,7 @@ def get_quadrature_points(nucleus: torch.Tensor, r: torch.Tensor,
     rot = rot_z(phi) @ rot_y(theta) @ rot_z(phi_random)  # [B, n, 3, 3]
     vertices = torch.as_tensor(sph2cart(get_unit_icosahedron_sph()), dtype=r.dtype,
                                device=r.device)  # [12, 3]
-    rotated = norm[..., None, None] * torch.einsum('bnac,vc->bnva', rot, vertices) + nucleus
+    rotated = norm[..., None, None] * torch.einsum('bnac,vc->bnva', rot, vertices) + nucleus[..., None, :]
     is_moved = torch.eye(n, dtype=torch.bool, device=r.device)[:, None, :, None]  # [n, 1, n, 1]
     base = r[:, None, None].expand(B, n, 12, n, 3)
     return torch.where(is_moved, rotated[:, :, :, None, :], base)

@@ -114,16 +114,20 @@ class GaussianTypeECP:
         channel_weights = (2 * torch.arange(l_max_p1, dtype=r.dtype, device=r.device) + 1) / 12
         walkers = max(1, chunk // (12 * n))
         total = torch.zeros(B, dtype=r.dtype, device=r.device)
+        per_walker = R.dim() == 3  # a flat batch of several molecules
         for k, i in enumerate(self.nuc_with_nl_pot):
             nl = torch.as_tensor(self.nl_params[i], dtype=r.dtype, device=r.device)
-            d2 = ((r - R[i]) ** 2).sum(-1)  # [B, n]
+            R_i = R[..., i, :]  # [3], or [B, 3] per walker
+            d2 = ((r - (R_i[:, None] if per_walker else R_i)) ** 2).sum(-1)  # [B, n]
             # radial channel strengths V_l(r) [B, n, l_max + 1]
             v_l = (nl[:, 1] * torch.exp(-nl[:, 0] * d2[..., None, None])).sum(-1)
             for start in range(0, B, walkers):
                 part = slice(start, start + walkers)
-                quad = get_quadrature_points(R[i], r[part], phi[k, part])  # [b, n, 12, n, 3]
+                quad = get_quadrature_points(R_i[part] if per_walker else R_i, r[part],
+                                             phi[k, part])  # [b, n, 12, n, 3]
                 b = quad.shape[0]
                 out = wf(phys_conf.replace(
+                    R=R[part].repeat_interleave(n * 12, 0) if per_walker else R,
                     r=quad.reshape(-1, n, 3),
                     mol_idx=phys_conf.mol_idx[part].repeat_interleave(n * 12)))
                 sign, log = out.sign.view(b, n, 12), out.log.view(b, n, 12)

@@ -1,13 +1,17 @@
-"""The step of ``deepqmc_tpu/fit.py`` (``step_body``) for one molecule per
-step, with the :func:`evaluate` and :func:`train` loops of one electronic
-state around it and their equilibration phase (``deepqmc_tpu/train.py:243-272``);
-:func:`fit_wf` runs it over one or more states (a :class:`~.wf.StateStack`).
+"""The step of ``deepqmc_tpu/fit.py`` (``step_body``) for one or more
+molecules per step, with the :func:`evaluate` and :func:`train` loops of one
+electronic state around it and their equilibration phase
+(``deepqmc_tpu/train.py:243-272``); :func:`fit_wf` runs it over one or more
+states (a :class:`~.wf.StateStack`).
 
 Sampling goes through the combined sampler (``sampling/combined_samplers.py``)
-over the geometries ``mols``; each step draws a molecule index, moves that
-molecule's walkers with the electron sampler (a recipe of
-``sampling/recipes.py``, or ``bench.py``'s Metropolis at ``decorr`` moves by
-default) and updates the EWM grid ``[n_mol, 1]`` at that index.
+over the geometries ``mols``; each step draws ``molecule_batch_size``
+molecule indices (the same on every rank), moves those molecules' walkers
+with the electron sampler (a recipe of ``sampling/recipes.py``, or
+``bench.py``'s Metropolis at ``decorr`` moves by default) and updates the EWM
+grid ``[n_mol, S]`` at those indices.  With walkers sharded over processes
+(:mod:`.parallel`) each rank moves its shard and every statistic is over the
+global walker axis.
 
 An evaluation step: the moves, the local energy of the new walkers via the
 forward Laplacian, the ``local_energy/*`` statistics and the EWM estimators of
@@ -22,7 +26,7 @@ the molecule's walkers and geometry, with the EWMs of the molecule's energy
 and spread (``data``, which the overlap penalty of several states reads); then
 the psi refresh of every molecule's walkers through the outermost sampler's
 ``update`` (which also moves the weights); and the same statistics, shaped
-``[1, S]`` (molecule, state) as the JAX package's.
+``[m, S]`` (molecule, state) as the JAX package's.
 """
 
 import contextlib
@@ -38,7 +42,16 @@ from .ewm import init_multi_mol_multi_state_ewm
 from .loss import create_loss_fn, median_log_squeeze_and_mask
 from .loss.energy import compute_local_energy
 from .optimizer import AdamOptimizer, KFACOptimizer, NoOptimizer
-from .parallel import pexp_normalize_mean
+from .parallel import (
+    all_device_max,
+    all_device_mean,
+    all_device_min,
+    all_device_std,
+    get_process_count,
+    get_process_index,
+    pexp_normalize_mean,
+    replicate_on_devices,
+)
 from .physics import pairwise_self_distance
 from .sampling import (
     RECIPES,
@@ -59,8 +72,7 @@ from .utils import (
 )
 
 __all__ = [
-    'TrainState', 'eval_step', 'evaluate', 'fit_wf', 'molecule_conf', 'molecule_state', 'train',
-    'train_step',
+    'TrainState', 'eval_step', 'evaluate', 'fit_wf', 'molecule_state', 'train', 'train_step',
 ]
 
 OPTIMIZERS = {'kfac': KFACOptimizer, 'adam': AdamOptimizer, 'none': NoOptimizer}
@@ -85,21 +97,6 @@ class TrainState(NamedTuple):
     opt: object
 
 
-def molecule_conf(phys_conf: PhysicalConfiguration) -> PhysicalConfiguration:
-    """The walkers of a one-molecule batch of the combined sampler: ``R``
-    ``[n_nuc, 3]``, ``r`` ``[B, n, 3]`` and ``mol_idx`` ``[B]`` of the one
-    state, or with S > 1 states ``r`` ``[S, B, n, 3]`` and ``mol_idx`` ``[S, B]``."""
-    if phys_conf.r.shape[0] != 1:
-        raise NotImplementedError(
-            f'a step on {phys_conf.r.shape[0]} molecules: the step takes one molecule '
-            '(molecule_batch_size=1; ROADMAP.md, queue 1 item 2)'
-        )
-    r, mol_idx = phys_conf.r[0], phys_conf.mol_idx[0]
-    if r.shape[0] == 1:
-        r, mol_idx = r[0], mol_idx[0]
-    return PhysicalConfiguration(phys_conf.R[0], r, mol_idx)
-
-
 def molecule_state(smpl_state: dict, i: int = 0):
     """(``R`` ``[n_nuc, 3]``, the electron sampler's state) of molecule ``i`` of
     a combined sampler state, state 0."""
@@ -111,9 +108,9 @@ def _rows(t, idxs):
 
 
 def walker_weights(smpl_state: dict, mol_idxs) -> torch.Tensor:
-    """The weights ``[m, 1, B]`` of the walkers of the molecules ``mol_idxs``:
-    ``exp(log_weight)`` normalised to unit mean where the sampler keeps
-    ``log_weight``, else one (``deepqmc_tpu/fit.py:102-106``)."""
+    """The weights ``[m, S, B]`` of the walkers of the molecules ``mol_idxs``:
+    ``exp(log_weight)`` normalised to unit mean over the global walker axis
+    where the sampler keeps ``log_weight``, else one (``deepqmc_tpu/fit.py:102-106``)."""
     elec, idxs = smpl_state['elec'], mol_idxs.tolist()
     if 'log_weight' in elec:
         return pexp_normalize_mean(_rows(elec['log_weight'], idxs), dim=-1)
@@ -123,26 +120,31 @@ def walker_weights(smpl_state: dict, mol_idxs) -> torch.Tensor:
 
 def eval_step(gen, hamil, wf, sampler, state, mol_idxs, ewm, std_ewm, update_ewm,
               eloc_walker_chunk=None):
-    """One evaluation step; returns (state, ewm, std_ewm, E_loc [B], stats).
-    ``eloc_walker_chunk`` as in :func:`.loss.compute_local_energy`."""
+    """One evaluation step; returns (state, ewm, std_ewm, E_loc ``[m, 1, B]``,
+    stats), the molecules' walkers in one pass of the local energy (``R`` per
+    walker).  ``eloc_walker_chunk`` as in :func:`.loss.compute_local_energy`."""
     state, phys_conf, smpl_stats = sampler.sample(gen, state, mol_idxs)
-    E_loc, hamil_stats = compute_local_energy(hamil, wf, molecule_conf(phys_conf),
+    m = len(mol_idxs)
+    E_loc, hamil_stats = compute_local_energy(hamil, wf, phys_conf.state(0),
                                               walker_chunk=eloc_walker_chunk)
-    stats = {**hamil_stats, **smpl_stats}
+    E_loc = E_loc.view(m, 1, -1)
+    stats = {**{k: all_device_mean(v.view(m, 1, -1), -1) for k, v in hamil_stats.items()},
+             **smpl_stats}
     ewm, std_ewm, stats = _energy_stats(E_loc, stats, mol_idxs, ewm, std_ewm, update_ewm)
     return state, ewm, std_ewm, E_loc, stats
 
 
 def _energy_stats(E_loc, stats, mol_idxs, ewm, std_ewm, update_ewm):
-    """The ``local_energy/*`` statistics and the EWMs of the energy and its
-    spread, each ``[1, S]`` (molecule, state), the EWMs updated at ``mol_idxs``."""
-    E = E_loc.view(1, -1, E_loc.shape[-1])
+    """The ``local_energy/*`` statistics over the global walker axis and the
+    EWMs of the energy and its spread, each ``[m, S]`` (molecule, state), the
+    EWMs updated at ``mol_idxs``."""
+    E = E_loc.view(len(mol_idxs), -1, E_loc.shape[-1])
     stats = {
         **stats,
-        'local_energy/mean': E.mean(-1),
-        'local_energy/std': E.std(-1, correction=0),
-        'local_energy/min': E.amin(-1),
-        'local_energy/max': E.amax(-1),
+        'local_energy/mean': all_device_mean(E, -1),
+        'local_energy/std': all_device_std(E, -1),
+        'local_energy/min': all_device_min(E, -1),
+        'local_energy/max': all_device_max(E, -1),
     }
     ewm = update_ewm(stats['local_energy/mean'], ewm, mol_idxs)
     std_ewm = update_ewm(stats['local_energy/std'], std_ewm, mol_idxs)
@@ -156,18 +158,15 @@ def _energy_stats(E_loc, stats, mol_idxs, ewm, std_ewm, update_ewm):
 
 
 def train_step(gen, sampler, opt, train_state: TrainState, mol_idxs, ewm, std_ewm, update_ewm):
-    """One training step; returns (train_state, ewm, std_ewm, E_loc, psi_ratio,
-    stats) with E_loc ``[B]`` for one state, ``[S, B]`` and psi_ratio ``[S, S,
-    B]`` for S > 1 (None for one)."""
+    """One training step on the sampler's ``[m, S, B]`` grid; returns
+    (train_state, ewm, std_ewm, E_loc ``[m, S, B]``, psi_ratio ``[m, S, S, B]``
+    (None for one state), stats)."""
     with torch.no_grad():
         smpl_state, phys_conf, smpl_stats = sampler.sample(gen, train_state.sampler, mol_idxs)
-    weight = walker_weights(smpl_state, mol_idxs)[0]
-    if len(weight) == 1:
-        weight = weight[0]
     idxs = mol_idxs.tolist()
     data = {'energy_ewm': _rows(ewm.mean, idxs), 'std_ewm': _rows(std_ewm.mean, idxs)}
-    opt_state, E_loc, psi_ratio, stats = opt.step(train_state.opt, molecule_conf(phys_conf),
-                                                  weight, data)
+    opt_state, E_loc, psi_ratio, stats = opt.step(train_state.opt, phys_conf,
+                                                  walker_weights(smpl_state, mol_idxs), data)
     if not isinstance(opt, NoOptimizer):
         with torch.no_grad():  # the parameters changed: refresh the cached psi
             smpl_state = sampler.update(smpl_state)
@@ -208,8 +207,18 @@ def _sampling(hamil, wf, *, sampler, decorr, mols, molecule_batch_size, n_walker
               device, inference: bool):
     """(molecule-index sampler, combined sampler, its state, the moves'
     generator, the grad mode of sampling) on ``device``; the grad mode is
-    inference mode where ``inference`` asks for it and the sampler allows it."""
+    inference mode where ``inference`` asks for it and the sampler allows it.
+    The ``n_walkers`` of each molecule are drawn whole from ``seed`` and
+    sharded over the ranks; the molecule indices come from ``seed`` on every
+    rank, the moves from ``seed + 1`` plus the rank (JAX ``train.py:137``
+    seeds each process with ``seed`` plus its index)."""
     mols = [hamil.mol] if mols is None else list(mols)
+    if not 1 <= molecule_batch_size <= len(mols):
+        raise ValueError(f'Molecule batch size ({molecule_batch_size}) is larger than the number '
+                         f'of molecules in the dataset ({len(mols)})!')
+    if n_walkers % get_process_count():
+        raise ValueError(f'Electron batch size ({n_walkers}) cannot be evenly split across '
+                         f'{get_process_count()} processes!')
     ref = hamil.mol
     for mol in mols:
         if not (np.array_equal(mol.charges, ref.charges) and mol.charge == ref.charge
@@ -224,7 +233,8 @@ def _sampling(hamil, wf, *, sampler, decorr, mols, molecule_batch_size, n_walker
     with grad_mode():
         state = initialize_sampler_state(torch.Generator().manual_seed(seed), smpl, n_walkers,
                                          mols, dtype=torch.float32, device=device)
-    return idx_sampler, smpl, state, torch.Generator(device).manual_seed(seed + 1), grad_mode
+    gen = torch.Generator(device).manual_seed(seed + 1 + get_process_index())
+    return idx_sampler, smpl, state, gen, grad_mode
 
 
 def _equilibration(gen, idx_sampler, sampler, state, grad_mode, max_eq_steps,
@@ -233,7 +243,8 @@ def _equilibration(gen, idx_sampler, sampler, state, grad_mode, max_eq_steps,
     each under ``grad_mode``, with early stopping on the mean electron distance
     and the spread of log|psi| (``train.py:243-272``)."""
     steps = equilibrate(
-        gen, idx_sampler, sampler, state, lambda pc: pairwise_self_distance(pc.r).mean(),
+        gen, idx_sampler, sampler, state,
+        lambda pc: all_device_mean(pairwise_self_distance(pc.r)),  # the same stop on every rank
         range(max_eq_steps), block_size=EQ_BLOCK_SIZE, allow_early_stopping=allow_early_stopping,
     )
     while True:
@@ -246,7 +257,7 @@ def _equilibration(gen, idx_sampler, sampler, state, grad_mode, max_eq_steps,
 
 def evaluate(
     hamil, wf, *, n_walkers: int = 2048, steps: int = 3, decorr: int = 10, seed: int = 0,
-    device=None, sampler=None, mols=None, max_eq_steps: int = 0,
+    device=None, sampler=None, mols=None, molecule_batch_size: int = 1, max_eq_steps: int = 0,
     eq_allow_early_stopping: bool = True, eloc_walker_chunk=None,
 ) -> Iterator[tuple[int, dict, torch.Tensor, dict]]:
     """Evaluate ``wf`` on ``hamil``: yields ``(step, sampler_state, E_loc, stats)``.
@@ -254,13 +265,15 @@ def evaluate(
     ``sampler`` is a recipe name of ``sampling.RECIPES``, a factory ``(hamil,
     wf) -> electron sampler``, or None for bench.py's Metropolis at ``decorr``
     moves a step.  ``mols`` are geometries of ``hamil.mol`` (same charges,
-    charge and spin; default ``[hamil.mol]``), one per step in a shuffled
-    cycle.  With ``max_eq_steps`` > 0 the walkers are first equilibrated: those
+    charge and spin; default ``[hamil.mol]``), ``molecule_batch_size`` a step
+    in a shuffled cycle (E_loc ``[m, 1, B]`` for m > 1, ``[B]`` for one).
+    ``n_walkers`` is per molecule over all ranks (each holds its share).
+    With ``max_eq_steps`` > 0 the walkers are first equilibrated: those
     sample calls are yielded first, each as ``(step, sampler_state, None,
     sampler_stats)``.  Runs on ``device`` (``None`` means CUDA, and raises where
     it is absent) in float32, with TF32 off.  Walkers start from
     ``hamil.init_sample`` drawn on the CPU from ``seed``; the moves draw from a
-    generator on the device seeded with ``seed + 1``.  Each step runs under
+    generator on the device seeded with ``seed + 1`` plus the rank.  Each step runs under
     ``torch.inference_mode()``, or ``torch.no_grad()`` for a sampler whose
     force needs autograd (Langevin).  The local energy takes the walkers in
     chunks of ``eloc_walker_chunk`` (:func:`.loss.compute_local_energy`).
@@ -268,10 +281,11 @@ def evaluate(
     device = resolve_device(device)
     if device.type == 'cuda':
         set_true_fp32()
-    wf = wf.to(device=device, dtype=torch.float32)
+    wf = replicate_on_devices(wf.to(device=device, dtype=torch.float32))
     idx_sampler, sampler, state, gen, grad_mode = _sampling(
-        hamil, wf, sampler=sampler, decorr=decorr, mols=mols, molecule_batch_size=1,
-        n_walkers=n_walkers, seed=seed, device=device, inference=True,
+        hamil, wf, sampler=sampler, decorr=decorr, mols=mols,
+        molecule_batch_size=molecule_batch_size, n_walkers=n_walkers, seed=seed, device=device,
+        inference=True,
     )
     for step, state, _, stats in _equilibration(gen, idx_sampler, sampler, state, grad_mode,
                                                 max_eq_steps, eq_allow_early_stopping):
@@ -284,7 +298,13 @@ def evaluate(
                 gen, hamil, wf, sampler, state, idx_sampler.sample(), ewm, std_ewm, update_ewm,
                 eloc_walker_chunk,
             )
-        yield step, state, E_loc, stats
+        yield step, state, _public(E_loc), stats
+
+
+def _public(E_loc: torch.Tensor) -> torch.Tensor:
+    """The local energies ``[m, 1, B]`` of a step as :func:`evaluate` and
+    :func:`train` yield them: ``[B]`` for one molecule."""
+    return E_loc[0, 0] if len(E_loc) == 1 else E_loc
 
 
 def train(
@@ -303,21 +323,17 @@ def train(
     ``sampler``, ``mols``, ``max_eq_steps`` and ``eq_allow_early_stopping`` are
     as :func:`evaluate`'s; the equilibration's calls come first, each as
     ``(step, TrainState(sampler_state, params, None), None, sampler_stats)``.  A step
-    takes one molecule (``molecule_batch_size`` 1).  Runs on ``device``
+    takes ``molecule_batch_size`` molecules (E_loc ``[m, 1, B]`` for m > 1), and
+    ``n_walkers`` of each over all ranks.  Runs on ``device``
     (``None`` means CUDA, and raises where it is absent) in float32 with TF32
     off; ``wf`` is moved there and its parameters are updated in place.
     Walkers start from ``hamil.init_sample`` drawn on the CPU from ``seed``; the
-    moves draw from a generator on the device seeded with ``seed + 1``.
+    moves draw from a generator on the device seeded with ``seed + 1`` plus the rank.
     """
-    if molecule_batch_size != 1:
-        raise NotImplementedError(
-            f'molecule_batch_size={molecule_batch_size}: the training step takes one '
-            'molecule (ROADMAP.md, queue 1 item 2)'
-        )
     device = resolve_device(device)
     if device.type == 'cuda':
         set_true_fp32()
-    wf = wf.to(device=device, dtype=torch.float32)
+    wf = replicate_on_devices(wf.to(device=device, dtype=torch.float32))
     idx_sampler, sampler, smpl_state, gen, grad_mode = _sampling(
         hamil, wf, sampler=sampler, decorr=decorr, mols=mols,
         molecule_batch_size=molecule_batch_size, n_walkers=n_walkers, seed=seed, device=device,
@@ -333,7 +349,7 @@ def train(
         gen, sampler, opt, TrainState(smpl_state, wf.state_dict(), None), idx_sampler,
         range(steps),
     ):
-        yield step, train_state, E_loc, stats
+        yield step, train_state, _public(E_loc), stats
 
 
 def _fit_steps(gen, sampler, opt, train_state: TrainState, molecule_idx_sampler,
@@ -347,7 +363,7 @@ def _fit_steps(gen, sampler, opt, train_state: TrainState, molecule_idx_sampler,
     ewm, update_ewm = init_multi_mol_multi_state_ewm((molecule_idx_sampler.n_mols, r.shape[1]),
                                                      device=r.device)
     if opt_state is None:
-        opt_state = opt.init(molecule_conf(_state_conf(smpl_state, torch.tensor([0]))))
+        opt_state = opt.init(_state_conf(smpl_state, torch.tensor([0])))
 
     def run(train_state, ewm, std_ewm):
         for step in steps:
@@ -414,21 +430,17 @@ def fit_wf(
                            if not isinstance(m, (EnergyMonitor, WaveFunctionMonitor))]
     if train_state.params is not None:
         wf.load_state_dict(train_state.params)
+        replicate_on_devices(wf)
     run = _fit_steps(gen, sampler, opt, train_state._replace(params=wf.state_dict()),
                      molecule_idx_sampler, steps, grad_mode if is_evaluation else None)
     r = train_state.sampler['elec']['r']
-    n_walkers = int(np.prod(r.shape[:3]))
+    n_walkers = int(np.prod(r.shape[:3])) * get_process_count()
     while True:
         start, block, outputs = time.perf_counter(), [], []
         for step, train_state, mol_idxs, E_loc, psi_ratio, stats in itertools.islice(
                 run, block_size):
             block.append(step)
             psi = train_state.sampler['elec']['psi']
-            E_loc = E_loc.view(1, -1, E_loc.shape[-1])  # [mol, state, walker]
-            # the loss's means of the Hamiltonian's terms as the JAX loss gives
-            # them, per (molecule, state) of the step
-            stats = {k: v[None, None] if k.startswith('hamil/') and v.ndim == 0 else v
-                     for k, v in stats.items()}
             outputs.append((mol_idxs, E_loc, psi, psi_ratio, {
                 'stats': {k: torch.as_tensor(v, dtype=torch.float32, device=r.device)
                           for k, v in stats.items()},
@@ -448,7 +460,7 @@ def fit_wf(
                 for monitor in observable_monitors:
                     extra = monitor(step, train_state.params,
                                     _state_conf(train_state.sampler, mol_idxs), psi, E_loc,
-                                    None if psi_ratio is None else psi_ratio[None])
+                                    psi_ratio)
                     extra_samples, extra_stats = split_dict(extra, lambda key: 'samples' in key)
                     stats |= _to_host(extra_stats)
                     samples |= _to_host(extra_samples)

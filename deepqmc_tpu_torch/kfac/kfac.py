@@ -24,6 +24,13 @@ multiplies all their updates.  The optimizer state's ``factors`` and
 ``inverses`` are then lists, one entry per state; for one state they are
 the entry itself.
 
+The factor sums are over every molecule of a step's batch and every rank
+(the loss sums them over the ranks), normalised by the global count of
+walkers a state, ``mol x walker`` over the ranks (JAX ``kfac.py:282-285``).
+The gradients and factors being the same on every rank, so are the
+inverses, the trust region and the update: the parameters stay bitwise
+equal across the ranks without a broadcast.
+
 The step counter is a host integer, so deciding whether to refresh the
 inverses costs no device synchronisation.
 """
@@ -85,7 +92,7 @@ class KFAC:
         rule.  ``phys_conf`` holds walkers of one state."""
         wf, paths = self.loss.states[0], self.loss.dense_paths[0]
         names = {mod: name for name, mod in wf.named_modules()}
-        one = phys_conf.replace(r=phys_conf.r[:1], mol_idx=phys_conf.mol_idx[:1])
+        one = phys_conf.walkers(slice(0, 1))
         with torch.no_grad(), instrumented(wf) as rec:
             wf(one)
         metas = []
@@ -109,11 +116,9 @@ class KFAC:
         return xs if self.loss.multi else xs[0]
 
     def init(self, phys_conf) -> dict:
-        """The optimizer state for walkers like ``phys_conf`` (with the state
-        axis in front for a stack)."""
-        if self.loss.multi:
-            phys_conf = phys_conf.replace(r=phys_conf.r[0], mol_idx=phys_conf.mol_idx[0])
-        self.metas = self._discover_layers(phys_conf)
+        """The optimizer state for walkers like ``phys_conf`` (in a layout of
+        :class:`~..loss.VMCLoss`)."""
+        self.metas = self._discover_layers(self.loss.grid_conf(phys_conf).state(0))
         w = self.loss.states[0].get_submodule(self.layers[self.metas[0].path]).w
         factors, inverses = [], []
         for _ in self.loss.states:
@@ -128,13 +133,13 @@ class KFAC:
         """One KFAC step on the walkers ``phys_conf``; updates the parameters in
         place and returns ``(opt_state, (E_loc, psi_ratio, stats), opt_stats)``."""
         (_, aux), grads, sums = self.loss.value_grad_and_taps(phys_conf, weight, data)
-        opt_state, opt_stats = self.update(opt_state, grads, sums, weight.shape[-1])
+        opt_state, opt_stats = self.update(opt_state, grads, sums, self.loss.n_walkers(weight))
         return opt_state, aux, opt_stats
 
     def update(self, opt_state, grads, sums, n_batch: int):
         """The curvature and parameter half of a step from the loss's gradient
         and factor sums (:meth:`~..loss.VMCLoss.value_grad_and_taps`) over ``n_batch``
-        walkers (per state)."""
+        walkers a state (over the molecules and ranks)."""
         step = opt_state['step']
         lr = self.lr_schedule(step)
         damping = max(self.damping_schedule(step), self.MIN_DAMPING)

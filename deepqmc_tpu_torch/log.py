@@ -5,6 +5,12 @@ A checkpoint is ``torch.save`` of ``{'step', 'sampler', 'params', 'opt'}``
 made of tensors, dicts, lists, tuples and Python scalars only, so
 ``torch.load(..., weights_only=True)`` reads it; named tuples (``Psi``) are
 stored as tagged dicts.  ``params`` is the wave function's ``state_dict``.
+With walkers sharded over processes each rank writes its own shard (its
+work directory has the suffix ``_<rank>``, as the JAX package's), tagged with
+the rank and the number of ranks (a one-process checkpoint has no tags); a restore on as many ranks reads each
+rank's own file, and a restore of a one-process checkpoint on several ranks
+takes each rank's share of its walkers (the JAX package re-shards too,
+``deepqmc_tpu/log.py:88``).
 ``h5py`` and ``tensorboardX`` are imported by the two sinks' constructors, so
 the module loads without them.
 """
@@ -22,6 +28,7 @@ from typing import NamedTuple, Optional, Protocol
 import numpy as np
 import torch
 
+from .parallel import get_process_count, get_process_index, shard_walkers
 from .types import Psi
 from .utils import flatten_dict
 
@@ -65,7 +72,10 @@ def _from_plain(tree):
 def serialize_train_state(step: int, train_state) -> dict:
     """A detached copy of ``(step, train_state)`` as a checkpoint's payload."""
     sampler, params, opt = train_state
-    return _to_plain({'step': step, 'sampler': sampler, 'params': params, 'opt': opt})
+    payload = {'step': step, 'sampler': sampler, 'params': params, 'opt': opt}
+    if get_process_count() > 1:  # a shard: tagged with its rank
+        payload |= {'rank': get_process_index(), 'world_size': get_process_count()}
+    return _to_plain(payload)
 
 
 def deserialize_train_state(payload: dict):
@@ -77,6 +87,8 @@ def deserialize_train_state(payload: dict):
     sampler = payload['sampler']
     if sampler is not None and 'update_nuc_counter' in sampler:
         sampler['update_nuc_counter'] = sampler['update_nuc_counter'].cpu()
+    if sampler is not None and payload.get('world_size', 1) == 1:
+        sampler['elec'] = shard_walkers(sampler['elec'])
     return payload['step'], TrainState(sampler, payload['params'], payload['opt'])
 
 
@@ -124,8 +136,19 @@ class CheckpointStore:
 
     @staticmethod
     def load(path, device=None):
-        """``(step, TrainState)`` of the checkpoint at ``path``, on ``device``."""
+        """``(step, TrainState)`` of the checkpoint at ``path``, on ``device``:
+        this rank's shard, from the file of this rank where ``path`` is
+        another rank's of a run on as many ranks."""
         payload = torch.load(path, map_location=device or 'cpu', weights_only=True)
+        world, rank = payload.get('world_size', 1), payload.get('rank', 0)
+        if world not in (1, get_process_count()):
+            raise ValueError(f'{path} holds a shard of {world} ranks, this run has '
+                             f'{get_process_count()}')
+        if world > 1 and rank != get_process_index():
+            path = Path(path)
+            stem = path.parent.name.rsplit('_', 1)[0]
+            path = path.parent.with_name(f'{stem}_{get_process_index()}') / path.name
+            payload = torch.load(path, map_location=device or 'cpu', weights_only=True)
         return deserialize_train_state(payload)
 
     def close(self):

@@ -1,5 +1,5 @@
 """Local energies and the terms of the VMC energy gradient (counterpart of
-``deepqmc_tpu/loss/energy.py``, one molecule).
+``deepqmc_tpu/loss/energy.py``).
 
 The local energy runs through the forward Laplacian (and so the kernels on the
 card) with autograd off: the estimator never differentiates the Hamiltonian,
@@ -11,17 +11,18 @@ backward pass of ``log|psi|`` pulls back to the parameters.
 
 import torch
 
-from ..parallel import all_device_mean
-from ..utils import chunk_size, masked_mean
+from ..parallel import all_device_mean, all_device_sum
+from ..utils import chunk_size
 
 __all__ = [
     'compute_local_energy', 'compute_mean_energy', 'compute_mean_energy_cotangent',
-    'compute_mean_energy_tangent',
+    'compute_mean_energy_tangent', 'masked_mean',
 ]
 
 
 def compute_local_energy(hamil, wf, phys_conf, *, walker_chunk=None):
-    """Local energies ``[B]`` of the walkers and the means of the Hamiltonian's terms.
+    """Local energies ``[B]`` of the walkers and each walker's terms of the
+    Hamiltonian (``[B]`` each; their callers take the means they report).
 
     With ``walker_chunk`` the walkers go through the local energy in
     sequential chunks of the largest divisor of B at most it, which bounds
@@ -36,31 +37,40 @@ def compute_local_energy(hamil, wf, phys_conf, *, walker_chunk=None):
         phi = hamil.nl_rotations(phys_conf)
         parts = [
             hamil.local_energy(
-                wf, phys_conf.replace(r=phys_conf.r[i:i + size],
-                                      mol_idx=phys_conf.mol_idx[i:i + size]),
+                wf, phys_conf.walkers(slice(i, i + size)),
                 phi=None if phi is None else phi[:, i:i + size])
             for i in range(0, B, size)
         ]
         local_energy = torch.cat([e for e, _ in parts])
         hamil_stats = {k: torch.cat([s[k] for _, s in parts]) for k in parts[0][1]}
-    return local_energy, {k: v.mean() for k, v in hamil_stats.items()}
+    return local_energy, hamil_stats
 
 
 def compute_mean_energy(local_energy: torch.Tensor, weight: torch.Tensor):
     return all_device_mean(local_energy * weight), {}
 
 
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:
+    """The sum of ``x`` where ``mask`` holds over the count of such entries,
+    over ``dim`` (or all of it) of the global batch."""
+    x = torch.where(mask, x, torch.zeros_like(x))
+    return all_device_sum(x, dim) / all_device_sum(mask.to(x.dtype), dim)
+
+
 def compute_mean_energy_tangent(local_energy, weight, log_psi_tangent, gradient_mask):
     """Control-variate VMC gradient along ``log_psi_tangent``:
     E[(E_loc - E_mean) * T * w] over the walkers the mask keeps, the baseline
-    taken per batch of the last axis (per electronic state of a grid)."""
-    baseline = (local_energy * weight).mean(-1, keepdim=True)
+    taken per batch of the last axis (per molecule and electronic state of a
+    grid)."""
+    baseline = all_device_mean(local_energy * weight, -1, keepdim=True)
     return masked_mean((local_energy - baseline) * log_psi_tangent * weight, gradient_mask)
 
 
 def compute_mean_energy_cotangent(local_energy, weight, gradient_mask):
     """Per-walker coefficient ``c`` with ``compute_mean_energy_tangent(..., T, ...)
-    == (c * T).sum()`` for every ``T``: mask * (E - baseline) * w / sum(mask)."""
-    baseline = all_device_mean(local_energy * weight)
+    == (c * T).sum()`` over the global batch for every ``T``: mask * (E -
+    baseline) * w / sum(mask), the baseline per batch of the last axis."""
+    baseline = all_device_mean(local_energy * weight, -1, keepdim=True)
     coeff = (local_energy - baseline) * weight
-    return torch.where(gradient_mask, coeff, torch.zeros_like(coeff)) / gradient_mask.sum()
+    count = all_device_sum(gradient_mask.to(coeff.dtype))
+    return torch.where(gradient_mask, coeff, torch.zeros_like(coeff)) / count

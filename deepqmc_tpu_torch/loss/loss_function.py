@@ -1,13 +1,17 @@
 """The VMC loss with its direct gradient estimator (counterpart of
-``deepqmc_tpu/loss/loss_function.py``), one molecule a step, one or more
-electronic states.
+``deepqmc_tpu/loss/loss_function.py``), for one or more molecules a step and
+one or more electronic states.
 
 The loss is the weighted mean local energy, plus ``alpha`` times the overlap
 penalty with more than one state and ``spin_penalty`` times the mean local
 S^2 where it is set.  The wave function is one module (one state) or a
 :class:`~..wf.StateStack`; every state axis of the JAX package is a loop
 over the stack's modules here.  Internally the walkers' numbers have the JAX
-package's ``[mol, state, walker]`` grid with a molecule axis of 1.
+package's ``[mol, state, walker]`` grid.  Each state's local energy and
+pullback take one pass over its walkers of every molecule, flattened to
+``[mol * walker]`` with the nuclei ``R`` per walker, as the JAX package's
+``_state_phys_conf`` flattens them: the kernels' launches do not grow with
+the molecule batch.
 
 The gradient is estimated head-on, never by differentiating the
 Hamiltonian.  Every term's gradient is linear in the per-walker tangents
@@ -23,6 +27,11 @@ For KFAC each state's forward is instrumented (:func:`nn.instrumented`) and
 a second backward with the all-ones cotangent gives its dense layers'
 output sensitivities, which the loss reduces at once with the layers'
 inputs to KFAC's factor sums (sum a a^T, sum g g^T).
+
+With walkers sharded over processes (:mod:`..parallel`) every statistic of
+the loss is over the global walker axis, so each rank's ``c`` carries the
+global normalisation: the ranks' gradients and factor sums add up, in one
+``all_reduce``, to those of the whole batch, the same on every rank.
 
 Two walker chunks bound the memory, each the largest divisor of the walkers
 at most its setting (0: none): ``eloc_walker_chunk`` for the local energy
@@ -40,6 +49,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..nn import dense_layer_paths, instrumented
+from ..parallel import all_device_mean, get_process_count, sum_over_ranks
+from ..types import PhysicalConfiguration
 from ..utils import chunk_size, tree_map
 from ..wf.base import wf_states
 from .clip import clip_local_energy, clip_psi_ratio
@@ -56,8 +67,8 @@ __all__ = ['Terms', 'VMCLoss', 'create_loss_fn', 'factor_sums']
 
 
 class Terms(NamedTuple):
-    """The forward half of the loss, on the ``[1, S, walker]`` grid:
-    ``psi_ratio`` ``[1, S, S, B]`` (None for one state) and the local S^2
+    """The forward half of the loss, on the ``[m, S, walker]`` grid:
+    ``psi_ratio`` ``[m, S, S, B]`` (None for one state) and the local S^2
     ``spin`` (None without the spin penalty)."""
 
     loss: torch.Tensor
@@ -70,14 +81,18 @@ class Terms(NamedTuple):
 class VMCLoss:
     """The loss of ``wf`` (a module, or a :class:`~..wf.StateStack`).
 
-    The walkers ``phys_conf`` and their weights have the state axis in front
+    The walkers ``phys_conf`` and their weights come in one of three
+    layouts.  One molecule (``R`` ``[n_nuc, 3]``): the state axis in front
     for S > 1 states (``r`` ``[S, B, n, 3]``, ``mol_idx`` and ``weight`` ``[S,
-    B]``), none for one.  ``data`` holds the EWMs ``energy_ewm`` and
-    ``std_ewm`` (``[1, S]``) that the overlap penalty's scale and state order
-    read; None stands for EWMs still in their warm-up (NaN).  Calling the loss
-    gives ``(loss, (local_energy, psi_ratio, stats))`` with ``psi_ratio``
-    ``[S, S, B]`` or None; :meth:`value_and_grad` adds the gradient, a dict keyed
-    as ``named_parameters()`` of each state (a list of them for S > 1), and
+    B]``), none for one.  A molecule batch (``R`` ``[m, n_nuc, 3]``): the
+    whole grid, ``r`` ``[m, S, B, n, 3]``, ``mol_idx`` and ``weight`` ``[m, S,
+    B]``.  ``data`` holds the EWMs ``energy_ewm`` and ``std_ewm`` (``[m, S]``)
+    that the overlap penalty's scale and state order read; None stands for
+    EWMs still in their warm-up (NaN).  Calling the loss gives ``(loss,
+    (local_energy, psi_ratio, stats))``, each in the layout of the walkers
+    (``psi_ratio`` ``[S, S, B]`` or ``[m, S, S, B]``, or None);
+    :meth:`value_and_grad` adds the gradient, a dict keyed as
+    ``named_parameters()`` of each state (a list of them for S > 1), and
     :meth:`value_grad_and_taps` the dense layers' factor sums as well.
     """
 
@@ -98,19 +113,33 @@ class VMCLoss:
 
     # -- layouts ---------------------------------------------------------------
 
+    @staticmethod
+    def is_grid(phys_conf) -> bool:
+        """Whether the walkers come as a molecule batch's grid."""
+        return phys_conf.R.dim() == 3
+
+    def grid_conf(self, phys_conf) -> PhysicalConfiguration:
+        """The walkers as the ``[m, S, B]`` grid."""
+        if self.is_grid(phys_conf):
+            return phys_conf
+        lead = (None,) if self.multi else (None, None)
+        return PhysicalConfiguration(phys_conf.R[None], phys_conf.r[lead],
+                                     phys_conf.mol_idx[lead])
+
     def _confs(self, phys_conf):
-        """(walkers with a state axis, each state's walkers)."""
-        if not self.multi:
-            return phys_conf.replace(r=phys_conf.r[None], mol_idx=phys_conf.mol_idx[None]), [phys_conf]
-        return phys_conf, [phys_conf.replace(r=r, mol_idx=i)
-                           for r, i in zip(phys_conf.r, phys_conf.mol_idx)]
+        """(the walkers' grid, each state's walkers as one flat batch)."""
+        grid = self.grid_conf(phys_conf)
+        return grid, [grid.state(s) for s in range(grid.r.shape[1])]
 
     def _grid(self, weight):
+        if weight.dim() == 3:
+            return weight
         return weight[None] if self.multi else weight[None, None]
 
-    def _public(self, x):
-        """A ``[1, S, ...]`` grid as the caller's layout: ``[S, ...]``, or ``[...]`` for one state."""
-        return x[0] if self.multi else x[0, 0]
+    def n_walkers(self, weight) -> int:
+        """The walkers of one state over every molecule and rank."""
+        m = weight.shape[0] if weight.dim() == 3 else 1
+        return m * weight.shape[-1] * get_process_count()
 
     def _data(self, data, like):
         if data is not None:
@@ -129,41 +158,49 @@ class VMCLoss:
 
     def terms(self, phys_conf, weight, data=None) -> Terms:
         """The loss, local energies, penalty inputs and stats: no autograd."""
-        stacked, confs = self._confs(phys_conf)
+        grid, confs = self._confs(phys_conf)
         w = self._grid(weight)
+        m = grid.r.shape[0]
         per_state = [compute_local_energy(self.hamil, wf, pc, walker_chunk=self.eloc_walker_chunk)
                      for wf, pc in zip(self.states, confs)]
-        local_energy = torch.stack([e for e, _ in per_state])[None]
+        local_energy = torch.stack([e.view(m, -1) for e, _ in per_state], 1)
         loss, stats = compute_mean_energy(local_energy, w)
-        if self.multi:
-            stats = {k: torch.stack([s[k] for _, s in per_state])[None] for k in per_state[0][1]}
-        else:
-            stats = per_state[0][1]
+        stats = {k: all_device_mean(torch.stack([s[k].view(m, -1) for _, s in per_state], 1), -1)
+                 for k in per_state[0][1]}
+        if not self.is_grid(phys_conf) and not self.multi:  # one walker batch: the means
+            stats = {k: v[0, 0] for k, v in stats.items()}
         psi_ratio = spin = None
         if len(self.states) > 1:
-            psi_ratio = self.overlap_penalty.ratios(self.states, stacked)
+            psi_ratio = self.overlap_penalty.ratios(self.states, grid)
             overlap, overlap_stats = self.overlap_penalty.value(psi_ratio, w)
             loss = loss + self.alpha * overlap
             stats |= overlap_stats
         if self.spin_penalty is not None:
-            spin = compute_spin_contributions(self.hamil, self.states, confs)
+            spin = compute_spin_contributions(self.hamil, self.states, confs, m)
             mean_spin, spin_stats = compute_mean_spin(spin, w)
             loss = loss + self.spin_penalty * mean_spin
             stats |= spin_stats
         return Terms(loss, local_energy, psi_ratio, spin, stats)
 
-    def _aux(self, terms: Terms):
-        ratio = None if terms.psi_ratio is None else terms.psi_ratio[0]
-        return self._public(terms.local_energy), ratio, terms.stats
+    def _aux(self, terms: Terms, phys_conf):
+        """(local energies, ratios, stats) in the layout of the walkers
+        ``phys_conf``: the grid's as they are, one molecule's without the
+        molecule axis (and the state axis, for one state)."""
+        E, ratio = terms.local_energy, terms.psi_ratio
+        if self.is_grid(phys_conf):
+            return E, ratio, terms.stats
+        if not self.multi:
+            return E[0, 0], None, terms.stats
+        return E[0], None if ratio is None else ratio[0], terms.stats
 
     def __call__(self, phys_conf, weight, data=None):
         terms = self.terms(phys_conf, weight, data)
-        return terms.loss, self._aux(terms)
+        return terms.loss, self._aux(terms, phys_conf)
 
     def value_and_grad(self, phys_conf, weight, data=None):
         terms = self.terms(phys_conf, weight, data)
         grads, _ = self.grad_and_taps(phys_conf, weight, terms, taps=False, data=data)
-        return (terms.loss, self._aux(terms)), grads
+        return (terms.loss, self._aux(terms, phys_conf)), grads
 
     def value_grad_and_taps(self, phys_conf, weight, data=None):
         """Loss, gradient and the dense layers' taps as KFAC's factor sums:
@@ -171,16 +208,16 @@ class VMCLoss:
         (:func:`factor_sums`; a list per state for a stack)."""
         terms = self.terms(phys_conf, weight, data)
         grads, sums = self.grad_and_taps(phys_conf, weight, terms, taps=True, data=data)
-        return (terms.loss, self._aux(terms)), grads, sums
+        return (terms.loss, self._aux(terms, phys_conf)), grads, sums
 
     # -- the gradient half -----------------------------------------------------
 
     def cotangent(self, weight, terms: Terms, data=None) -> torch.Tensor:
-        """The per-walker coefficients ``c`` ``[1, S, B]`` of the loss's gradient."""
+        """The per-walker coefficients ``c`` ``[m, S, B]`` of the loss's gradient."""
         w = self._grid(weight)
         clipped, mask = clip_local_energy(self.clip_mask_fn, terms.local_energy)
         if len(self.states) == 1 and terms.spin is None:
-            return compute_mean_energy_cotangent(clipped[0, 0], w[0, 0], mask[0, 0])[None, None]
+            return compute_mean_energy_cotangent(clipped, w, mask)
         return self.transposed_cotangent(clipped, mask, w, terms, data)
 
     def transposed_cotangent(self, clipped, mask, w, terms: Terms, data=None) -> torch.Tensor:
@@ -209,14 +246,15 @@ class VMCLoss:
     def grad_and_taps(self, phys_conf, weight, terms: Terms, *, taps: bool, data=None):
         """The gradient half: clip, form the per-walker cotangent, pull it back
         through each state's forward (with ``taps``, the factor sums as in
-        :meth:`value_grad_and_taps`)."""
+        :meth:`value_grad_and_taps`), summed over the ranks."""
         cot = self.cotangent(weight, terms, data)
         _, confs = self._confs(phys_conf)
         grads, state_taps = [], []
-        for wf, paths, pc, c in zip(self.states, self.dense_paths, confs, cot[0]):
-            g, t = self._pull_back(wf, paths, pc, c, taps)
+        for wf, paths, pc, c in zip(self.states, self.dense_paths, confs, cot.unbind(1)):
+            g, t = self._pull_back(wf, paths, pc, c.reshape(-1), taps)
             grads.append(g)
             state_taps.append(t)
+        grads, state_taps = sum_over_ranks((grads, state_taps))
         if self.multi:
             return grads, state_taps if taps else None
         return grads[0], state_taps[0]
@@ -228,8 +266,7 @@ class VMCLoss:
         size = chunk_size(B, self.grad_walker_chunk, 'DEEPQMC_TPU_GRAD_WALKER_CHUNK')
         grads = sums = None
         for i in range(0, B, size):
-            chunk = phys_conf.replace(r=phys_conf.r[i:i + size],
-                                      mol_idx=phys_conf.mol_idx[i:i + size])
+            chunk = phys_conf.walkers(slice(i, i + size))
             g, t = self._pull_back_chunk(wf, dense_paths, chunk, cotangent[i:i + size], taps)
             grads = g if grads is None else tree_map(torch.add, grads, g)
             sums = t if sums is None else tree_map(torch.add, sums, t)

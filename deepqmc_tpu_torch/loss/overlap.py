@@ -1,20 +1,24 @@
 """The overlap penalty of penalty-method excited states (counterpart of
-``deepqmc_tpu/loss/overlap.py``), one molecule a step.
+``deepqmc_tpu/loss/overlap.py``).
 
-The grids keep the JAX package's molecule axis in front (of size 1): the
+The grids keep the JAX package's molecule axis in front: the
 ratios are ``R[mol, i, j, walker] = psi_i / psi_j`` at walkers drawn from
 ``psi_j^2``, the one-sided overlaps ``S[mol, i, j]`` their weighted means, and
 the penalty is the sum over pairs i < j of the squared sign-consistent
-geometric mean of ``S`` and ``S^T``.  The ratio forwards are plain forwards of
-each state's module under ``no_grad``: only the sampled state is
-differentiated, through :meth:`OverlapPenalty.tangent`.
+geometric mean of ``S`` and ``S^T``, averaged over the molecules.  The ratio
+forwards are plain forwards of each state's module under ``no_grad``, one
+over the flat batch of every molecule's and state's walkers: only the
+sampled state is differentiated, through :meth:`OverlapPenalty.tangent`.
+The means over the walkers are over the global walker axis.
 """
 
 from typing import Optional
 
 import torch
 
-from ..utils import masked_mean, triu_flat
+from ..parallel import all_device_mean
+from ..utils import triu_flat
+from .energy import masked_mean
 
 __all__ = ['OverlapPenalty']
 
@@ -39,18 +43,18 @@ class OverlapPenalty:
         self.floor = floor
 
     @staticmethod
-    def ratios(wfs, phys_conf) -> torch.Tensor:
-        """``R[1, i, j, walker]`` for the state modules ``wfs`` and the walkers
-        ``phys_conf`` (``r`` ``[S, B, n, 3]``, ``mol_idx`` ``[S, B]``): each
-        state's psi on every state's walkers, shifted by that evaluation
+    def ratios(wfs, grid) -> torch.Tensor:
+        """``R[mol, i, j, walker]`` for the state modules ``wfs`` and the
+        walkers ``grid`` (``R`` ``[m, n_nuc, 3]``, ``r`` ``[m, S, B, n, 3]``):
+        each state's psi on every state's walkers, shifted by that evaluation
         state's mean log|psi| over them, over the sampling state's own."""
-        S, B = phys_conf.r.shape[:2]
-        flat = phys_conf.replace(r=phys_conf.r.flatten(0, 1), mol_idx=phys_conf.mol_idx.flatten())
+        m, S, B = grid.r.shape[:3]
+        flat = grid.flat()
         with torch.no_grad():
             psis = [wf(flat) for wf in wfs]
-        log = torch.stack([p.log for p in psis]).view(1, S, S, B)
-        sign = torch.stack([p.sign for p in psis]).view(1, S, S, B)
-        log = log - log.mean((-1, -2))[:, :, None, None]
+        log = torch.stack([p.log for p in psis]).view(S, m, S, B).transpose(0, 1)
+        sign = torch.stack([p.sign for p in psis]).view(S, m, S, B).transpose(0, 1)
+        log = log - all_device_mean(log, (-1, -2))[:, :, None, None]
         diag = torch.diagonal(log, dim1=1, dim2=2).transpose(-1, -2)
         sign_diag = torch.diagonal(sign, dim1=1, dim2=2).transpose(-1, -2)
         return sign * sign_diag[:, None] * torch.exp(log - diag[:, None])
@@ -58,7 +62,7 @@ class OverlapPenalty:
     @staticmethod
     def one_sided(ratios: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         """``S[mol, i, j]``: the weighted mean over the walkers of state j."""
-        return (weight[:, None] * ratios).mean(-1)
+        return all_device_mean(weight[:, None] * ratios, -1)
 
     @staticmethod
     def symmetrized(one_sided: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,9 @@ The Hellmann-Feynman forces of each walker under its state's module
 (:class:`ForceMonitor` and its five aliases, the estimators of
 :mod:`.force`) and the electron and nuclear positions
 (:class:`ElectronPositionMonitor`, :class:`NuclearPositionMonitor`).
+
+The statistics are per (molecule, state) over the global walker axis: with
+walkers sharded over processes each rank's samples are its own walkers'.
 """
 
 from dataclasses import dataclass
@@ -21,6 +24,13 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from .parallel import (
+    all_device_max,
+    all_device_mean,
+    all_device_min,
+    all_device_std,
+    get_process_count,
+)
 from .physics import evaluate_spin
 from .types import PhysicalConfiguration, Psi
 from .wf.base import wf_states
@@ -91,8 +101,8 @@ class ObservableMonitor:
 def energy_statistics(batch: Batch, samples) -> dict:
     """Walker statistics of the local energies."""
     e = batch.local_energy
-    return {'local_energy/mean': e.mean(-1), 'local_energy/std': e.std(-1, correction=0),
-            'local_energy/min': e.amin(-1), 'local_energy/max': e.amax(-1)}
+    return {'local_energy/mean': all_device_mean(e, -1), 'local_energy/std': all_device_std(e, -1),
+            'local_energy/min': all_device_min(e, -1), 'local_energy/max': all_device_max(e, -1)}
 
 
 class EnergyMonitor(ObservableMonitor):
@@ -115,7 +125,8 @@ class WaveFunctionMonitor(ObservableMonitor):
 
 def walker_moments(name: str, samples: torch.Tensor) -> dict:
     """Per-(mol, state) mean and (population) spread over the walkers."""
-    return {f'{name}/mean': samples.mean(2), f'{name}/std': samples.std(2, correction=0)}
+    return {f'{name}/mean': all_device_mean(samples, 2),
+            f'{name}/std': all_device_std(samples, 2)}
 
 
 def _per_walker_spec(name: str, fn_factory, with_energy: bool = False):
@@ -135,7 +146,8 @@ def _per_walker_spec(name: str, fn_factory, with_energy: bool = False):
             return torch.stack([
                 torch.stack([
                     fn(PhysicalConfiguration(R, r[s], i[s]),
-                       *((e_m[s], e_m[s].mean().expand_as(e_m[s])) if with_energy else ()))
+                       *((e_m[s], all_device_mean(e_m[s]).expand_as(e_m[s])) if with_energy
+                         else ()))
                     for s, fn in enumerate(fns)
                 ]) for R, r, i, e_m in zip(pc.R, pc.r, pc.mol_idx, e)
             ])
@@ -173,10 +185,10 @@ def oscillator_strength_statistics(batch: Batch, samples) -> dict:
     ``deepqmc_tpu/observable.py``: the zero-gap diagonal gets zero error, not NaN)."""
     if batch.psi_ratios is None:
         raise ValueError('OscillatorStrengthMonitor needs more than one electronic state')
-    n = batch.local_energy.shape[-1]
+    n = batch.local_energy.shape[-1] * get_process_count()
 
     def mean_err(x, dim):
-        return x.mean(dim), x.std(dim, correction=0) / n**0.5
+        return all_device_mean(x, dim), all_device_std(x, dim) / n**0.5
 
     e, e_err = mean_err(batch.local_energy, -1)
     gap = e[..., None, :] - e[..., :, None]  # gap[mol, i, j] = E_j - E_i

@@ -6,11 +6,16 @@ objects are linked into one shared library named after a hash of the sources
 and flags, under ``deepqmc_tpu_torch/_build/`` (listed in ``.gitignore``), so a
 stale library is never loaded.  The library is loaded with ``ctypes``; every
 pointer and the stream are passed as ``c_void_p`` and every size as ``c_int``.
+Several processes on one machine (the ranks of a data-parallel run) build
+once: the first takes a file lock on the build directory and links into a
+temporary name that it renames into place, the others wait on the lock and
+load what it built.
 
 Nothing here runs at import: the first kernel launch builds and loads.
 """
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -84,13 +89,22 @@ def build(verbose: bool = False) -> Path:
     """Compile the sources in parallel and link them into one library.
 
     Returns the library's path; does nothing when it already exists.  A failed
-    or timed-out compile raises with the compiler's output.
+    or timed-out compile raises with the compiler's output.  Holds a lock on
+    the build directory while it builds, so concurrent callers build once.
     """
     out = library_path()
     if out.exists():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / '.lock', 'w') as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():  # built by another process while this one waited
+            _compile_and_link(nvcc, out, verbose)
+    return out
+
+
+def _compile_and_link(nvcc: str, out: Path, verbose: bool):
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, procs = [], []
         extra = ('-Xptxas', '-v') if verbose else ()
@@ -126,7 +140,6 @@ def build(verbose: bool = False) -> Path:
         if link.returncode != 0:
             raise RuntimeError(f'nvcc link failed:\n{link.stdout}{link.stderr}')
         os.replace(tmp_lib, out)
-    return out
 
 
 def library():

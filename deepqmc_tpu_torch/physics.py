@@ -38,8 +38,9 @@ def pairwise_distance(c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
 
 
 def nuclear_energy(R: torch.Tensor, charges: torch.Tensor) -> torch.Tensor:
+    """The nuclear repulsion of ``R`` ``[n_nuc, 3]`` (or per walker ``[B, n_nuc, 3]``)."""
     i, j = triu_pairs(len(charges), device=R.device)
-    return (charges[i] * charges[j] / pairwise_self_distance(R)).sum()
+    return (charges[i] * charges[j] / pairwise_self_distance(R)).sum(-1)
 
 
 def coulomb_force(r1, r2, c1, c2, remove_self_int: bool = False) -> torch.Tensor:
@@ -117,10 +118,12 @@ def evaluate_spin(hamil, wf, phys_conf, chunk: int = SPIN_CHUNK):
     perm[rows, ii.flatten()], perm[rows, jj.flatten()] = jj.flatten(), ii.flatten()
     swapped = r[:, perm.to(r.device)].flatten(0, 1)  # [B * (1 + P), n, 3]
     mol_idx = phys_conf.mol_idx.repeat_interleave(len(perm))
+    R = phys_conf.R
+    R = R.repeat_interleave(len(perm), 0) if R.dim() == 3 else R  # per walker
+    configs = phys_conf.replace(R=R, r=swapped, mol_idx=mol_idx)
     signs, logs = [], []
     for start in range(0, len(swapped), chunk):
-        part = slice(start, start + chunk)
-        psi = wf(phys_conf.replace(r=swapped[part], mol_idx=mol_idx[part]))
+        psi = wf(configs.walkers(slice(start, start + chunk)))
         signs.append(psi.sign)
         logs.append(psi.log)
     sign = torch.cat(signs).view(B, -1)

@@ -1,15 +1,19 @@
 """Supervised pretraining of the ansatz orbitals to the SCF baseline
-(counterpart of ``deepqmc_tpu/pretrain/pretraining.py``), one molecule a step,
-one or more electronic states.
+(counterpart of ``deepqmc_tpu/pretrain/pretraining.py``), one or more
+molecules a step, one or more electronic states.
 
-A step draws a molecule, moves its walkers with the sampler (no grad), and
+A step draws a batch of molecules, moves their walkers with the sampler (no
+grad), and
 updates the parameters by the gradient of the mean squared difference
 between the ansatz's orbitals (``wf(phys_conf, return_mos=True)``) and the
 SCF target's, each state's module held to its own target (its CASCI root,
 or the HF determinant) on its own walkers, the loss the mean over the
-states.  The optimizer sees each parameter stacked over the states, as the
-JAX package's stacked parameters, so LAMB's trust ratio takes the norms of
-all states together.  As in the JAX package the sampler's cached psi is
+states.  Each state's walkers of the molecules go through one forward as a
+flat batch (``PhysicalConfiguration.state``) with the nuclei per walker,
+each held to its molecule's SCF orbitals; with walkers sharded over
+processes the gradient is averaged over the ranks.  The optimizer sees each
+parameter stacked over the states, as the JAX package's stacked parameters,
+so LAMB's trust ratio takes the norms of all states together.  As in the JAX package the sampler's cached psi is
 never refreshed after an update.  The gradient may run in walker chunks
 (``walker_chunk``, by default ``DEEPQMC_TPU_GRAD_WALKER_CHUNK``), which bound
 the memory of its backward.
@@ -21,8 +25,9 @@ import time
 
 import torch
 
-from ..fit import molecule_conf
 from ..optimizer import GradientTransformation
+from ..parallel import get_process_count, sum_over_ranks
+from ..types import PhysicalConfiguration
 from ..utils import chunk_size
 from ..wf.base import wf_states
 from .pretraining_target import PretrainTarget
@@ -65,7 +70,7 @@ def pretrain(
     *,
     steps,
 ):
-    """Generator yielding ``(step, per_sample_losses [1, S, B], mol_idxs)``;
+    """Generator yielding ``(step, per_sample_losses [m, S, B], mol_idxs)``;
     the parameters of ``wf`` (a module or a :class:`~..wf.StateStack`) are
     updated in place by ``opt`` (``adam`` or ``lamb`` of :mod:`..optimizer`).
     ``gen`` draws the moves."""
@@ -86,12 +91,17 @@ def pretrain(
         t0 = time.perf_counter()
         with torch.no_grad():
             smpl_state, phys_conf, _ = sampler.sample(gen, smpl_state, mol_idxs)
+        m, S, B = phys_conf.r.shape[:3]
+        flat = [phys_conf.state(s) for s in range(S)]  # each [m * B], R per walker for m > 1
+        if S > 1:  # pretrain_update's layout of several states: [S, m * B]
+            flat = [flat[0].replace(r=torch.stack([c.r for c in flat]),
+                                    mol_idx=torch.stack([c.mol_idx for c in flat]))]
         opt_state, _, per_sample_losses = pretrain_update(
-            hamil, wf, target_fn, confs, conf_coeffs, molecule_conf(phys_conf), opt, opt_state)
+            hamil, wf, target_fn, confs, conf_coeffs, flat[0], opt, opt_state)
         if first:
             log.info(f'First pretraining step done in {time.perf_counter() - t0:.1f}s')
             first = False
-        yield step, per_sample_losses.view(1, -1, per_sample_losses.shape[-1]), mol_idxs
+        yield step, per_sample_losses.view(S, m, B).transpose(0, 1), mol_idxs
 
 
 def _stacked(states, tensors=None) -> dict:
@@ -103,8 +113,9 @@ def _stacked(states, tensors=None) -> dict:
 
 def pretrain_update(hamil, wf, target_fn, confs, conf_coeffs, phys_conf, opt, opt_state, *,
                     walker_chunk=None):
-    """One update of the parameters of ``wf`` (in place) on one molecule's
-    walkers; ``(opt_state, loss, per_sample_losses)``.  For one state
+    """One update of the parameters of ``wf`` (in place) on the walkers
+    ``phys_conf`` (of one molecule, or a flat batch of several with ``R``
+    per walker); ``(opt_state, loss, per_sample_losses)``.  For one state
     ``confs`` is ``[n_mols, n_det, n_el]``, the optimizer's state that of the
     module's parameters and the losses ``[B]``; for S > 1 states the walkers,
     ``confs`` (``[n_mols, S, n_det, n_el]``) and the losses (``[S, B]``) have a
@@ -114,7 +125,8 @@ def pretrain_update(hamil, wf, target_fn, confs, conf_coeffs, phys_conf, opt, op
     divisor of B at most ``walker_chunk`` (None reads
     ``DEEPQMC_TPU_GRAD_WALKER_CHUNK``, 0 for none): the loss is a mean over
     the walkers, so with chunks of one size it is the mean of the chunks'
-    losses and its gradient the mean of their gradients."""
+    losses and its gradient the mean of their gradients.  With walkers
+    sharded over processes the gradient is the mean of the ranks'."""
     states = wf_states(wf)
     multi = len(states) > 1
     params = [dict(s.named_parameters()) for s in states]
@@ -124,11 +136,12 @@ def pretrain_update(hamil, wf, target_fn, confs, conf_coeffs, phys_conf, opt, op
     grad_sum, losses, per_sample = None, [], []
     for i in range(0, B, size):
         rs, idxs = phys_conf.r[..., i:i + size, :, :], phys_conf.mol_idx[..., i:i + size]
+        R = phys_conf.R[i:i + size] if phys_conf.R.dim() == 3 else phys_conf.R
         if multi:
-            inputs = [(confs[:, s], conf_coeffs[:, s], phys_conf.replace(r=r, mol_idx=m))
+            inputs = [(confs[:, s], conf_coeffs[:, s], PhysicalConfiguration(R, r, m))
                       for s, (r, m) in enumerate(zip(rs, idxs))]
         else:
-            inputs = [(confs, conf_coeffs, phys_conf.replace(r=rs, mol_idx=idxs))]
+            inputs = [(confs, conf_coeffs, PhysicalConfiguration(R, rs, idxs))]
         loss_c, per_sample_c = zip(*(pretrain_loss(hamil, s, target_fn, *x)
                                      for s, x in zip(states, inputs)))
         loss = sum(loss_c) / len(states)
@@ -137,7 +150,8 @@ def pretrain_update(hamil, wf, target_fn, confs, conf_coeffs, phys_conf, opt, op
         grad_sum = grads if grad_sum is None else [a + g for a, g in zip(grad_sum, grads)]
         losses.append(loss.detach())
         per_sample.append(torch.stack(per_sample_c).detach())
-    flat_grads = iter(g / len(losses) for g in grad_sum)
+    n = len(losses) * get_process_count()
+    flat_grads = iter(g / n for g in sum_over_ranks(grad_sum))
     grads = [{k: next(flat_grads) for k in ps} for ps in params]
     with torch.no_grad():
         if multi:

@@ -25,7 +25,8 @@ class PretrainTarget:
     def __call__(self, confs, conf_coeffs, phys_conf):
         """``confs`` ``[n_mols, n_det, n_el]`` and ``conf_coeffs`` ``[n_mols,
         n_det]`` are selected per walker by ``phys_conf.mol_idx`` ``[B]``;
-        ``phys_conf.r`` ``[B, n_el, 3]``, ``phys_conf.R`` ``[n_nuc, 3]``.
+        ``phys_conf.r`` ``[B, n_el, 3]``, ``phys_conf.R`` ``[n_nuc, 3]`` (or
+        per walker, ``[B, n_nuc, 3]``).
         Returns ``[B, n_det, n_el, n_orb]``."""
         i = phys_conf.mol_idx
         aos = self.basis(pairwise_diffs(phys_conf.r, phys_conf.R))  # [B, n_el, n_ao]

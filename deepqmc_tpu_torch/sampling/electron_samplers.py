@@ -11,10 +11,24 @@ the cleaned ``force`` ``[B, n, 3]``), ``tau`` (a scalar tensor) and, under
 come from an explicit ``torch.Generator`` through :func:`normal` and
 :func:`uniform`; :meth:`MetropolisSampler.step` takes them as arguments, so a
 test can feed the same numbers to a reference.
+
+With the walkers sharded over processes, each rank moves its own; the
+acceptance that steers ``tau``, the statistics, and the effective sample size
+and resampling decision of :class:`ResampledSampler` are over the global
+walker axis (as the JAX package's global arrays give them), so ``tau`` and
+the decision are the same on every rank.  The resampling draws each rank's
+walkers from its own shard in proportion to the weights.
 """
 
 import torch
 
+from ..parallel import (
+    all_device_max,
+    all_device_mean,
+    all_device_std,
+    all_device_sum,
+    shard_walkers,
+)
 from ..physics import pairwise_self_distance
 from ..types import PhysicalConfiguration, Psi
 from ..utils import multinomial_resampling
@@ -72,11 +86,14 @@ class MetropolisSampler:
 
     def init(self, gen: torch.Generator, n: int, R) -> dict:
         """Walkers from ``hamil.init_sample`` around the nuclei ``R``, drawn
-        with ``gen`` (any device), moved to the device and dtype of ``R``."""
-        r = self.hamil.init_sample(gen, n, R).r.to(R.device, R.dtype)
+        with ``gen`` (any device), moved to the device and dtype of ``R``:
+        ``n`` over all ranks, drawn whole, of which this rank keeps its share
+        before its first psi (:func:`..parallel.shard_walkers`)."""
+        r = shard_walkers(self.hamil.init_sample(gen, n, R).r, walker_axis=0)
+        r = r.to(R.device, R.dtype)
         state = {
             'r': r,
-            'age': torch.zeros(n, dtype=torch.long, device=R.device),
+            'age': torch.zeros(len(r), dtype=torch.long, device=R.device),
             'tau': torch.tensor(self.initial_tau, dtype=R.dtype, device=R.device),
         }
         return self._update(state, R)
@@ -98,7 +115,7 @@ class MetropolisSampler:
         accepted = self._acc_log_prob(state, candidate) > torch.log(uniforms)
         if self.max_age:  # stuck walkers move, so no region stays frozen
             accepted = accepted | (state['age'] >= self.max_age)
-        acceptance = accepted.to(state['r'].dtype).mean()
+        acceptance = all_device_mean(accepted.to(state['r'].dtype))
         if self.target_acceptance:
             candidate['tau'] = candidate['tau'] * (
                 torch.clamp(acceptance, min=0.05) / self.target_acceptance
@@ -119,11 +136,11 @@ class MetropolisSampler:
     def _stats(state) -> dict:
         return {
             'sampling/tau': state['tau'],
-            'sampling/age/mean': state['age'].to(state['r'].dtype).mean(),
-            'sampling/age/max': state['age'].max(),
-            'sampling/log_psi/mean': state['psi'].log.mean(),
-            'sampling/log_psi/std': state['psi'].log.std(correction=0),
-            'sampling/dists/mean': pairwise_self_distance(state['r']).mean(),
+            'sampling/age/mean': all_device_mean(state['age'].to(state['r'].dtype)),
+            'sampling/age/max': all_device_max(state['age']),
+            'sampling/log_psi/mean': all_device_mean(state['psi'].log),
+            'sampling/log_psi/std': all_device_std(state['psi'].log),
+            'sampling/dists/mean': all_device_mean(pairwise_self_distance(state['r'])),
         }
 
 
@@ -233,7 +250,7 @@ class _Resampled(_Wrapped):
         log_weight = state['log_weight'] - 2 * state['psi'].log
         state = self.inner.update(state, R)
         log_weight = log_weight + 2 * state['psi'].log
-        return {**state, 'log_weight': log_weight - log_weight.max()}
+        return {**state, 'log_weight': log_weight - all_device_max(log_weight)}
 
     def sample(self, gen, state, R):
         """The inner sample call, then the resampling where it is due, decided
@@ -243,13 +260,13 @@ class _Resampled(_Wrapped):
         state = {**state, 'step': state['step'] + 1}
         weight = torch.exp(state['log_weight'])
         uniforms = uniform(gen, len(weight), weight)
-        ess = weight.sum() ** 2 / (weight**2).sum()
+        ess = all_device_sum(weight) ** 2 / all_device_sum(weight**2)
         stats = {**stats, 'sampling/effective sample size': ess}
         due = torch.zeros((), dtype=torch.bool, device=weight.device)
         if self.period is not None:
             due = due | (state['step'] >= self.period)
         if self.threshold is not None:
-            due = due | (ess / len(weight) < self.threshold)
+            due = due | (ess / all_device_sum(torch.ones_like(weight)) < self.threshold)
         idx = torch.where(due, multinomial_resampling(weight, uniforms),
                           torch.arange(len(weight), device=weight.device))
         state = {

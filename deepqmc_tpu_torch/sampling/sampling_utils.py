@@ -1,6 +1,7 @@
 """Sampler composition, the regularised Langevin force, equilibration and
 the set-up of the combined samplers (counterpart of
-``deepqmc_tpu/sampling/sampling_utils.py``, one process, no sharding)."""
+``deepqmc_tpu/sampling/sampling_utils.py``); the sampler state is sharded
+over the ranks on its walker axis (:func:`..parallel.shard_walkers`)."""
 
 from collections.abc import Callable, Iterable
 from functools import reduce
@@ -159,6 +160,10 @@ def initialize_sampling(
 def initialize_sampler_state(gen: torch.Generator, sampler, n: int, mols, *,
                              dtype=torch.float64, device=None) -> dict:
     """The combined state of ``n`` walkers per geometry of ``mols``, with the
-    nuclei in ``dtype`` on ``device``; walkers drawn with ``gen``."""
+    nuclei in ``dtype`` on ``device``; walkers drawn with ``gen``, of which
+    each rank keeps its share before it evaluates them (``[mol, state,
+    walker, ...]``, JAX ``sampling_utils.py:184-199``; the electron sampler's
+    ``init`` shards): the walkers of one process are those of the same draw
+    on several."""
     R = torch.as_tensor(np.stack([m.coords for m in mols]), dtype=dtype, device=device)
     return sampler.init(gen, n, R)

@@ -9,9 +9,15 @@ the last checkpoint when the sampled wave function turns NaN.  Evaluation is
 the same run with ``opt=None``, usually from a checkpoint's train state.
 Progress goes to ``logging``.
 
-One process and one molecule a step; the parameters live in the
-wave-function module, one per electronic state (a :class:`~.wf.StateStack`
-for several; ``TrainState.params`` is its ``state_dict``).
+One or more molecules a step, on one process or on several (one per GPU,
+the walkers sharded, :mod:`.parallel`): each process seeds its generators
+with ``seed`` plus its index, but draws the molecule indices from ``seed``
+alone, so every rank steps the same molecules; rank 0's parameters are
+broadcast at the start and after a restart; with more than one process each
+writes into its own work directory, ``training_<index>``.  The parameters
+live in the wave-function module, one per electronic state (a
+:class:`~.wf.StateStack` for several; ``TrainState.params`` is its
+``state_dict``).
 """
 
 import json
@@ -41,6 +47,13 @@ from .molecule import Molecule
 from .observable import ObservableMonitor, default_observable_monitors
 from .ops import launch_counts
 from .optimizer import PRETRAIN_OPTIMIZERS, NoOptimizer
+from .parallel import (
+    all_device_mean,
+    any_rank,
+    get_process_count,
+    get_process_index,
+    replicate_on_devices,
+)
 from .sampling import initialize_sampler_state
 from .utils import resolve_device, set_true_fp32
 from .wf.base import StateStack, init_wf_states, merge_states
@@ -57,6 +70,11 @@ def format_uncertainty(mean: float, err: float) -> str:
     digits = max(0, -int(math.floor(math.log10(err))) + 1)
     err_digits = round(err * 10**digits)
     return f'{mean:.{digits}f}({err_digits})'
+
+
+def process_idx_suffix() -> str:
+    """``_<index>`` of this process where there are several, else nothing."""
+    return f'_{get_process_index()}' if get_process_count() > 1 else ''
 
 
 def _grid_repr(values, fmt) -> str:
@@ -87,7 +105,7 @@ class RunSinks:
         self.start_time = time.time()
         if not workdir:
             return
-        self.workdir = os.path.join(workdir, mode)
+        self.workdir = os.path.join(workdir, mode + process_idx_suffix())
         os.makedirs(self.workdir, exist_ok=True)
         self.chkpts = (chkpt_constructor or CheckpointStore)(self.workdir, device=device)
         self.metrics = (metric_logger_constructor or TensorboardMetricLogger)(
@@ -113,17 +131,18 @@ class RunSinks:
 class TrainSession:
     """One training or evaluation run, split into its three phases.
 
-    Each phase draws from its own generator, derived from ``seed`` and the
-    count of generators drawn before it.
+    Each phase draws from its own generator, derived from ``seed`` plus the
+    process index and the count of generators drawn before it; the
+    molecule-index sampler's from ``seed`` alone, the same on every rank.
     """
 
     def __init__(self, hamil, ansatz, opt, sampler_factory, *, seed, electron_batch_size,
                  molecule_batch_size, electronic_states, mols, observable_monitors, device,
                  merge_keys=None):
         self.hamil = hamil
-        self.seed, self._forks = seed, 0
-        self.ansatz = self.init_states(ansatz, electronic_states, merge_keys).to(
-            device=device, dtype=torch.float32)
+        self.seed, self._forks = seed + get_process_index(), 0
+        self.ansatz = replicate_on_devices(self.init_states(
+            ansatz, electronic_states, merge_keys).to(device=device, dtype=torch.float32))
         self.opt_factory = opt or NoOptimizer
         if opt is not None and merge_keys:
             self.opt_factory = partial(opt, merge_keys=merge_keys)
@@ -133,7 +152,7 @@ class TrainSession:
         self.electronic_states = electronic_states
         self.mols = list(mols) if isinstance(mols, Sequence) else [hamil.mol]
         self.molecule_idx_sampler, self.sampler = sampler_factory(
-            self._fork_gen('cpu'), hamil, self.ansatz, self.mols, electronic_states,
+            self._fork_gen('cpu', seed), hamil, self.ansatz, self.mols, electronic_states,
             molecule_batch_size,
         )
         self.monitors = default_observable_monitors() + (observable_monitors or [])
@@ -162,9 +181,11 @@ class TrainSession:
         return init_wf_states(ansatz, [self._fork_gen('cpu') for _ in range(n_states)],
                               merge_keys)
 
-    def _fork_gen(self, device=None):
-        """A fresh generator on ``device`` (the run's by default)."""
-        seed = int(np.random.SeedSequence([self.seed, self._forks]).generate_state(1)[0])
+    def _fork_gen(self, device=None, seed=None):
+        """A fresh generator on ``device`` (the run's by default), from the
+        process's seed or the ``seed`` given."""
+        seed = self.seed if seed is None else seed
+        seed = int(np.random.SeedSequence([seed, self._forks]).generate_state(1)[0])
         self._forks += 1
         return torch.Generator(device or self.device).manual_seed(seed)
 
@@ -205,7 +226,7 @@ class TrainSession:
             self._fork_gen(), self.hamil, self.ansatz, opt, self.molecule_idx_sampler,
             self.sampler, smpl_state, dataset, steps=range(n_steps),
         ):
-            per_mol = losses.mean(-1).double().cpu()
+            per_mol = all_device_mean(losses, -1).double().cpu()
             mse_ewm = update_ewm(per_mol, mse_ewm, mol_idxs)
             mse_rep = _grid_repr(mse_ewm.mean, '{:0.2e}'.format)
             log.debug(f'pretrain {step + 1}/{n_steps}: MSE={mse_rep}')
@@ -244,7 +265,7 @@ class TrainSession:
                     'step_time': float(stats['perf/step_time']),
                     'E_mean': float(np.mean(np.asarray(stats['local_energy/mean']))),
                     'launches': launch_counts()}))
-            if np.isnan(samples['psi/samples']['log']).any():
+            if any_rank(np.isnan(samples['psi/samples']['log']).any()):
                 raise NanError()
             if sinks.workdir:
                 if self.mode == 'training' and sinks.chkpts:
@@ -345,19 +366,15 @@ def train(
     ``loss_function_factory`` must give the overlap penalty's ``alpha`` and
     ``clip_mask_overlap_fn``; the parameters whose JAX module path contains
     one of ``merge_keys`` are averaged over the states at the start and after
-    every optimizer step, so they stay bitwise equal.  A step takes one
-    molecule (``molecule_batch_size`` 1).
+    every optimizer step, so they stay bitwise equal.  A step takes
+    ``molecule_batch_size`` molecules of ``mols``, the same on every rank;
+    ``electron_batch_size`` is the walkers of a molecule over all ranks.
 
     Runs on ``device`` (None means CUDA, and raises where it is absent) in
     float32 with TF32 off; the wave function is moved there and trained in
     place (``TrainState.params`` is its ``state_dict``; for a factory, load it
     into a :class:`~.wf.StateStack` of fresh modules to keep them).
     """
-    if molecule_batch_size != 1:
-        raise NotImplementedError(
-            f'molecule_batch_size={molecule_batch_size}: a step takes one molecule '
-            '(ROADMAP.md, queue 1 item 2)'
-        )
     device = resolve_device(device)
     if device.type == 'cuda':
         set_true_fp32()
@@ -380,6 +397,7 @@ def train(
         if train_state:
             if train_state.params is not None:
                 ansatz.load_state_dict(train_state.params)
+                replicate_on_devices(ansatz)
             log.info(f'Restart training from step {init_step}' if session.mode == 'training'
                      else 'Start evaluation')
         else:

@@ -1,7 +1,8 @@
 """Helpers shared by the port's entry points, and its copies of the numeric
 helpers of ``deepqmc_tpu/utils.py`` that the training step and the samplers
-need (``log_squeeze``, ``masked_mean``, ``triu_flat``, ``weighted_std``,
-``multinomial_resampling`` and the learning-rate schedules), with the two tree helpers of the sampler states
+need (``log_squeeze``, ``triu_flat``, ``multinomial_resampling`` and the
+learning-rate schedules; the masked and weighted means over the global walker
+axis are in :mod:`.loss`), with the two tree helpers of the sampler states
 (dicts of tensors and ``Psi`` tuples)."""
 
 import os
@@ -10,8 +11,8 @@ import torch
 
 __all__ = [
     'ConstantSchedule', 'InverseSchedule', 'cuda_median_ms', 'flatten_dict', 'log_squeeze',
-    'masked_mean', 'multinomial_resampling', 'resolve_device', 'set_rows', 'split_dict',
-    'tree_map', 'tree_norm', 'tree_stack', 'triu_flat', 'weighted_std',
+    'multinomial_resampling', 'resolve_device', 'set_rows', 'split_dict', 'tree_map',
+    'tree_norm', 'tree_stack', 'triu_flat',
 ]
 
 
@@ -62,25 +63,10 @@ def chunk_size(n: int, chunk=None, env: str = '', default: int = 0) -> int:
     return max(d for d in range(1, min(chunk, n) + 1) if n % d == 0)
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:
-    """The sum of ``x`` where ``mask`` holds over the count of such entries
-    (over ``dim``, or all of it)."""
-    x = torch.where(mask, x, torch.zeros_like(x))
-    if dim is None:
-        return x.sum() / mask.sum()
-    return x.sum(dim) / mask.sum(dim)
-
-
 def triu_flat(x: torch.Tensor) -> torch.Tensor:
     """The entries above the diagonal of the last two axes, flat in row order."""
     i, j = torch.triu_indices(x.shape[-2], x.shape[-1], 1, device=x.device)
     return x[..., i, j]
-
-
-def weighted_std(x: torch.Tensor, weights: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """The standard deviation of ``x`` over ``dim`` under ``weights`` (population)."""
-    mean = (x * weights).sum(dim, keepdim=True) / weights.sum(dim, keepdim=True)
-    return torch.sqrt(((x - mean) ** 2 * weights).sum(dim) / weights.sum(dim))
 
 
 def log_squeeze(x: torch.Tensor) -> torch.Tensor:

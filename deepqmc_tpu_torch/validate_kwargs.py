@@ -1,13 +1,14 @@
 """Checks of a composed task config (counterpart of
 ``deepqmc_tpu/validate_kwargs.py``): each rule looks at the task and returns
-a message or None; every message is logged as a warning.  The JAX package
-asserts on the last two (walkers that do not split across the devices, a
-molecule batch larger than the dataset); the port runs one process on one
-device and its ``train`` refuses a molecule batch other than 1 by itself, so
-here they warn too."""
+a message or None; the first two messages are logged as warnings.  The last
+two are errors, as the JAX package's asserts are: walkers that do not split
+evenly across the processes (one per GPU), and a molecule batch larger than
+the dataset; each raises a ``ValueError``."""
 
 import logging
 from typing import Optional
+
+from .parallel import get_process_count
 
 log = logging.getLogger(__name__)
 
@@ -42,11 +43,12 @@ def _rule_excited_needs_cas(cfg: dict) -> Optional[str]:
     return None
 
 
-def _rule_walker_divisibility(cfg: dict, n_dev: int = 1) -> Optional[str]:
+def _rule_walker_divisibility(cfg: dict) -> Optional[str]:
+    n_dev = get_process_count()
     walkers = cfg.get('electron_batch_size', 0) or 0
     if walkers % n_dev:
-        return (f'Electron batch size ({walkers}) cannot be evenly split across {n_dev} '
-                'devices!')
+        raise ValueError(f'Electron batch size ({walkers}) cannot be evenly split across {n_dev} '
+                         'devices!')
     return None
 
 
@@ -59,8 +61,8 @@ def _rule_molecule_batch(cfg: dict) -> Optional[str]:
     n_mols = len(mols) if mols is not None else 1
     mol_batch = cfg.get('molecule_batch_size', 0) or 0
     if mol_batch > n_mols:
-        return (f'Molecule batch size ({mol_batch}) is larger than the number of molecules in '
-                f'the dataset ({n_mols})!')
+        raise ValueError(f'Molecule batch size ({mol_batch}) is larger than the number of '
+                         f'molecules in the dataset ({n_mols})!')
     return None
 
 
@@ -69,7 +71,8 @@ RULES = (_rule_fix_spin, _rule_excited_needs_cas, _rule_walker_divisibility,
 
 
 def validate_kwargs(cfg: dict) -> list[str]:
-    """Log a warning for each rule the task config ``cfg`` breaks; returns the messages."""
+    """Log a warning for each rule the task config ``cfg`` breaks and raise
+    for the two errors; returns the warnings."""
     messages = [m for m in (rule(cfg) for rule in RULES) if m]
     for message in messages:
         log.warning(message)

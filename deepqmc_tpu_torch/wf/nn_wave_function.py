@@ -112,14 +112,16 @@ class NeuralNetworkWaveFunction(nn.Module):
         column d * n + o)."""
         r, R = phys_conf.r, phys_conf.R
         jastrow, fs, nuc_params = self.omni(r, R) if self.omni is not None else (None,) * 3
-        orb_up, orb_down = self.envelope(r, R, nuc_params)
+        # per-walker nuclei [B, n_nuc, 3] line up with r[..., :, None, :] as [B, 1, n_nuc, 3]
+        R_rows = R[:, None] if R.dim() == 3 else R
+        orb_up, orb_down = self.envelope(r, R_rows, nuc_params)
         n_up = self.n_up
         if not self.full_determinant:
             orb_up = orb_up.unflatten(-1, (self.n_det, -1))[..., :n_up].flatten(-2)
             orb_down = orb_down.unflatten(-1, (self.n_det, -1))[..., n_up:].flatten(-2)
         dists_nuc = None
         if self.cusp_nuclei is not None or (fs is not None and self.backflow_transform != 'mult'):
-            d = r[..., :, None, :] - R  # [B, n_el, n_nuc, 3]
+            d = r[..., :, None, :] - R_rows  # [B, n_el, n_nuc, 3]
             dists_nuc = fl.sqrt((d * d).sum(-1))
         if fs is not None:
             rows = ((None, None) if dists_nuc is None

@@ -109,18 +109,42 @@ def test_cli_needs_cuda_unless_told(tmp_path):
 
 
 @pytest.mark.parametrize('args, error, match', [
-    (['--slurm', *TINY], NotImplementedError, 'queue 1 item 9'),
+    # --slurm runs (tests/test_torch_slurm.py); an option sbatch lacks fails before submitting
+    (['--slurm', *TINY, '+slurm.nodez=2'], ValueError, 'Unknown slurm options'),
     (['--platform=cpu', *TINY], ValueError, '--device'),
     (['--nonsense', *TINY], KeyError, 'Unknown config key: --nonsense'),
     (['task=evaluate_forces', 'task.restdir=/nowhere'], ValueError, 'not a directory'),
-    # several molecules a step, in the place of ansatz=deeperwin, which builds now
-    # (test_cli_trains_deeperwin)
-    ([*TINY, *NO_SINKS, 'task.molecule_batch_size=2'], NotImplementedError, 'queue 1 item 2'),
+    # a molecule batch larger than the dataset (one that fits runs:
+    # test_cli_trains_a_molecule_batch)
+    ([*TINY, *NO_SINKS, 'task.molecule_batch_size=2'], ValueError,
+     r'Molecule batch size \(2\) is larger than the number of molecules in the dataset \(1\)'),
     (['task=evaluate', 'task.restdir=/nowhere'], ValueError, 'not a directory'),
 ])
 def test_cli_refuses(tmp_path, args, error, match):
     with pytest.raises(error, match=match):
         app.cli(['--device=cpu', *args, f'--workdir={tmp_path}'])
+
+
+def test_cli_trains_a_molecule_batch(tmp_path):
+    """Two H2 geometries of a molecule directory, both each step
+    (``task.molecule_batch_size=2``), two pretraining steps on one SCF each,
+    then two fit steps: finite walkers and energies."""
+    mols = tmp_path / 'mols'
+    mols.mkdir()
+    for name, bond in (('h2_a', 0.70), ('h2_b', 0.80)):
+        (mols / f'{name}.yaml').write_text(
+            f'coords: [[0.0, 0.0, 0.0], [{bond}, 0.0, 0.0]]\ncharges: [1, 1]\ncharge: 0\n'
+            'spin: 0\nunit: angstrom\n')
+    train_state = app.cli(['--device=cpu', *TINY, *NO_SINKS, 'task.steps=2',
+                           'task.pretrain_steps=2', 'task.molecule_batch_size=2',
+                           f'task.mols.directory={mols}', f'--workdir={tmp_path / "run"}'])
+    elec = train_state.sampler['elec']
+    assert elec['r'].shape == (2, 1, 8, 2, 3) and torch.isfinite(elec['psi'].log).all()
+    log = (tmp_path / 'run' / 'deepqmc.log').read_text()
+    for line in ('Read 2 molecules', 'Pretraining completed', 'The training has been completed!'):
+        assert line in log
+    E = [json.loads(m)['E_mean'] for m in re.findall(r'training step \d+: (\{.*\})', log)]
+    assert len(E) == 2 and np.isfinite(E).all()
 
 
 SMALL = ['ansatz.n_determinants=2', 'ansatz.omni_factory.embedding_dim=16',

@@ -332,8 +332,24 @@ def test_validate_kwargs_warns_as_jax(task, n_warnings, caplog):
 
 
 def test_validate_kwargs_molecule_batch():
-    """The JAX package asserts; the port warns (its train refuses the batch)."""
+    """The JAX package asserts; the port raises a ``ValueError`` with its message."""
     task = {'mols': None, 'molecule_batch_size': 2, 'electron_batch_size': 8}
-    with pytest.raises(AssertionError):
+    with pytest.raises(AssertionError, match=r'Molecule batch size \(2\)'):
         jax_validate_kwargs(task)
-    assert 'Molecule batch size (2)' in validate_kwargs(task)[0]
+    with pytest.raises(ValueError, match=r'Molecule batch size \(2\) is larger than the '
+                                         r'number of molecules in the dataset \(1\)'):
+        validate_kwargs(task)
+    assert validate_kwargs({**task, 'molecule_batch_size': 1}) == []
+
+
+def test_validate_kwargs_walker_divisibility(monkeypatch):
+    """Walkers that the processes do not split evenly: an error on both sides."""
+    from deepqmc_tpu_torch import validate_kwargs as port_rules
+
+    task = {'electron_batch_size': 9, 'molecule_batch_size': 1}
+    assert validate_kwargs(task) == []  # one process takes any batch
+    monkeypatch.setattr(port_rules, 'get_process_count', lambda: 2)
+    with pytest.raises(ValueError, match=r'Electron batch size \(9\) cannot be evenly split '
+                                         r'across 2 devices'):
+        validate_kwargs(task)
+    assert validate_kwargs({**task, 'electron_batch_size': 8}) == []

@@ -129,9 +129,10 @@ def _weighted_step():
 
 def test_train_step_weights_the_walkers_as_jax():
     """The step weights its walkers by ``pexp_normalize_mean`` of the
-    sampler's ``log_weight`` (1e-14), not by one."""
+    sampler's ``log_weight`` (1e-14), not by one; the step hands the
+    optimizer the ``[mol, state, walker]`` grid."""
     log_weight, seen, (train_state, *_) = _weighted_step()
-    want = jax_pexp_normalize_mean(jnp.asarray(log_weight), axis=-1)
+    want = jax_pexp_normalize_mean(jnp.asarray(log_weight), axis=-1)[None, None]
     assert_close(seen['weight'], want, 1e-14, 'weights')
     assert seen['weight'].std() > 0.3
     assert torch.equal(train_state.sampler['elec']['step'], torch.tensor([[1]]))
@@ -146,13 +147,13 @@ def test_weighted_step_with_median_clip_matches_jax():
     hamil_j, ansatz, params, _, wf, _ = models('LiH')
     loss_j = jax_create_loss_fn(hamil_j, ansatz, functools.partial(
         jax_median_clip_and_mask, clip_width=5, median_center=True))
-    r = seen['phys_conf'].r.numpy()
+    r = seen['phys_conf'].r[0, 0].numpy()  # the step's grid [1, 1, B, n, 3]
     pc = jax.tree_util.tree_map(lambda x: x[None, None], jax_phys_conf(hamil_j, r))
     weight = jax_pexp_normalize_mean(jnp.asarray(log_weight), axis=-1)[None, None]
     (want_loss, (want_E, _, _)), (want_grads,) = jax.jit(loss_j.value_and_grad)(
         [params], jax.random.PRNGKey(0), (pc, weight, {}))
     assert_close(seen['loss'], want_loss, 1e-10, 'loss')
-    assert_close(seen['E_loc'], np.asarray(want_E)[0, 0], 1e-10, 'E_loc')
+    assert_close(seen['E_loc'], np.asarray(want_E), 1e-10, 'E_loc')
     got = grads_by_jax_path(seen['grads'], wf)
     want = {(p, n): g for p, bundle in want_grads.items() for n, g in bundle.items()}
     assert set(got) == set(want)
@@ -255,9 +256,33 @@ def test_train_on_two_geometries_with_walker_weights():
     assert (elec['log_weight'] < 0).any()
 
 
+def test_train_and_evaluate_take_a_molecule_batch():
+    """Two H2 geometries a step (``molecule_batch_size`` 2) under
+    ``ResampledSampler``: both molecules' walkers move each step, E_loc and
+    the stats carry the molecule axis, and the EWMs of both are set."""
+    hamil, wf = _h2()
+    mols = [hamil.mol, dqt.Molecule(coords=1.2 * hamil.mol.coords, charges=hamil.mol.charges,
+                                    charge=0, spin=0)]
+    factory = lambda hamil, wf: chain(  # noqa: E731
+        ResampledSampler(period=3), DecorrSampler(length=2), MetropolisSampler(hamil, wf))
+    prev = None
+    for _, state, E_loc, stats in dqt.fit.train(hamil, wf, n_walkers=16, steps=3, sampler=factory,
+                                            mols=mols, molecule_batch_size=2, device='cpu'):
+        elec = state.sampler['elec']
+        assert E_loc.shape == (2, 1, 16) and torch.isfinite(E_loc).all()
+        assert stats['energy/ewm'].shape == (2, 1) and torch.isfinite(stats['energy/ewm']).all()
+        if prev is not None:
+            assert not any(torch.equal(elec['r'][i], prev[i]) for i in range(2))
+        prev = elec['r'].clone()
+    for _, _, E_loc, stats in dqt.evaluate(hamil, wf, n_walkers=8, steps=2, mols=mols,
+                                           molecule_batch_size=2, device='cpu'):
+        assert E_loc.shape == (2, 1, 8) and stats['local_energy/mean'].shape == (2, 1)
+        assert torch.isfinite(E_loc).all()
+
+
 def test_train_checks_its_molecules():
     hamil, wf = _h2()
-    with pytest.raises(NotImplementedError, match='molecule_batch_size'):
+    with pytest.raises(ValueError, match=r'Molecule batch size \(2\) is larger'):
         next(dqt.fit.train(hamil, wf, n_walkers=4, steps=1, molecule_batch_size=2, device='cpu'))
     other = dqt.Molecule.from_name('LiH')
     with pytest.raises(ValueError, match='charges'):
