@@ -175,7 +175,7 @@ Phases, each with a start and an end line and its own time budget:
 13. force path: the kernels' wrappers given an operand that carries a
    forward-mode tangent on the card must raise and launch nothing.  Then
    ``evaluate_forces.yaml``'s four force monitors and the bare one
-   (``observable.ForceMonitor``) over 3 evaluation steps from the cli path's
+   (``observable.ForceMonitor``) over 2 evaluation steps from the cli path's
    training checkpoint (H2O at full width, its 2048 walkers, ``train.train``
    with ``opt=None`` and recording sinks): each step launches the attention
    kernel 4 times and the flat slogdet kernel once (the local energy; the
@@ -199,8 +199,8 @@ Phases, each with a start and an end line and its own time budget:
    4 attention and 1 flat slogdet launch), and V_nl alone by the same rule
    (relative to max(1, |V_nl|)), on ``init_sample`` walkers and again on 64
    walkers after 10 equilibration calls on the card; the local energy of 512 walkers
-   split by CUDA events into the kinetic FL pass and V_nl, and V_nl of 2048
-   walkers with its peak memory; then a cut ``task=train_psiformer`` through
+   split by CUDA events into the kinetic FL pass and V_nl, with its peak
+   memory; then a cut ``task=train_psiformer`` through
    ``app.cli`` in this process (512 walkers, no pretraining: the ScO SCF does
    not fit the run; 10 equilibration calls, 3 fit steps, in the git-ignored
    ``runs/ecp_path``, removed at the end), each fit step finite with 4
@@ -267,6 +267,27 @@ Phases, each with a start and an end line and its own time budget:
    the phase's budget.  Then one ``nccl`` process group of one rank in this
    process takes one step of the same run, so the NCCL code path runs.  It
    prints the step times of the two ranks and of the one-rank group.
+19. precision path: the JAX package's precision levers.  Kernels 1-4 with
+   bf16-stored Jacobians (and kernel 1's low mode, with bf16 and with float32
+   Jacobians) against their plain versions fed the same operands upcast, at
+   B = 256 and 2048 and at odd shapes (n = 2, 7, 33, 42; the slogdet kernels'
+   one-bf16 copies, shifted square runs and n = 2 with no down rows), two
+   launches bitwise equal, timed at B = 2048 beside their bound at the bf16
+   bytes; the error of a float32 product under each label ('default' shows
+   whether cuBLAS takes bf16 for 'medium').  One local energy of the main
+   path's model on its last walkers under ``DEEPQMC_TPU_JAC_DTYPE=bf16``,
+   with ``JAC_MATMUL`` f32 and bf16: kernel 1 launched 4 times and kernel 2
+   once, each with a bf16 Jacobian (the wrappers count by dtype); E_loc of 64
+   walkers against the float64 plain path without levers by the local
+   energy's rule, its bar set by the float32 plain path under the same levers;
+   ``JAC_MATMUL=bf16`` alone runs kernel 1 in its low mode on float32
+   Jacobians.  The four log-determinant rules on a bf16 store (kernel 2
+   twice, kernels 3 and 4 once, all bf16).  10 Metropolis moves under
+   ``SAMPLING_PRECISION=high`` (log|psi| of the sampled walkers against
+   'highest') and one gradient under ``GRAD_PRECISION=high`` (against
+   'highest', relative L2), the matmul precision 'highest' inside each local
+   energy and after each context.  Then, printed and not gated, an
+   evaluation and a training step with every lever off and on.
 
 The kernels phase also takes kernel 2 (and the square kernels) at the
 deeperwin path's shape, B = 2048, K = 30, D = 32, n = 10 split 5/5, and
@@ -296,6 +317,7 @@ PHASE_BUDGET_S = {
     'square_path': 120, 'train_path': 240, 'sampling_path': 240, 'run_path': 300,
     'zoo_path': 300, 'excited_path': 240, 'cli_path': 240, 'force_path': 240, 'ecp_path': 240,
     'benzene_path': 240, 'deeperwin_path': 180, 'mol_batch_path': 150, 'dp_path': 150,
+    'precision_path': 60,
 }
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
@@ -411,18 +433,20 @@ def square_split_inputs(gen, B, K=30, D=16, nu=5, nd=5):
     return inv, ja[..., :nu, :].contiguous(), ja[..., nu:, :].contiguous(), la
 
 
-def attention_bound_ms(B, K=30, n=10, H=4, dh=64):
+def attention_bound_ms(B, K=30, n=10, H=4, dh=64, jbytes=4):
+    """Kernel 1's bound; ``jbytes`` the bytes of a Jacobian element (2 for bf16)."""
     f = 4
-    nbytes = f * B * H * n * dh * (6 + 2) + f * B * K * n * H * dh * (3 + 1)
+    nbytes = f * B * H * n * dh * (6 + 2) + jbytes * B * K * n * H * dh * (3 + 1)
     flops = B * H * (12 * K * n * n * dh + 12 * n * n * dh + 20 * K * n * n)
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S), nbytes, flops
 
 
-def slogdet_bound_ms(B, K=30, D=16, n=10, with_l=False):
+def slogdet_bound_ms(B, K=30, D=16, n=10, with_l=False, jbytes=4):
     """The slogdet kernels' bound; ``with_l`` for the square ones, which also
-    read L and form tr(A^-1 L)."""
+    read L and form tr(A^-1 L); ``jbytes`` the bytes of a Jacobian element."""
     f = 4
-    nbytes = f * ((2 if with_l else 1) * B * D * n * n + B * K * n * D * n + B * K * D + B * D)
+    nbytes = (f * ((2 if with_l else 1) * B * D * n * n + B * K * D + B * D)
+              + jbytes * B * K * n * D * n)
     flops = B * D * K * (2 * n * n * n + 3 * n * n) + (2 * B * D * n * n if with_l else 0)
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S), nbytes, flops
 
@@ -1495,7 +1519,7 @@ def cli_path(smi, per_op_step):
 # down) and the full-width PsiFormer, composed from the conf tree; the E_loc
 # gate on 64 walkers, a cut train_psiformer.yaml run at 512 walkers (no
 # pretraining: the ScO SCF does not fit the run; 10 equilibration calls, 3
-# fit steps), the local energy's parts at 512 walkers and V_nl at 2048
+# fit steps), the local energy's parts at 512 walkers
 ECP_OVERRIDES = ['hamil/mol=ScO', '+hamil.ecp_type=ccECP', 'ansatz=psiformer']
 ECP_CHECK_WALKERS, ECP_RUN_WALKERS, ECP_EQ_STEPS, ECP_FIT_STEPS = 64, 512, 10, 3
 
@@ -1616,8 +1640,8 @@ def ecp_path(dq, smi, counts, zero_counts, per_op_step):
     wf_card, pc_card = gate(f'equilibrated ({ECP_EQ_STEPS} calls of 10 Metropolis moves)',
                             molecule_state(eq_state)[1]['r'].double().cpu())
 
-    # the local energy's parts at 512 walkers, and V_nl alone at 2048
-    for B in (ECP_RUN_WALKERS, 2048):
+    # the local energy's parts at 512 walkers
+    for B in (ECP_RUN_WALKERS,):
         pc = dq.PhysicalConfiguration(
             pc_card.R, hamil.init_sample(torch.Generator('cuda').manual_seed(3), B,
                                          dtype=torch.float32).r,
@@ -1630,11 +1654,6 @@ def ecp_path(dq, smi, counts, zero_counts, per_op_step):
             nl_ms = cuda_median_ms(lambda: hamil.ecp.nonloc_potential(pc, wf_card, phi=phi),
                                    runs=3, warmup=1)
             peak_gib = torch.cuda.max_memory_allocated() / 2**30
-            if B == 2048:
-                print(f'{smi} | ecp path V_nl of 2048 walkers: {nl_ms:.1f} ms, peak device '
-                      f'memory {peak_gib:.3f} GiB (chunks of {NL_CHUNK} configurations)',
-                      flush=True)
-                continue
             kin_ms = cuda_median_ms(lambda: hamil.laplacian(lambda r: wf_card(
                 pc.replace(r=r)).log)(pc.r), runs=3, warmup=1)
             all_ms = cuda_median_ms(lambda: hamil.local_energy(wf_card, pc, phi=phi), runs=3,
@@ -1671,12 +1690,12 @@ def ecp_path(dq, smi, counts, zero_counts, per_op_step):
 
 
 # force path: the five Hellmann-Feynman estimators (evaluate_forces.yaml's four
-# monitors and the bare one) over 3 evaluation steps from the cli path's
+# monitors and the bare one) over 2 evaluation steps from the cli path's
 # training checkpoint (H2O at full width, its 2048 walkers); the estimators on
 # 16 of its walkers against float64, the tangent pass in float64 on the card
 # against the CPU; then task=evaluate_forces through the command line
 FORCE_KINDS = ('bare', 'ac_zv', 'ac_zvq', 'ac_zvzb', 'ac_zvzbq')
-FORCE_EVAL_STEPS, FORCE_CLI_STEPS, FORCE_CHECK_WALKERS = 3, 2, 16
+FORCE_EVAL_STEPS, FORCE_CLI_STEPS, FORCE_CHECK_WALKERS = 2, 2, 16
 # The tangent pass in float64 on the card and on the CPU: the same plain
 # arithmetic in other orders, so they agree to float64 rounding, amplified
 # where a Slater matrix is near singular: max |card - CPU| / max(1, max |CPU|)
@@ -2553,6 +2572,403 @@ def dp_path(dq, hamil, smi, counts, zero_counts, walkers, bars):
             'fl_slogdet_traces': sum(n[1] for n in ranks[0]['step_launches']) + 1}
 
 
+# ---- the precision path: the JAX package's precision levers on the card ----
+
+# A bf16 value's spacing relative to it (8 significant bits): J_t of a bf16
+# store is the kernel's float32 value rounded there, so it may sit half a
+# spacing from the plain version's float32 value, and a spacing where the two
+# float32 values straddle a rounding boundary.
+BF16_ULP = 2.0 ** -8
+# Kernel 1's low mode against the plain low mode: both round the operands of
+# the Jacobian contractions to bf16, but the operands they compute first (a,
+# Ja) differ in float32's last bits between the two, so a rounding may land
+# one bf16 spacing apart (2^-8 of the operand) and move its products by as
+# much; four such spacings of the output's scale bound what a few of them add.
+LOW_RTOL = 2.0 ** -6
+# Sampling under 'high' (TF32, 10 mantissa bits, unit roundoff 2^-11 = 4.9e-4)
+# against 'highest' on the same walkers: log|psi| through 4 layers of
+# 256-wide products, max |d log psi| / max(1, |log psi|); TF32's roundoff,
+# grown 20 times through the network's products, is about 1e-2.
+SAMPLE_PSI_RTOL = 1e-2
+# The gradient under 'high' against 'highest' on the same walkers, relative
+# L2: the estimator is a mean of (E_loc - E) times d log psi, whose terms
+# cancel, so TF32's rounding of d log psi shows at about its own sampling
+# noise (1 / sqrt(2048) = 2.2 %); 0.1 is four times that, and a gradient of
+# another function or of a precision left set is off by order 1.
+GRAD_HIGH_RTOL = 0.1
+PRECISION_WALKERS = 64
+# every lever on, as the JAX package's r4_all variant (its accelerator defaults)
+LEVERS_ON = {'DEEPQMC_TPU_SAMPLING_PRECISION': 'high', 'DEEPQMC_TPU_GRAD_PRECISION': 'high',
+             'DEEPQMC_TPU_JAC_DTYPE': 'bf16', 'DEEPQMC_TPU_JAC_MATMUL': 'bf16'}
+LEVERS_OFF = {'DEEPQMC_TPU_SAMPLING_PRECISION': 'highest',
+              'DEEPQMC_TPU_GRAD_PRECISION': 'highest', 'DEEPQMC_TPU_JAC_DTYPE': 'f32',
+              'DEEPQMC_TPU_JAC_MATMUL': 'f32'}
+
+
+class environ:
+    """The environment variables ``env`` set inside the block, restored after."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def bf16_split(args, slots):
+    """(args with the Jacobian operands at ``slots`` stored in bf16, the same
+    operands upcast back to float32)."""
+    low, up = list(args), list(args)
+    for i in slots:
+        low[i] = args[i].bfloat16()
+        up[i] = low[i].float()
+    return tuple(low), tuple(up)
+
+
+def excess_rel(got, ref, rtol_ulp=0.0):
+    """(max |got - ref|, the largest excess of |got - ref| over ``rtol_ulp``
+    |ref|, relative to max(1, max |ref|))."""
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    scale = max(1.0, ref.abs().max().item())
+    return diff.max().item(), (diff - rtol_ulp * ref.abs()).max().item() / scale
+
+
+def bf16_kernel_cases(mha_core_fl, mha_core_fl_plain, slogdet_traces, slogdet_traces_plain,
+                      square_traces, square_traces_plain, square_split_traces,
+                      square_split_traces_plain):
+    """The bf16 variants of kernels 1-4: (name, kernel, plain, inputs, Jacobian
+    slots, outputs, index of a bf16 output, tolerance, bound, keywords,
+    source, replaces)."""
+    from functools import partial
+
+    att = ('deepqmc_tpu_torch/csrc/fl_attention.cu', 'deepqmc_tpu/ops/fl_attention.py:481')
+    sl = 'deepqmc_tpu_torch/csrc/fl_slogdet.cu'
+    return [
+        ('fl_attention_bf16', mha_core_fl, mha_core_fl_plain, attention_inputs, (3, 4, 5),
+         ('t', 'J_t', 'L_t'), 1, KERNEL_RTOL, partial(attention_bound_ms, jbytes=2), {}, *att),
+        ('fl_attention_bf16_low', mha_core_fl, mha_core_fl_plain, attention_inputs, (3, 4, 5),
+         ('t', 'J_t', 'L_t'), 1, LOW_RTOL, partial(attention_bound_ms, jbytes=2),
+         {'low': True}, *att),
+        ('fl_attention_low', mha_core_fl, mha_core_fl_plain, attention_inputs, (),
+         ('t', 'J_t', 'L_t'), None, LOW_RTOL, attention_bound_ms, {'low': True}, *att),
+        ('fl_slogdet_traces_bf16', slogdet_traces, slogdet_traces_plain, slogdet_inputs, (1, 2),
+         ('jout', 'trq'), None, KERNEL_RTOL, partial(slogdet_bound_ms, jbytes=2), {}, sl,
+         'deepqmc_tpu/ops/fl_slogdet.py:566'),
+        ('fl_slogdet_square_bf16', square_traces, square_traces_plain, square_inputs, (1,),
+         ('jout', 'lout'), None, KERNEL_RTOL, partial(slogdet_bound_ms, with_l=True, jbytes=2),
+         {}, sl, 'deepqmc_tpu/ops/fl_slogdet.py:133'),
+        ('fl_slogdet_square_split_bf16', square_split_traces, square_split_traces_plain,
+         square_split_inputs, (1, 2), ('jout', 'lout'), None, KERNEL_RTOL,
+         partial(slogdet_bound_ms, with_l=True, jbytes=2), {}, sl,
+         'deepqmc_tpu/ops/fl_slogdet.py:236'),
+    ]
+
+
+def check_bf16_case(case, gen, B, kw_shape, deterministic=True, timed=False):
+    """One bf16 case at B walkers (``kw_shape`` the inputs' shape keywords)
+    against its plain version fed the same operands upcast; raises where it
+    disagrees or two launches differ.  Returns (worst abs error, ms, plain ms)."""
+    import torch
+
+    from deepqmc_tpu_torch.utils import cuda_median_ms
+
+    name, kernel, plain, make, slots, outs, bf16_out, tol, _, kw, *_ = case
+    pkw = {k: v for k, v in kw.items() if k != 'body'}  # the body is the kernel's alone
+    args, up = bf16_split(make(gen, B, **kw_shape), slots)
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    ref = plain(*up, **pkw)
+    worst = 0.0
+    for i, (label, o, r) in enumerate(zip(outs, got, ref)):
+        err, rel = excess_rel(o, r, BF16_ULP if i == bf16_out else 0.0)
+        ok = rel <= tol and math.isfinite(err)
+        print(f'{name} B={B} {kw_shape} {label}: max abs err {err:.3e}, rel excess {rel:.3e} '
+              f'(tol {tol:.1e}{" past a bf16 spacing" if i == bf16_out else ""}) '
+              f'{"ok" if ok else "FAIL"}', flush=True)
+        if not ok:
+            raise SystemExit(f'{name} disagrees with its plain version on {label}')
+        worst = max(worst, err)
+    if bf16_out is not None and got[bf16_out].dtype != torch.bfloat16:
+        raise SystemExit(f'{name} wrote {got[bf16_out].dtype}, want bf16')
+    if deterministic:
+        same = all(torch.equal(a, o) for a, o in zip(kernel(*args, **kw), got))
+        print(f'{name} B={B} {kw_shape}: two launches bitwise equal: {same}', flush=True)
+        if not same:
+            raise SystemExit(f'{name} is not deterministic')
+    ms = plain_ms = None
+    if timed:
+        ms = cuda_median_ms(lambda: kernel(*args, **kw))
+        plain_ms = cuda_median_ms(lambda: plain(*args, **pkw))
+    del args, up, got, ref
+    return worst, ms, plain_ms
+
+
+def precision_path(dq, hamil, R, r_main, smi, counters, zero_counts):
+    """The precision levers: kernels 1-4 with bf16 Jacobians and kernel 1's
+    low mode against their plain versions, timed; one local energy of the
+    main path under the bf16 store with and without the bf16 contractions
+    (launch counts by dtype, E_loc of 64 walkers against float64); the four
+    log-determinant rules on a bf16 store; sampling and the gradient under
+    'high'; 'medium' in cuBLAS; step times with the levers off and on.
+    Returns the bf16 variants' records for the kernels line."""
+    import torch
+
+    from deepqmc_tpu_torch import fwdlap
+    from deepqmc_tpu_torch.loss import create_loss_fn, median_log_squeeze_and_mask
+    from deepqmc_tpu_torch.ops import fl_attention, fl_slogdet
+    from deepqmc_tpu_torch.ops.slogdet import unflatten_dets
+    from deepqmc_tpu_torch.sampling import DecorrSampler, MetropolisSampler
+    from deepqmc_tpu_torch.utils import cuda_median_ms, sampling_precision_ctx
+
+    gen = torch.Generator('cuda').manual_seed(19)
+    cases = bf16_kernel_cases(
+        fl_attention.mha_core_fl, fl_attention.mha_core_fl_plain, fl_slogdet.slogdet_traces,
+        fl_slogdet.slogdet_traces_plain, fl_slogdet.square_traces,
+        fl_slogdet.square_traces_plain, fl_slogdet.square_split_traces,
+        fl_slogdet.square_split_traces_plain)
+    records = {}
+    for case in cases:
+        name, bound, source, replaces = case[0], case[8], case[10], case[11]
+        check_bf16_case(case, gen, 256, {})
+        worst, ms, plain_ms = check_bf16_case(case, gen, 2048, {}, timed=True)
+        bound_ms, nbytes, flops = bound(2048)
+        bound_by = 'bytes' if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S else 'operations'
+        print(f'{smi} | {name} B=2048: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+              f'{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP)',
+              flush=True)
+        records[name] = dict(name=name, route='cuda', source=source, replaces=replaces,
+                             launches=0, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        torch.cuda.empty_cache()
+    # other shapes: odd n and dh, benzene's n = 42, K past a ring; the slogdet
+    # kernels' plain bf16 copies (odd D n: one bf16 a copy), the shifted runs
+    # of a square layout (tiled body forced) and n = 2 with no down rows
+    att_shapes = (dict(K=21, n=7, H=2, dh=16), dict(K=9, n=33, H=2, dh=16),
+                  dict(K=4, n=2, H=2, dh=8), dict(K=126, n=42))
+    sl_shapes = (dict(K=15, D=3, nu=3, nd=2), dict(K=21, D=3, nu=4, nd=3),
+                 dict(K=6, D=4, nu=2, nd=0), dict(K=126, D=4, nu=21, nd=21))
+    for case in cases:
+        for kw_shape in (att_shapes if case[0].startswith('fl_attention') else sl_shapes):
+            check_bf16_case(case, gen, 5, kw_shape)
+    for case in cases[4:]:  # a square layout's runs at their shift: n = 6, one determinant a block
+        tiled = case[:9] + ({'body': fl_slogdet.TILED},) + case[10:]
+        check_bf16_case(tiled, gen, 5, dict(K=9, D=2, nu=3, nd=3))
+        rb = fl_slogdet.row_blocks(fl_slogdet.SQUARE, 2, 6, 0, 1, esize=2)
+        print(f'{case[0]} n = 6: {body_of(case[1])}; a square record of it at bf16: vw '
+              f'{rb.vw}, shift {rb.shift}', flush=True)
+    torch.cuda.empty_cache()
+
+    # cuBLAS and the 'medium' label: the error of one float32 product under
+    # each label against float64 (TF32 keeps 10 mantissa bits, bf16 7)
+    a = torch.randn(1024, 1024, generator=gen, device='cuda')
+    b = torch.randn(1024, 1024, generator=gen, device='cuda')
+    ref = (a.double() @ b.double())
+    errs = {}
+    for label in ('highest', 'high', 'default'):
+        from deepqmc_tpu_torch.utils import matmul_precision
+
+        with matmul_precision(label):
+            errs[label] = ((a @ b).double() - ref).abs().max().item() / ref.abs().max().item()
+    print(f'one 1024 x 1024 float32 product against float64, max rel err: '
+          + ', '.join(f'{k} {v:.3e}' for k, v in errs.items())
+          + f"; cuBLAS takes bf16 for 'default' (medium): {errs['default'] > 2 * errs['high']}",
+          flush=True)
+    if torch.get_float32_matmul_precision() != 'highest':
+        raise SystemExit('the matmul precision was not restored after a context')
+
+    # one local energy of the main path under the bf16 store, with and
+    # without the bf16 contractions: launches by dtype, E_loc of 64 walkers
+    wf = dq.psiformer_ansatz(hamil, seed=0).cuda()
+    weights = {k: v.cpu() for k, v in wf.state_dict().items()}
+    plain = {}
+    for name, dtype in (('f64', torch.float64), ('f32', torch.float32)):
+        plain[name] = dq.psiformer_ansatz(hamil, seed=0).to(dtype)
+        plain[name].load_state_dict({k: v.to(dtype) for k, v in weights.items()})
+    B = len(r_main)
+    pc = dq.PhysicalConfiguration(R, r_main, torch.zeros(B, dtype=torch.long, device='cuda'))
+    r64 = r_main[:PRECISION_WALKERS].cpu()
+    idx64 = torch.zeros(PRECISION_WALKERS, dtype=torch.long)
+
+    def eloc_cpu(wf_cpu, dtype):
+        with torch.inference_mode():
+            return hamil.local_energy(wf_cpu, dq.PhysicalConfiguration(
+                R.cpu().to(dtype), r64.to(dtype), idx64))[0].double()
+
+    with environ(**LEVERS_OFF):
+        ref = eloc_cpu(plain['f64'], torch.float64)
+    scale = ref.abs().clamp(min=1.0)
+    for mm in ('f32', 'bf16'):
+        with environ(DEEPQMC_TPU_JAC_DTYPE='bf16', DEEPQMC_TPU_JAC_MATMUL=mm):
+            with torch.inference_mode():
+                zero_counts()
+                e_card, _ = hamil.local_energy(wf, pc)
+                torch.cuda.synchronize()
+                att = dict(fl_attention.mha_core_fl.by_dtype)
+                sl = dict(fl_slogdet.slogdet_traces.by_dtype)
+                e_card64, _ = hamil.local_energy(wf, dq.PhysicalConfiguration(
+                    R, r_main[:PRECISION_WALKERS], pc.mol_idx[:PRECISION_WALKERS]))
+                eloc_ms = cuda_median_ms(lambda: hamil.local_energy(wf, pc), runs=3, warmup=1)
+            e_plain = eloc_cpu(plain['f32'], torch.float32)
+        low = mm == 'bf16'
+        print(f'one local energy under JAC_DTYPE=bf16 JAC_MATMUL={mm}: attention launches by '
+              f'(dtype, low) {att}, flat slogdet by dtype {sl}; {eloc_ms:.1f} ms at {B} walkers',
+              flush=True)
+        if att != {(torch.bfloat16, low): 4} or sl != {torch.bfloat16: 1}:
+            raise SystemExit(f'one local energy under the bf16 store did not launch kernel 1 '
+                             f'4 times and kernel 2 once with bf16 Jacobians (low {low})')
+        if not torch.isfinite(e_card).all():
+            raise SystemExit('the local energy under the bf16 store is not finite')
+        rel_card = ((e_card64.double().cpu() - ref).abs() / scale).max().item()
+        rel_plain = ((e_plain - ref).abs() / scale).max().item()
+        tol = ELOC_FACTOR * rel_plain + ELOC_FLOOR
+        print(f'E_loc on {PRECISION_WALKERS} walkers under JAC_DTYPE=bf16 JAC_MATMUL={mm} '
+              f'against the plain path in f64 without levers (CPU): card rel err {rel_card:.3e}; '
+              f'plain path (f32, same levers, CPU) rel err {rel_plain:.3e}; tol {tol:.3e} '
+              f'{"ok" if rel_card <= tol else "FAIL"}', flush=True)
+        if not rel_card <= tol:
+            raise SystemExit('the local energy under the bf16 store disagrees with float64')
+        for key in (('fl_attention_bf16_low' if low else 'fl_attention_bf16'),
+                    'fl_slogdet_traces_bf16'):
+            records[key]['launches'] = (att[torch.bfloat16, low] if key.startswith('fl_att')
+                                        else sl[torch.bfloat16])
+    with environ(DEEPQMC_TPU_JAC_DTYPE='f32', DEEPQMC_TPU_JAC_MATMUL='bf16'):
+        with torch.inference_mode():
+            zero_counts()
+            hamil.local_energy(wf, pc)
+            att = dict(fl_attention.mha_core_fl.by_dtype)
+        print(f'one local energy under JAC_MATMUL=bf16 alone: attention launches by (dtype, low) '
+              f'{att}', flush=True)
+        if att != {(torch.float32, True): 4}:
+            raise SystemExit('JAC_MATMUL=bf16 alone did not run kernel 1 in its low mode')
+        records['fl_attention_low']['launches'] = att[torch.float32, True]
+
+    # the four log-determinant rules on a bf16 store (kernels 2, 3 and 4)
+    D = wf.n_det
+    with torch.inference_mode(), fwdlap.jac_levers(fwdlap.Levers(torch.bfloat16, False)):
+        sp = dq.PhysicalConfiguration(R, fwdlap.FL.seed(r_main), pc.mol_idx)
+        up, down = wf._spin_orbitals(sp)
+
+        def square(v):
+            return fwdlap.FL(*(unflatten_dets(t, D) for t in (v.x, v.stored_jac, v.lap)))
+
+        sq_up, sq_down = square(up), square(down)
+        zero_counts()
+        outs = {
+            'flat rows': fwdlap.slogdet_flat_rows(up, down, D),
+            'flat whole': fwdlap.slogdet_flat(fwdlap.cat([up, down], -2), D),
+            'square rows': fwdlap.slogdet_rows(sq_up, sq_down),
+            'square whole': fwdlap.slogdet(fwdlap.cat([sq_up, sq_down], -2)),
+        }
+        torch.cuda.synchronize()
+        by = {k: dict(c.by_dtype) for k, c in counters.items() if hasattr(c, 'by_dtype')}
+        print(f'the four log-determinant rules on a bf16 store: launches by dtype {by}',
+              flush=True)
+        want = {'fl_slogdet_traces': {torch.bfloat16: 2}, 'fl_slogdet_square':
+                {torch.bfloat16: 1}, 'fl_slogdet_square_split': {torch.bfloat16: 1}}
+        if any(by[k] != v for k, v in want.items()):
+            raise SystemExit(f'the log-determinant rules on a bf16 store launched {by}')
+        records['fl_slogdet_square_bf16']['launches'] = by['fl_slogdet_square'][torch.bfloat16]
+        records['fl_slogdet_square_split_bf16']['launches'] = \
+            by['fl_slogdet_square_split'][torch.bfloat16]
+        a, ja, la = (torch.cat(t, -2) for t in ((sq_up.x, sq_down.x),
+                                                 (sq_up.stored_jac, sq_down.stored_jac),
+                                                 (sq_up.lap, sq_down.lap)))
+        ref = [t.double() for t in fl_slogdet.square_traces_plain(
+            torch.linalg.inv(a.double()), ja.double(), la.double())]
+        first = outs['flat rows'][1]
+        for name, (sign, out) in outs.items():
+            errs = [((g.double() - r).abs() / r.abs().clamp(min=1.0)).max().item()
+                    for g, r in zip((out.jac, out.lap), ref)]
+            agree = [((g.double() - f.double()).abs() / f.double().abs().clamp(min=1.0)).max()
+                     .item() for g, f in zip((out.jac, out.lap), (first.jac, first.lap))]
+            print(f'{name} on the bf16 store: J, L against f64 of the same store '
+                  f'{errs[0]:.3e}, {errs[1]:.3e}; against flat rows {agree[0]:.3e}, '
+                  f'{agree[1]:.3e}', flush=True)
+            if not all(math.isfinite(e) for e in errs + agree):
+                raise SystemExit(f'{name} on the bf16 store is not finite')
+        del sp, up, down, sq_up, sq_down, outs, a, ja, la
+    torch.cuda.empty_cache()
+
+    # sampling and the gradient under 'high'; 'highest' inside the local energy
+    seen = []
+    hook = wf.register_forward_pre_hook(
+        lambda m, args: seen.append(torch.get_float32_matmul_precision())
+        if fwdlap.is_fl(args[0].r) else None)
+    sampler = DecorrSampler(length=10).wrap(MetropolisSampler(hamil, wf))
+    state = {'r': r_main.clone(), 'age': torch.zeros(B, dtype=torch.long, device='cuda'),
+             'tau': torch.tensor(0.3, device='cuda')}
+    with environ(DEEPQMC_TPU_SAMPLING_PRECISION='high'), torch.no_grad():
+        with sampling_precision_ctx():  # the chain's psi all at 'high', as fit.train_step
+            inside = torch.get_float32_matmul_precision()
+            state = sampler.update(state, R)
+            new, spc, _ = sampler.sample(torch.Generator('cuda').manual_seed(3), state, R)
+            with torch.inference_mode():
+                hamil.local_energy(wf, spc)
+        after = torch.get_float32_matmul_precision()
+    with torch.no_grad():
+        psi = wf(spc).log
+    rel = ((new['psi'].log - psi).abs().max() / psi.abs().max().clamp(min=1.0)).item()
+    print(f'10 Metropolis moves under SAMPLING_PRECISION=high (context {inside}): log|psi| of '
+          f'the sampled walkers against highest, max rel err {rel:.3e} (tol '
+          f'{SAMPLE_PSI_RTOL:.0e}); precision inside the local energy {seen}, after the '
+          f'context {after}', flush=True)
+    if inside != 'high' or after != 'highest' or seen != ['highest'] or not rel <= SAMPLE_PSI_RTOL:
+        raise SystemExit('sampling under high: wrong precision or log|psi| off')
+    loss = create_loss_fn(hamil, wf, median_log_squeeze_and_mask)
+    ones = torch.ones(B, device='cuda')
+    grads = {}
+    for label in ('highest', 'high'):
+        seen.clear()
+        with environ(DEEPQMC_TPU_GRAD_PRECISION=label):
+            _, g = loss.value_and_grad(spc, ones)
+        grads[label] = torch.cat([t.flatten() for t in g.values()])
+        print(f'gradient under GRAD_PRECISION={label}: precision inside the local energy '
+              f'{seen}, after {torch.get_float32_matmul_precision()}', flush=True)
+        if seen != ['highest'] or torch.get_float32_matmul_precision() != 'highest':
+            raise SystemExit('the gradient context leaked into the local energy or stayed set')
+    hook.remove()
+    rel = rel_l2(grads['high'], grads['highest'])
+    print(f'gradient under GRAD_PRECISION=high against highest on the same {B} walkers, rel L2 '
+          f'{rel:.3e} (tol {GRAD_HIGH_RTOL:.0e})', flush=True)
+    if not rel <= GRAD_HIGH_RTOL:
+        raise SystemExit('the gradient under high is too far from highest')
+    del loss, sampler, state, new, spc, grads, plain
+    torch.cuda.empty_cache()
+
+    # times, printed and not gated: an evaluation and a training step with
+    # every lever off and on
+    for label, env in (('off', LEVERS_OFF), ('on', LEVERS_ON)):
+        with environ(**env):
+            for mode in ('evaluation', 'training'):
+                wf_t = dq.psiformer_ansatz(hamil, seed=0).cuda()
+                run = (dq.evaluate(hamil, wf_t, n_walkers=2048, steps=3, decorr=10, seed=0)
+                       if mode == 'evaluation' else
+                       dq.fit.train(hamil, wf_t, n_walkers=2048, steps=3, decorr=10, seed=0,
+                                    optimizer='kfac'))
+                times, t0 = [], time.monotonic()
+                for _, _, E_loc, _ in run:
+                    torch.cuda.synchronize()
+                    times.append(1e3 * (time.monotonic() - t0))
+                    if not torch.isfinite(E_loc).all():
+                        raise SystemExit(f'a {mode} step with the levers {label} is not finite')
+                    t0 = time.monotonic()
+                print(f'{smi} | {mode} step, 2048 walkers, levers {label}: steps '
+                      f'{", ".join(f"{t:.1f}" for t in times)} ms', flush=True)
+                del wf_t, run
+    torch.cuda.empty_cache()
+    return list(records.values())
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2596,7 +3012,9 @@ def main() -> int:
         print(f'torch {torch.__version__} cuda {torch.version.cuda} '
               f'device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}',
               flush=True)
-        torch.backends.cuda.matmul.allow_tf32 = False
+        # true float32 (the precision API only: torch raises where it and the
+        # legacy allow_tf32 flag disagree)
+        torch.set_float32_matmul_precision('highest')
         torch.backends.cudnn.allow_tf32 = False
 
     with Phase('build'):
@@ -2804,6 +3222,8 @@ def main() -> int:
     def zero_counts():
         for c in counters.values():
             c.launches = 0
+            if hasattr(c, 'by_dtype'):  # kernels 1-4: launches by Jacobian dtype
+                c.by_dtype.clear()
 
     def eval_run(wf):
         """3 evaluation steps of 2048 walkers from zeroed counts; (step times,
@@ -3238,6 +3658,9 @@ def main() -> int:
         print(f'launches of rank 0 during the dp path: {dp_launches}', flush=True)
         for name in by_name:
             by_name[name]['dp_launches'] = dp_launches.get(name, 0)
+
+    with Phase('precision_path'):
+        kernels.extend(precision_path(dq, hamil, R, main_last['r'], smi, counters, zero_counts))
 
     print(json.dumps({'kernels': kernels}), flush=True)
     print(f'{smi} | whole run {time.monotonic() - _T0:.1f} s', flush=True)

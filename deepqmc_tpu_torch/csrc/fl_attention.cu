@@ -4,8 +4,9 @@
 // (kernel body `_kernel`, default head body `_make_head_fn`).  Plain twin:
 // deepqmc_tpu_torch/ops/fl_attention.py `mha_core_fl_plain`.
 //
-// Layouts (f32, contiguous): primals q, k, v, Lq, Lk, Lv and outputs t, Lt are
-// [B, n, H, dh]; Jacobians Jq, Jk, Jv and the output Jt are [B, K, n, H, dh].
+// Layouts (contiguous): primals q, k, v, Lq, Lk, Lv and outputs t, Lt are
+// [B, n, H, dh], float; Jacobians Jq, Jk, Jv and the output Jt are
+// [B, K, n, H, dh], float or bf16 (see the precision levers below).
 // Requires 1 <= n <= 64, dh % 4 == 0 and 16-byte aligned operands (the
 // wrapper checks them).
 //
@@ -52,7 +53,21 @@
 // Each sum has one owner thread and adds the directions in order, and the
 // shuffles sum in a fixed pattern: no atomics, so two launches give
 // bitwise-equal results.
+//
+// Precision levers (the JAX package's DEEPQMC_TPU_JAC_DTYPE and
+// DEEPQMC_TPU_JAC_MATMUL).  The Jacobians Jq, Jk, Jv and the output Jt have one
+// element type TJ, float or bf16 (a template argument): bf16 tiles go through
+// the ring as they lie in memory (8 elements a 16-byte copy, the bytes of the
+// stream halved) and widen to float as the passes load them; Jt is rounded to
+// bf16 as it is stored, as the JAX package rounds its float32 output outside.
+// Everything else is float.  LOW (the JAX kernel's `_bmm(low=True)`): the
+// Jacobian contractions, those that scale with K (Jz_k, Jq_k Jk_k^T, Ja_k v,
+// a Jv_k, Ja_k Jv_k), take both operands rounded to bf16 and accumulate in
+// float; the products of two bf16 values are exact in float, so this is the
+// function of a bf16 tensor-core product with float accumulation, here on
+// the CUDA cores.  The primal and Laplacian contractions stay float.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -83,6 +98,41 @@ __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
+// 4 bf16 values (8 bytes) widened to float: a bf16 is a float's upper half
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// 4 floats rounded to bf16 (nearest even) and stored in 8 bytes
+__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
+}
+
+// x rounded to bf16 (nearest even), as a float
+__device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+__device__ __forceinline__ float4 bf4(float4 v) {
+  return make_float4(bf(v.x), bf(v.y), bf(v.z), bf(v.w));
+}
+
+// An operand of a Jacobian contraction: rounded to bf16 in LOW mode (a no-op
+// on values that are bf16 already)
+template <bool LOW>
+__device__ __forceinline__ float4 op4(float4 v) {
+  if constexpr (LOW) return bf4(v);
+  return v;
+}
+
+template <bool LOW>
+__device__ __forceinline__ float2 op2(float2 v) {
+  if constexpr (LOW) return make_float2(bf(v.x), bf(v.y));
+  return v;
+}
+
 __device__ __forceinline__ void fma4(float4& acc, float s, float4 w) {
   acc.x = fmaf(s, w.x, acc.x);
   acc.y = fmaf(s, w.y, acc.y);
@@ -98,7 +148,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
 }
@@ -162,17 +212,22 @@ __device__ __forceinline__ float group_max(float v, int width) {
   return v;
 }
 
-// Shared-memory plan of one block, in floats.
+// Shared-memory plan of one block, in floats; the Jacobian tiles have
+// elements of `jbytes` bytes (4 float, 2 bf16).
 struct Layout {
   int ldt;   // row stride of an [n, dh] tile: float4 aligned, banks shifted by 4 a row
   int tile;  // n * ldt
+  int ldj;   // row stride of a Jacobian tile in its elements: 16 bytes past dh, as ldt
+  int slot;  // floats of a ring slot (one Jacobian tile, n * ldj elements)
   int q, k, v, sav, at, jat, w, p, g, ring, bar, total;
 };
 
-__host__ __device__ inline Layout layout(int n, int dh, int slots) {
+__host__ __device__ inline Layout layout(int n, int dh, int slots, int jbytes) {
   Layout L;
   L.ldt = dh + 4;
   L.tile = n * L.ldt;
+  L.ldj = dh + 16 / jbytes;
+  L.slot = n * L.ldj * jbytes / 4;
   const int nn = n * n;
   L.q = 0;
   L.k = L.tile;
@@ -185,7 +240,9 @@ __host__ __device__ inline Layout layout(int n, int dh, int slots) {
   L.p = L.w + nn;        // [n][n]    P
   L.g = L.p + nn;        // [n]       G
   L.ring = (L.g + n + 3) / 4 * 4;
-  L.bar = L.ring + slots * L.tile;  // per slot a "full" and an "empty" mbarrier, 8 bytes each
+  // the ring's slots, which at the end hold the three float tiles Lq, Lk, Lv;
+  // per slot a "full" and an "empty" mbarrier, 8 bytes each
+  L.bar = L.ring + (slots * L.slot > 3 * L.tile ? slots * L.slot : 3 * L.tile);
   L.total = L.bar + 4 * slots;
   return L;
 }
@@ -211,18 +268,27 @@ inline int threads_for(int n, int dh) {
 }
 
 struct Params {
-  const float *q, *k, *v, *jq, *jk, *jv, *lq, *lk, *lv;
-  float *t, *jt, *lt;
+  const float *q, *k, *v;
+  const void *jq, *jk, *jv;  // TJ
+  const float *lq, *lk, *lv;
+  float* t;
+  void* jt;  // TJ
+  float* lt;
   int K, n, H, dh, slots;
 };
 
-template <int MAX_THREADS, int MIN_BLOCKS>
+template <int MAX_THREADS, int MIN_BLOCKS, typename TJ, bool LOW>
 __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS) fl_attention_kernel(Params pr) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int K = pr.K, n = pr.n, H = pr.H, dh = pr.dh, slots = pr.slots;
-  const Layout L = layout(n, dh, slots);
-  const int ldt = L.ldt, dq = dh / 4;
+  const Layout L = layout(n, dh, slots, (int)sizeof(TJ));
+  const int ldt = L.ldt, dq = dh / 4, ldj = L.ldj;
+  constexpr int kVec = 16 / (int)sizeof(TJ);  // Jacobian elements a 16-byte copy
+  // a Jacobian operand of a contraction: rounded in LOW mode unless it is bf16
+  constexpr bool kRoundJ = LOW && sizeof(TJ) == 4;
+  TJ* ringj = reinterpret_cast<TJ*>(sm + L.ring);
+  const int slot_el = n * ldj;  // elements of a ring slot
   float *sq = sm + L.q, *sk = sm + L.k, *sv = sm + L.v, *sav = sm + L.sav;
   float2 *sat = reinterpret_cast<float2*>(sm + L.at), *sjat = reinterpret_cast<float2*>(sm + L.jat);
   float *sw = sm + L.w, *sp = sm + L.p;
@@ -265,6 +331,13 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS) fl_attention_kernel(P
       cp_async16(dst + r * ldt + c, src + r * HD + c);
     }
   };
+  // the same for a Jacobian tile (rows ldj apart in the ring), by the copying warp
+  const auto copy_jtile = [&](TJ* dst, const TJ* src) {
+    for (int e = tid - T; e < n * (dh / kVec); e += 32) {
+      const int r = e / (dh / kVec), c = kVec * (e % (dh / kVec));
+      cp_async16(dst + r * ldj + c, src + r * HD + c);
+    }
+  };
 
   if (tid == 0) {
     for (int s = 0; s < slots; ++s) {
@@ -285,8 +358,8 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS) fl_attention_kernel(P
         mbar_wait(empty + slot, (phase >> slot) & 1u);
         phase ^= 1u << slot;
       }
-      const float* base = which == 0 ? pr.jq : which == 1 ? pr.jk : pr.jv;
-      copy_tile(ring + slot * L.tile, base + ((long)b * K + kk) * n * HD + (long)h * dh, T, 32);
+      const TJ* base = static_cast<const TJ*>(which == 0 ? pr.jq : which == 1 ? pr.jk : pr.jv);
+      copy_jtile(ringj + slot * slot_el, base + ((long)b * K + kk) * n * HD + (long)h * dh);
       cp_async_arrive(full + slot);
       if (++slot == slots) slot = 0;
       if (++which == 3) {
@@ -339,8 +412,8 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS) fl_attention_kernel(P
     wait_full(slot_k);
     compute_sync(T);  // every thread is done with direction kk - 1
     if (tid == 0 && slot_prev >= 0) mbar_arrive(empty + slot_prev);
-    const float* sjq = ring + slot_q * L.tile;
-    const float* sjk = ring + slot_k * L.tile;
+    const TJ* sjq = ringj + slot_q * slot_el;
+    const TJ* sjk = ringj + slot_k * slot_el;
 
     // pass A: Jz_k and Jq_k Jk_k^T on the lane's 2 x 2 tile, g_k of its two
     // rows summed over the group's lanes, the sums' shares, Ja_k
@@ -349,15 +422,17 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS) fl_attention_kernel(P
       const int i0 = min(p0 + a_sub, hn - 1), i1 = min(i0 + hn, n - 1);
       const bool ok_i1 = okp && i0 + hn < n;
       const float *q0 = sq + i0 * ldt, *q1 = sq + i1 * ldt;
-      const float *y0 = sjq + i0 * ldt, *y1 = sjq + i1 * ldt;
+      const TJ *y0 = sjq + i0 * ldj, *y1 = sjq + i1 * ldj;
       const float *k0 = sk + a_jp * ldt, *k1 = sk + a_j1 * ldt;
-      const float *x0 = sjk + a_jp * ldt, *x1 = sjk + a_j1 * ldt;
+      const TJ *x0 = sjk + a_jp * ldj, *x1 = sjk + a_j1 * ldj;
       float z00 = 0.f, z01 = 0.f, z10 = 0.f, z11 = 0.f;
       float c00 = 0.f, c01 = 0.f, c10 = 0.f, c11 = 0.f;
 #pragma unroll 1
       for (int c = 0; c < dh; c += 4) {
-        const float4 qa = ld4(q0 + c), qb = ld4(q1 + c), ya = ld4(y0 + c), yb = ld4(y1 + c);
-        const float4 ka = ld4(k0 + c), kb = ld4(k1 + c), xa = ld4(x0 + c), xb = ld4(x1 + c);
+        const float4 qa = op4<LOW>(ld4(q0 + c)), qb = op4<LOW>(ld4(q1 + c));
+        const float4 ka = op4<LOW>(ld4(k0 + c)), kb = op4<LOW>(ld4(k1 + c));
+        const float4 ya = op4<kRoundJ>(ld4(y0 + c)), yb = op4<kRoundJ>(ld4(y1 + c));
+        const float4 xa = op4<kRoundJ>(ld4(x0 + c)), xb = op4<kRoundJ>(ld4(x1 + c));
         z00 = fma4sum(ya, ka, fma4sum(qa, xa, z00));
         z01 = fma4sum(ya, kb, fma4sum(qa, xb, z01));
         z10 = fma4sum(yb, ka, fma4sum(qb, xa, z10));
@@ -378,7 +453,7 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS) fl_attention_kernel(P
         const int e = i * n + j;
         sw[e] += 2.f * scale * x + z * z;
         sp[e] += z * g;
-        pset(sjat, i, j, a * (z - g));
+        pset(sjat, i, j, LOW ? bf(a * (z - g)) : a * (z - g));  // Ja_k feeds only contractions
       };
       if (okp) {
         put(i0, a_jp, aa.x, z00, c00, g0);
@@ -398,20 +473,20 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS) fl_attention_kernel(P
       mbar_arrive(empty + slot_q);
       mbar_arrive(empty + slot_k);
     }
-    const float* sjv = ring + slot_v * L.tile;
+    const TJ* sjv = ringj + slot_v * slot_el;
     slot_prev = slot_v;
     slot_q = slot_v + 1 == slots ? 0 : slot_v + 1;
 
     // pass B: Jt_k = Ja_k v + a Jv_k for rows i and i + hn; Sav += Ja_k Jv_k
-    float* jtk = pr.jt + ((long)b * K + kk) * n * HD + (long)h * dh;
+    TJ* jtk = static_cast<TJ*>(pr.jt) + ((long)b * K + kk) * n * HD + (long)h * dh;
     for (int e = tid; e < hn * dq; e += T) {
       const int i0 = e / dq, c = 4 * (e % dq);
       const bool has1 = i0 + hn < n;
       const int i1 = has1 ? i0 + hn : i0;
       float4 t0v = make_float4(0.f, 0.f, 0.f, 0.f), t1v = t0v, s0 = t0v, s1 = t0v;
       for (int j = 0; j < n; ++j) {
-        const float4 vj = ld4(sv + j * ldt + c), jvj = ld4(sjv + j * ldt + c);
-        const float2 ja = sjat[j * hn + i0], a = sat[j * hn + i0];
+        const float4 vj = op4<LOW>(ld4(sv + j * ldt + c)), jvj = op4<kRoundJ>(ld4(sjv + j * ldj + c));
+        const float2 ja = sjat[j * hn + i0], a = op2<LOW>(sat[j * hn + i0]);
         fma4(t0v, ja.x, vj);
         fma4(t0v, a.x, jvj);
         fma4(s0, ja.x, jvj);
@@ -428,7 +503,7 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS) fl_attention_kernel(P
     }
   }
 
-  // ---- the Laplacian: Lq, Lk, Lv into the ring's first three slots (every
+  // ---- the Laplacian: Lq, Lk, Lv into the ring's room, as float tiles (every
   // tile of the stream has landed and been read)
   compute_sync(T);
   float *slq = ring, *slk = ring + L.tile, *slv = ring + 2 * L.tile;
@@ -483,32 +558,45 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS) fl_attention_kernel(P
   }
 }
 
+// The kernel for n, dh, the Jacobians' element type and the mode: the
+// small-block instance where the block fits it.
+using Kernel = void (*)(Params);
+
+template <typename TJ, bool LOW>
+Kernel kernel_of(int n, int dh) {
+  return threads_for(n, dh) + 32 <= kSmallBlock
+             ? fl_attention_kernel<kSmallBlock, kSmallBlocks, TJ, LOW>
+             : fl_attention_kernel<kMaxThreads + 32, 1, TJ, LOW>;
+}
+
+Kernel kernel_for(int n, int dh, int jdtype, int low) {
+  if (jdtype == 0) return low ? kernel_of<float, true>(n, dh) : kernel_of<float, false>(n, dh);
+  return low ? kernel_of<__nv_bfloat16, true>(n, dh) : kernel_of<__nv_bfloat16, false>(n, dh);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes of one block with a ring of `slots` [n, dh] tiles; the
-// wrapper picks `slots` from it.  K does not enter: nothing resident grows with it.
-long fl_attention_smem_bytes(int n, int dh, int slots) {
-  return (long)layout(n, dh, slots).total * (long)sizeof(float);
+// Shared-memory bytes of one block with a ring of `slots` [n, dh] Jacobian
+// tiles of `jbytes`-byte elements; the wrapper picks `slots` from it.  K does
+// not enter: nothing resident grows with it.
+long fl_attention_smem_bytes(int n, int dh, int slots, int jbytes) {
+  return (long)layout(n, dh, slots, jbytes).total * (long)sizeof(float);
 }
 
-// The kernel for n, dh: the small-block instance where the block fits it.
-using Kernel = void (*)(Params);
-static Kernel kernel_for(int n, int dh) {
-  return threads_for(n, dh) + 32 <= kSmallBlock ? fl_attention_kernel<kSmallBlock, kSmallBlocks>
-                                                : fl_attention_kernel<kMaxThreads + 32, 1>;
-}
-
+// jdtype: the element type of jq, jk, jv and jt, 0 float, 1 bf16 (then dh % 8
+// == 0); low: the Jacobian contractions on bf16-rounded operands.
 int fl_attention_launch(const float* q, const float* k, const float* v,
-                        const float* jq, const float* jk, const float* jv,
+                        const void* jq, const void* jk, const void* jv,
                         const float* lq, const float* lk, const float* lv,
-                        float* t, float* jt, float* lt, int B, int K, int n,
-                        int H, int dh, int slots, void* stream) {
-  if (dh % 4 != 0 || dh < 4 || n < 1 || n > kMaxN || K < 1 || slots < 3 || slots > 32)
+                        float* t, void* jt, float* lt, int B, int K, int n,
+                        int H, int dh, int slots, int jdtype, int low, void* stream) {
+  if (dh % 4 != 0 || dh < 4 || n < 1 || n > kMaxN || K < 1 || slots < 3 || slots > 32 ||
+      (jdtype != 0 && jdtype != 1) || (jdtype == 1 && dh % 8 != 0))
     return (int)cudaErrorInvalidValue;
-  const long smem = fl_attention_smem_bytes(n, dh, slots);
-  const Kernel kernel = kernel_for(n, dh);
+  const long smem = fl_attention_smem_bytes(n, dh, slots, jdtype == 0 ? 4 : 2);
+  const Kernel kernel = kernel_for(n, dh, jdtype, low);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

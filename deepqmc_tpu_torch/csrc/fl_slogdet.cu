@@ -17,7 +17,8 @@
 //   out[b, d]     = sum_k tr((A_d^-1 J_{k,d})^2)             (flat entry)
 //   out[b, d]     = tr(A_d^-1 L_d) - sum_k tr((A_d^-1 J_{k,d})^2)  (square)
 //
-// Layouts (f32, contiguous): inv [B, D, n, n]; jout [B, K, D]; out [B, D];
+// Layouts (contiguous; float but for the Jacobians, float or bf16):
+//   inv [B, D, n, n]; jout [B, K, D]; out [B, D];
 //   flat:         ju [B, K, nu, D*n], jd [B, K, nd, D*n] (row stride D*n);
 //   square:       ja [B, K, D, n, n] (row stride n), the up block with nd = 0;
 //   square split: ju [B, K, D, nu, n], jd [B, K, D, nd, n] (row stride n);
@@ -87,7 +88,18 @@
 //
 // Both bodies sum in a fixed order with one writer per output and no atomics:
 // two launches give bitwise-equal results.
+//
+// bf16 Jacobians (the JAX package's DEEPQMC_TPU_JAC_DTYPE=bf16 store).  The
+// Jacobian's element type TJ (float or bf16) is a template argument of both
+// bodies: the stages hold the rows as they lie in memory, so the copies above
+// count elements of TJ (the record and the stage strides are in elements, a
+// 16-byte copy is kVec<TJ> of them, a stage row is padded to 16 bytes), and the
+// bodies widen each staged value to float as they load it.  A copy of a single
+// bf16 (2 bytes, which cp.async cannot move) is a plain load and store, with a
+// plain arrival on the stage's mbarrier.  The inverse, the Laplacian, every
+// sum and the outputs stay float.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -110,7 +122,8 @@ constexpr int kTiledMaxThreads = 256;  // (64 / 4)^2 tiles at n = 64
 constexpr int kRegInvN = 16;  // up to this n a staged lane keeps its rows of A^-1 in registers
 
 // The layout record, field for field ops/fl_slogdet.py `RowBlocks` (all in
-// floats).  In memory, determinant d's up row r of (walker b, direction k)
+// elements of the Jacobian, floats below; a bf16 record counts bf16 values
+// and 16 bytes are 8 of them where these comments say 4 floats).  In memory, determinant d's up row r of (walker b, direction k)
 // lies at ju + (b K + k) up_bk + d up_d + r row, its down rows likewise in jd.
 // In a stage, determinant g of the block's group has its up row r at
 // g s_up_d + r s_row and its down row r at s_dn + g s_dn_d + r s_row.  runs:
@@ -131,7 +144,9 @@ struct RowBlocks {
 };
 
 struct Params {
-  const float *inv, *ju, *jd, *la;
+  const float* inv;
+  const void *ju, *jd;  // TJ
+  const float* la;
   float *jout, *out;
   int D, K, nu, nd, G, S;
   RowBlocks rb;
@@ -146,24 +161,52 @@ struct StageRows {
   int s_up_d, s_dn, s_dn_d, s_row, stage;
 };
 
-__host__ __device__ inline int up4(int x) { return (x + 3) / 4 * 4; }
+// Elements of the Jacobian's type in 16 bytes: 4 floats, 8 bf16.
+template <typename TJ>
+constexpr int kVec = 16 / (int)sizeof(TJ);
 
-__host__ __device__ inline StageRows stage_rows(int layout, int nu, int nd, int G, bool shift) {
+// x rounded up to a multiple of v (a power of 2)
+__host__ __device__ inline int up_to(int x, int v) { return (x + v - 1) / v * v; }
+
+// `vec`: elements in 16 bytes (kVec of the Jacobian's type).
+__host__ __device__ inline StageRows stage_rows(int layout, int nu, int nd, int G, bool shift,
+                                               int vec) {
   const int n = nu + nd;
-  if (layout == kFlat) {  // the group's G n columns of each row, rows padded to 4
-    const int ldr = up4(G * n);
+  if (layout == kFlat) {  // the group's G n columns of each row, rows padded to 16 bytes
+    const int ldr = up_to(G * n, vec);
     return {n, nu * ldr, n, ldr, n * ldr};
   }
-  // the up run, then the down run from a 4-float boundary, with shift each
+  // the up run, then the down run from a 16-byte boundary, with shift each
   // with room for its shift
-  const int room = shift ? 3 : 0;
-  const int s_dn = up4(G * nu * n + room);
-  return {nu * n, s_dn, nd * n, n, s_dn + (nd ? up4(G * nd * n + room) : 0)};
+  const int room = shift ? vec - 1 : 0;
+  const int s_dn = up_to(G * nu * n + room, vec);
+  return {nu * n, s_dn, nd * n, n, s_dn + (nd ? up_to(G * nd * n + room, vec) : 0)};
 }
 
-// The shift of the run that starts at `p`: its address mod 16 bytes, in floats.
-__device__ __forceinline__ int run_shift(const float* p) {
-  return (int)(reinterpret_cast<uintptr_t>(p) >> 2) & 3;
+// The shift of the run that starts at `p`: its address mod 16 bytes, in elements.
+template <typename TJ>
+__device__ __forceinline__ int run_shift(const TJ* p) {
+  return (int)(reinterpret_cast<uintptr_t>(p) / sizeof(TJ)) & (kVec<TJ> - 1);
+}
+
+// Staged Jacobian values widened to float: 1, 2 (4-byte aligned) or 4 (8-byte
+// aligned for bf16, 16 for float) in a row.
+__device__ __forceinline__ float ld1(const float* p) { return *p; }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 
 // ---- copies: TMA, cp.async and mbarriers ----
@@ -173,7 +216,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 template <int BYTES>
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_addr(dst)), "l"(src),
                "n"(BYTES)
                : "memory");
@@ -188,6 +231,11 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
                : "memory");
+}
+
+// One arrival on `bar`, releasing this thread's earlier writes to shared memory.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
 }
 
 __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
@@ -210,7 +258,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // `bytes` (a multiple of 16) from global to shared memory by the copy engine
 // (TMA), both ends 16-byte aligned; completion counts on `bar`.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes,
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
                                           uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
@@ -228,89 +276,98 @@ __device__ __forceinline__ void init_ring(uint64_t* bars, int S, bool bulk, int 
 }
 
 // Direction k's rows of determinants d0 .. d0 + G - 1 of walker b into the
-// stage `dst`, completing on `bar`.  Flat layout: by TMA (vw = 4), one copy a
-// run, the up and the down block by threads 0 and 32 (1 in a one-warp block),
-// or one a row (thread r); thread 0 announces the bytes, G n^2 floats; else
-// cp.async copies of vw floats by every thread, each arriving once its copies
-// have landed.  SHIFT (square layouts): each run at its shift, its interior
-// by TMA (threads 0 and 32 again; thread 0 announces the interiors' bytes)
-// and its ends by plain copies (threads 1 to 12), which the block barrier
-// before the stage is read makes visible.
-template <int LAYOUT, bool SHIFT>
+// stage `dst`, completing on `bar` (sizes in elements of TJ, kVec<TJ> = V in
+// 16 bytes).  Flat layout: by TMA (vw = V), one copy a run, the up and the
+// down block by threads 0 and 32 (1 in a one-warp block), or one a row
+// (thread r); thread 0 announces the bytes, G n^2 elements; else copies of vw
+// elements by every thread, each arriving once its copies have landed: by
+// cp.async where they are 4 or 8 bytes, by plain loads and stores (one bf16)
+// with a plain arrival.  SHIFT (square layouts): each run at its shift, its
+// interior by TMA (threads 0 and 32 again; thread 0 announces the interiors'
+// bytes) and its ends, up to V - 1 elements each, by plain copies (threads 1
+// to 4 (V - 1)), which the block barrier before the stage is read makes
+// visible.
+template <typename TJ, int LAYOUT, bool SHIFT>
 __device__ __forceinline__ void issue_stage(const Params& pr, const StageRows& sr, int b, int k,
-                                            int d0, float* dst, uint64_t* bar, int tid, int T) {
+                                            int d0, TJ* dst, uint64_t* bar, int tid, int T) {
+  constexpr int V = kVec<TJ>, E = (int)sizeof(TJ);
   const RowBlocks& rb = pr.rb;
   const int nu = pr.nu, nd = pr.nd, n = nu + nd, gn = pr.G * n;
   const int s_dn = sr.s_dn, s_row = sr.s_row;
   const long bk = (long)b * pr.K + k;
-  const float* up = pr.ju + bk * rb.up_bk + d0 * rb.up_d;
-  const float* dn = pr.jd + bk * rb.dn_bk + d0 * rb.dn_d;
+  const TJ* up = static_cast<const TJ*>(pr.ju) + bk * rb.up_bk + d0 * rb.up_d;
+  const TJ* dn = static_cast<const TJ*>(pr.jd) + bk * rb.dn_bk + d0 * rb.dn_d;
   const int tid2 = T > 32 ? 32 : 1;  // the second copying thread
   if constexpr (SHIFT) {
     const int sh_u = run_shift(up), sh_d = nd ? run_shift(dn) : 0;
     const int len_u = gn * nu, len_d = gn * nd;
-    const int head_u = min((4 - sh_u) & 3, len_u), head_d = min((4 - sh_d) & 3, len_d);
-    const int in_u = (len_u - head_u) & ~3, in_d = (len_d - head_d) & ~3;
-    float *to_u = dst + sh_u, *to_d = dst + s_dn + sh_d;
-    if (tid == 0) mbar_expect(bar, 4u * (in_u + in_d));
-    if (tid == 0 && in_u) bulk_copy(to_u + head_u, up + head_u, 4u * in_u, bar);
-    if (tid == tid2 && in_d) bulk_copy(to_d + head_d, dn + head_d, 4u * in_d, bar);
-    const int e = tid - 1;  // threads 1 .. 12: up to 3 floats before and 3 after each run
-    if (e >= 0 && e < 12) {
-      const bool u = e < 6;
-      const int i = e % 6, head = u ? head_u : head_d, inner = u ? in_u : in_d;
+    const int head_u = min((V - sh_u) & (V - 1), len_u), head_d = min((V - sh_d) & (V - 1), len_d);
+    const int in_u = (len_u - head_u) & ~(V - 1), in_d = (len_d - head_d) & ~(V - 1);
+    TJ *to_u = dst + sh_u, *to_d = dst + s_dn + sh_d;
+    if (tid == 0) mbar_expect(bar, (uint32_t)E * (in_u + in_d));
+    if (tid == 0 && in_u) bulk_copy(to_u + head_u, up + head_u, (uint32_t)E * in_u, bar);
+    if (tid == tid2 && in_d) bulk_copy(to_d + head_d, dn + head_d, (uint32_t)E * in_d, bar);
+    // threads 1 .. 4 (V - 1): up to V - 1 elements before and V - 1 after each run
+    const int e = tid - 1, ends = 2 * (V - 1);
+    if (e >= 0 && e < 2 * ends) {
+      const bool u = e < ends;
+      const int i = e % ends, head = u ? head_u : head_d, inner = u ? in_u : in_d;
       const int tail = (u ? len_u : len_d) - head - inner;
-      const int at = i < 3 ? (i < head ? i : -1) : (i - 3 < tail ? head + inner + i - 3 : -1);
-      if (at >= 0) (u ? to_u : to_d)[at] = __ldg((u ? up : dn) + at);
+      const int at = i < V - 1 ? (i < head ? i : -1)
+                               : (i - (V - 1) < tail ? head + inner + i - (V - 1) : -1);
+      if (at >= 0) (u ? to_u : to_d)[at] = (u ? up : dn)[at];
     }
     return;
   }
-  if (rb.vw == 4) {
-    if (tid == 0) mbar_expect(bar, 4u * gn * n);
+  if (rb.vw == V) {
+    if (tid == 0) mbar_expect(bar, (uint32_t)E * gn * n);
     if (rb.runs) {
-      if (tid == 0) bulk_copy(dst, up, 4u * gn * nu, bar);
-      if (tid == tid2 && nd) bulk_copy(dst + s_dn, dn, 4u * gn * nd, bar);
+      if (tid == 0) bulk_copy(dst, up, (uint32_t)E * gn * nu, bar);
+      if (tid == tid2 && nd) bulk_copy(dst + s_dn, dn, (uint32_t)E * gn * nd, bar);
     } else {
       for (int r = tid; r < n; r += T)
         bulk_copy(r < nu ? dst + r * s_row : dst + s_dn + (r - nu) * s_row,
-                  r < nu ? up + r * rb.row : dn + (r - nu) * rb.row, 4u * gn, bar);
+                  r < nu ? up + r * rb.row : dn + (r - nu) * rb.row, (uint32_t)E * gn, bar);
     }
     return;
   }
-  const int v = (int)rb.vw;
+  const int v = (int)rb.vw, bytes = v * E;
+  const auto copy = [&](TJ* to, const TJ* from) {
+    if (bytes == 8)
+      cp_async<8>(to, from);
+    else if (bytes == 4)
+      cp_async<4>(to, from);
+    else
+      *to = *from;  // one bf16
+  };
   if (rb.runs) {
     const int cu = gn * nu / v, cd = gn * nd / v;  // copies of the up and the down run
-    for (int e = tid; e < cu + cd; e += T) {
-      float* to = e < cu ? dst + e * v : dst + s_dn + (e - cu) * v;
-      const float* from = e < cu ? up + e * v : dn + (long)(e - cu) * v;
-      if (v == 2)
-        cp_async<8>(to, from);
-      else
-        cp_async<4>(to, from);
-    }
+    for (int e = tid; e < cu + cd; e += T)
+      copy(e < cu ? dst + e * v : dst + s_dn + (e - cu) * v,
+           e < cu ? up + e * v : dn + (long)(e - cu) * v);
   } else {
     const int cr = gn / v;  // copies a row
     for (int e = tid; e < n * cr; e += T) {
       const int r = e / cr, c = (e % cr) * v;
-      float* to = (r < nu ? dst + r * s_row : dst + s_dn + (r - nu) * s_row) + c;
-      const float* from = (r < nu ? up + r * rb.row : dn + (r - nu) * rb.row) + c;
-      if (v == 2)
-        cp_async<8>(to, from);
-      else
-        cp_async<4>(to, from);
+      copy((r < nu ? dst + r * s_row : dst + s_dn + (r - nu) * s_row) + c,
+           (r < nu ? up + r * rb.row : dn + (r - nu) * rb.row) + c);
     }
   }
-  cp_async_arrive(bar);
+  if (bytes >= 4)
+    cp_async_arrive(bar);
+  else
+    mbar_arrive(bar);
 }
 
 // The shifts (up, down) of the runs of determinants d0 .. of walker b, the
 // same for every direction; 0 without SHIFT.
-template <bool SHIFT>
+template <typename TJ, bool SHIFT>
 __device__ __forceinline__ int2 run_shifts(const Params& pr, int b, int d0) {
   if constexpr (!SHIFT) return make_int2(0, 0);
   const long b0 = (long)b * pr.K;
-  return make_int2(run_shift(pr.ju + b0 * pr.rb.up_bk + d0 * pr.rb.up_d),
-                   pr.nd ? run_shift(pr.jd + b0 * pr.rb.dn_bk + d0 * pr.rb.dn_d) : 0);
+  return make_int2(
+      run_shift(static_cast<const TJ*>(pr.ju) + b0 * pr.rb.up_bk + d0 * pr.rb.up_d),
+      pr.nd ? run_shift(static_cast<const TJ*>(pr.jd) + b0 * pr.rb.dn_bk + d0 * pr.rb.dn_d) : 0);
 }
 
 // ---- the staged body (small n) ----
@@ -325,17 +382,18 @@ __host__ __device__ inline int staged_lanes(int n, int R) {
 }
 
 // Shared-memory plan of the staged body, in floats: S stages of `stage`
-// floats, A^-1 transposed [n][G n] (n > kRegInvN only: below, the lanes keep
+// Jacobian elements of `jbytes` bytes, A^-1 transposed [n][G n] (n > kRegInvN only: below, the lanes keep
 // their rows of A^-1 in registers), the rows of m [G n][n + 1] and the stages'
 // mbarriers (8 bytes each).
 struct StagedLayout {
   int invt, xm, bar, total;
 };
 
-__host__ __device__ inline StagedLayout staged_layout(int n, int G, int S, int stage) {
+__host__ __device__ inline StagedLayout staged_layout(int n, int G, int S, int stage,
+                                                     int jbytes) {
   StagedLayout L;
   const int gn = G * n;
-  L.invt = S * stage;
+  L.invt = S * stage * jbytes / 4;
   L.xm = L.invt + (n > kRegInvN ? n * gn : 0);
   L.bar = (L.xm + gn * (n + 1) + 1) / 2 * 2;
   L.total = L.bar + 2 * S;
@@ -343,14 +401,14 @@ __host__ __device__ inline StagedLayout staged_layout(int n, int G, int S, int s
 }
 
 // m[r][:] += a[r] J[rr][:] for one staged row J[rr][:] of a determinant
-template <int NMAX, int R, int VEC>
+template <int NMAX, int R, int VEC, typename TJ>
 __device__ __forceinline__ void add_row(float (&m)[R][NMAX], const float (&a)[R],
-                                        const float* row, int n) {
+                                        const TJ* row, int n) {
   if (VEC == 2) {
 #pragma unroll
     for (int c = 0; c < NMAX; c += 2) {
       if (c < n) {
-        const float2 jv = *reinterpret_cast<const float2*>(row + c);
+        const float2 jv = ld2(row + c);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           m[r][c] = fmaf(a[r], jv.x, m[r][c]);
@@ -362,7 +420,7 @@ __device__ __forceinline__ void add_row(float (&m)[R][NMAX], const float (&a)[R]
 #pragma unroll
     for (int c = 0; c < NMAX; ++c) {
       if (c < n) {
-        const float jv = row[c];
+        const float jv = ld1(row + c);
 #pragma unroll
         for (int r = 0; r < R; ++r) m[r][c] = fmaf(a[r], jv, m[r][c]);
       }
@@ -374,18 +432,19 @@ __device__ __forceinline__ void add_row(float (&m)[R][NMAX], const float (&a)[R]
 // In the flat and the square stage a determinant's down rows follow its up
 // rows at the same stride; only the square split stage needs a jump between
 // the two (an offset picked per row, so each row is loaded once).
-template <int NMAX, int R, int VEC, int LAYOUT, bool SHIFT>
+template <typename TJ, int NMAX, int R, int VEC, int LAYOUT, bool SHIFT>
 __global__ void __launch_bounds__(kStagedMaxThreads) fl_slogdet_staged_kernel(Params pr) {
   constexpr bool WITH_L = LAYOUT != kFlat;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int D = pr.D, K = pr.K, nu = pr.nu, nd = pr.nd, G = pr.G, S = pr.S;
   const int n = nu + nd, gn = G * n, ldx = n + 1;
-  const StageRows sr = stage_rows(LAYOUT, nu, nd, G, SHIFT);
+  const StageRows sr = stage_rows(LAYOUT, nu, nd, G, SHIFT, kVec<TJ>);
   const int stage = sr.stage, s_row = sr.s_row;
   const int L = staged_lanes(n, R);
-  const StagedLayout Lo = staged_layout(n, G, S, stage);
-  float *ring = sm, *invt = sm + Lo.invt, *xm = sm + Lo.xm;
+  const StagedLayout Lo = staged_layout(n, G, S, stage, (int)sizeof(TJ));
+  TJ* ring = reinterpret_cast<TJ*>(sm);
+  float *invt = sm + Lo.invt, *xm = sm + Lo.xm;
   const int groups = D / G;
   const int b = blockIdx.x / groups, d0 = (blockIdx.x % groups) * G;
   const int tid = threadIdx.x, T = blockDim.x;
@@ -393,20 +452,20 @@ __global__ void __launch_bounds__(kStagedMaxThreads) fl_slogdet_staged_kernel(Pa
   const bool act = dl < G;
 
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + Lo.bar);
-  init_ring(bars, S, SHIFT || pr.rb.vw == 4, T);
+  init_ring(bars, S, SHIFT || pr.rb.vw == kVec<TJ>, T);
   // A^-1 of the group, transposed: invt[r][dl n + i] = A_dl^-1[i][r]
   const float* inv_g = pr.inv + ((long)b * D + d0) * n * n;
   if (n > kRegInvN)
     for (int e = tid; e < gn * n; e += T) invt[e] = __ldg(inv_g + (e % gn) * n + e / gn);
   __syncthreads();  // the mbarriers are initialised
   for (int k = 0; k < S - 1 && k < K; ++k)
-    issue_stage<LAYOUT, SHIFT>(pr, sr, b, k, d0, ring + k * stage, bars + k, tid, T);
+    issue_stage<TJ, LAYOUT, SHIFT>(pr, sr, b, k, d0, ring + k * stage, bars + k, tid, T);
   uint32_t phase = 0;  // bit s: the parity of stage s's next fill
 
   const int dlc = act ? dl : 0;
   const float* xd = xm + dlc * n * ldx;  // the determinant's rows of m
   const int up_off = dlc * sr.s_up_d;  // row rr at up_off + rr s_row (+ jump if rr >= nu)
-  const int2 sh = run_shifts<SHIFT>(pr, b, d0);
+  const int2 sh = run_shifts<TJ, SHIFT>(pr, b, d0);
   const int jump =
       LAYOUT == kSquareSplit ? sr.s_dn + sh.y + dlc * sr.s_dn_d - nu * s_row - up_off - sh.x : 0;
   // small n: the lane's rows of A^-1 in registers for the whole block
@@ -428,7 +487,8 @@ __global__ void __launch_bounds__(kStagedMaxThreads) fl_slogdet_staged_kernel(Pa
     __syncthreads();  // ... and every thread is done with stage (k - 1) % S
     if (k + S - 1 < K) {
       const int s = (k + S - 1) % S;
-      issue_stage<LAYOUT, SHIFT>(pr, sr, b, k + S - 1, d0, ring + s * stage, bars + s, tid, T);
+      issue_stage<TJ, LAYOUT, SHIFT>(pr, sr, b, k + S - 1, d0, ring + s * stage, bars + s, tid,
+                                     T);
     }
     // rows i = l + L r of m = A^-1 J_k in registers
     float m[R][NMAX];
@@ -436,7 +496,7 @@ __global__ void __launch_bounds__(kStagedMaxThreads) fl_slogdet_staged_kernel(Pa
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int c = 0; c < NMAX; ++c) m[r][c] = 0.f;
-    const float* up = ring + sk * stage + up_off + sh.x;
+    const TJ* up = ring + sk * stage + up_off + sh.x;
     if constexpr (kRegInv) {
 #pragma unroll
       for (int rr = 0; rr < NMAX; ++rr) {
@@ -444,7 +504,7 @@ __global__ void __launch_bounds__(kStagedMaxThreads) fl_slogdet_staged_kernel(Pa
           float a[R];
 #pragma unroll
           for (int r = 0; r < R; ++r) a[r] = ainv[r][rr];
-          add_row<NMAX, R, VEC>(m, a, up + rr * s_row + (rr < nu ? 0 : jump), n);
+          add_row<NMAX, R, VEC, TJ>(m, a, up + rr * s_row + (rr < nu ? 0 : jump), n);
         }
       }
     } else {
@@ -455,7 +515,7 @@ __global__ void __launch_bounds__(kStagedMaxThreads) fl_slogdet_staged_kernel(Pa
           const int i = l + L * r;
           a[r] = i < n ? invt[rr * gn + dlc * n + i] : 0.f;
         }
-        add_row<NMAX, R, VEC>(m, a, up + rr * s_row + (rr < nu ? 0 : jump), n);
+        add_row<NMAX, R, VEC, TJ>(m, a, up + rr * s_row + (rr < nu ? 0 : jump), n);
       }
     }
     // the rows meet in the determinant's part of xm (one warp: no block barrier)
@@ -517,9 +577,9 @@ __global__ void __launch_bounds__(kStagedMaxThreads) fl_slogdet_staged_kernel(Pa
 // ---- the tiled body (large n) ----
 
 // Shared-memory plan of the tiled body, in floats: A^-1 transposed [n][np]
-// (np = n rounded up to 4, zero columns beyond n), S stages of `stage` floats
-// and 4 of slack (a thread's last columns read up to 3 floats past a row's
-// end), the tiles of m twice [np][64], m's diagonal twice [np], the warps'
+// (np = n rounded up to 4, zero columns beyond n), S stages of `stage`
+// Jacobian elements of `jbytes` bytes and 4 floats of slack (a thread's last
+// columns read up to 3 elements past a row's end), the tiles of m twice [np][64], m's diagonal twice [np], the warps'
 // sums and the stages' mbarriers.  Row r of m keeps its float4 chunk q at
 // chunk q ^ (r / 4 % 8) of a 64-float row, so the 8 threads of a quarter warp
 // (consecutive tj) writing their tiles' rows meet 8 different bank groups,
@@ -535,11 +595,11 @@ struct TiledLayout {
   int np, ring, xm, diag, red, bar, total;
 };
 
-__host__ __device__ inline TiledLayout tiled_layout(int n, int S, int stage) {
+__host__ __device__ inline TiledLayout tiled_layout(int n, int S, int stage, int jbytes) {
   TiledLayout L;
   L.np = (n + 3) / 4 * 4;
   L.ring = n * L.np;
-  L.xm = L.ring + S * stage + 4;
+  L.xm = L.ring + S * stage * jbytes / 4 + 4;
   L.diag = L.xm + 2 * L.np * kTileLd;
   L.red = L.diag + 2 * L.np;
   L.bar = L.red + kTiledMaxThreads / 32;
@@ -565,24 +625,24 @@ __device__ __forceinline__ int tile_col(int tj, int q, int nt) {
 // acc += A^-1[rows 4 ti ..][c] (x) J[c][columns of tj] for c in [c0, c1): `a`
 // points at column 4 ti of the transposed A^-1 (row stride np), `j` at row 0
 // of the stage's block (row stride s_row).
-template <int VEC>
-__device__ __forceinline__ void tile_rows(float (&acc)[4][4], const float* a, const float* j,
+template <int VEC, typename TJ>
+__device__ __forceinline__ void tile_rows(float (&acc)[4][4], const float* a, const TJ* j,
                                           int tj, int nt, int c0, int c1, int np, int s_row) {
 #pragma unroll 4
   for (int c = c0; c < c1; ++c) {
     const float4 av = *reinterpret_cast<const float4*>(a + c * np);
-    const float* jr = j + c * s_row;
+    const TJ* jr = j + c * s_row;
     float jv[4];
     if (VEC == 4) {
-      const float4 t = *reinterpret_cast<const float4*>(jr + 4 * tj);
+      const float4 t = ld4(jr + 4 * tj);
       jv[0] = t.x, jv[1] = t.y, jv[2] = t.z, jv[3] = t.w;
     } else if (VEC == 2) {
-      const float2 t0 = *reinterpret_cast<const float2*>(jr + 2 * tj);
-      const float2 t1 = *reinterpret_cast<const float2*>(jr + 2 * tj + 2 * nt);
+      const float2 t0 = ld2(jr + 2 * tj);
+      const float2 t1 = ld2(jr + 2 * tj + 2 * nt);
       jv[0] = t0.x, jv[1] = t0.y, jv[2] = t1.x, jv[3] = t1.y;
     } else {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) jv[q] = jr[4 * tj + q];
+      for (int q = 0; q < 4; ++q) jv[q] = ld1(jr + 4 * tj + q);
     }
     const float ai[4] = {av.x, av.y, av.z, av.w};
 #pragma unroll
@@ -595,19 +655,19 @@ __device__ __forceinline__ void tile_rows(float (&acc)[4][4], const float* a, co
 // LAYOUT kFlat: out = sum_k tr(m_k^2); else out = tr(A^-1 L) - sum_k tr(m_k^2).
 // The float2 instance (n = 42) may take registers enough for one block an SM:
 // ptxas otherwise holds it to 64 and spills.
-template <int VEC, int LAYOUT, bool SHIFT>
+template <typename TJ, int VEC, int LAYOUT, bool SHIFT>
 __global__ void __launch_bounds__(kTiledMaxThreads, VEC == 2 ? 1 : 2)
     fl_slogdet_tiled_kernel(Params pr) {
   constexpr bool WITH_L = LAYOUT != kFlat;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int D = pr.D, K = pr.K, nu = pr.nu, nd = pr.nd, S = pr.S, n = nu + nd;
-  const StageRows sr = stage_rows(LAYOUT, nu, nd, 1, SHIFT);
+  const StageRows sr = stage_rows(LAYOUT, nu, nd, 1, SHIFT, kVec<TJ>);
   const int stage = sr.stage, s_row = sr.s_row;
-  const TiledLayout Lo = tiled_layout(n, S, stage);
+  const TiledLayout Lo = tiled_layout(n, S, stage, (int)sizeof(TJ));
   const int np = Lo.np, nt = np / 4;
-  float *at = sm, *ring = sm + Lo.ring, *xm = sm + Lo.xm, *diag = sm + Lo.diag,
-        *red = sm + Lo.red;
+  TJ* ring = reinterpret_cast<TJ*>(sm + Lo.ring);
+  float *at = sm, *xm = sm + Lo.xm, *diag = sm + Lo.diag, *red = sm + Lo.red;
   const int b = blockIdx.x / D, d = blockIdx.x % D;
   const int tid = threadIdx.x, T = blockDim.x;
   const int ti = tid / nt, tj = tid % nt;  // the tile: rows 4 ti .., columns tile_col(tj, .)
@@ -615,14 +675,14 @@ __global__ void __launch_bounds__(kTiledMaxThreads, VEC == 2 ? 1 : 2)
   const long bd = (long)b * D + d;
 
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + Lo.bar);
-  init_ring(bars, S, SHIFT || pr.rb.vw == 4, T);
+  init_ring(bars, S, SHIFT || pr.rb.vw == kVec<TJ>, T);
   // at[c][i] = A^-1[i][c], zero for n <= i < np
   const float* inv_d = pr.inv + bd * n * n;
   for (int e = tid; e < n * n; e += T) at[(e % n) * np + e / n] = __ldg(inv_d + e);
   for (int e = tid; e < n * (np - n); e += T) at[(e / (np - n)) * np + n + e % (np - n)] = 0.f;
   __syncthreads();  // A^-1 and the mbarriers are ready
   for (int k = 0; k < S - 1 && k < K; ++k)
-    issue_stage<LAYOUT, SHIFT>(pr, sr, b, k, d, ring + k * stage, bars + k, tid, T);
+    issue_stage<TJ, LAYOUT, SHIFT>(pr, sr, b, k, d, ring + k * stage, bars + k, tid, T);
 
   float part = 0.f;  // the thread's share of tr(A^-1 L): la[e] = L[c][i] at e = c n + i
   if constexpr (WITH_L) {
@@ -637,7 +697,7 @@ __global__ void __launch_bounds__(kTiledMaxThreads, VEC == 2 ? 1 : 2)
   float acc[4][4];
   float q2 = 0.f;  // the thread's share of sum_k tr(m_k^2)
   const float* a = at + 4 * ti;
-  const int2 sh = run_shifts<SHIFT>(pr, b, d);
+  const int2 sh = run_shifts<TJ, SHIFT>(pr, b, d);
   const int dn_off = sr.s_dn - nu * s_row;  // row c >= nu of the stage at dn_off + c s_row
   for (int k = 0; k <= K; ++k) {
     if (k < K) {
@@ -650,7 +710,7 @@ __global__ void __launch_bounds__(kTiledMaxThreads, VEC == 2 ? 1 : 2)
     __syncthreads();
     if (k + S - 1 < K) {
       const int s = (k + S - 1) % S;
-      issue_stage<LAYOUT, SHIFT>(pr, sr, b, k + S - 1, d, ring + s * stage, bars + s, tid, T);
+      issue_stage<TJ, LAYOUT, SHIFT>(pr, sr, b, k + S - 1, d, ring + s * stage, bars + s, tid, T);
     }
     if (k > 0) {  // the traces of direction k - 1
       const float* x = xm + ((k - 1) & 1) * np * kTileLd;
@@ -677,9 +737,9 @@ __global__ void __launch_bounds__(kTiledMaxThreads, VEC == 2 ? 1 : 2)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
     if (act) {
-      const float* st = ring + (k % S) * stage;
-      tile_rows<VEC>(acc, a, st + sh.x, tj, nt, 0, nu, np, s_row);
-      tile_rows<VEC>(acc, a, st + dn_off + sh.y, tj, nt, nu, n, np, s_row);
+      const TJ* st = ring + (k % S) * stage;
+      tile_rows<VEC, TJ>(acc, a, st + sh.x, tj, nt, 0, nu, np, s_row);
+      tile_rows<VEC, TJ>(acc, a, st + dn_off + sh.y, tj, nt, nu, n, np, s_row);
       float* x = xm + (k & 1) * np * kTileLd;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -711,13 +771,13 @@ __global__ void __launch_bounds__(kTiledMaxThreads, VEC == 2 ? 1 : 2)
 
 // ---- launches ----
 
-long smem_bytes(int body, int n, int G, int S, int stage) {
-  const int floats =
-      body == kTiled ? tiled_layout(n, S, stage).total : staged_layout(n, G, S, stage).total;
+long smem_bytes(int body, int n, int G, int S, int stage, int jbytes) {
+  const int floats = body == kTiled ? tiled_layout(n, S, stage, jbytes).total
+                                    : staged_layout(n, G, S, stage, jbytes).total;
   return (long)floats * (long)sizeof(float);
 }
 
-template <int LAYOUT, bool SHIFT>
+template <typename TJ, int LAYOUT, bool SHIFT>
 int launch_body(const Params& pr, int B, int body, long smem, cudaStream_t stream) {
   const RowBlocks& rb = pr.rb;
   const int n = pr.nu + pr.nd;
@@ -731,26 +791,27 @@ int launch_body(const Params& pr, int B, int body, long smem, cudaStream_t strea
   if (body == kTiled) {
     if (pr.G != 1) return (int)cudaErrorInvalidValue;
     const int blocks = B * pr.D, threads = tiled_threads(n);
-    // a square layout's rows start at multiples of 4 (2) floats where n is and
-    // so are the pointers (then so is every shift); flat rows are padded to 4
-    if (LAYOUT == kFlat || (n % 4 == 0 && rb.align == 4))
-      return go(fl_slogdet_tiled_kernel<4, LAYOUT, SHIFT>, blocks, threads);
+    // a square layout's rows start at multiples of 4 (2) elements where n is
+    // and so are the pointers (then so is every shift); flat rows are padded
+    // to 16 bytes
+    if (LAYOUT == kFlat || (n % 4 == 0 && rb.align >= 4))
+      return go(fl_slogdet_tiled_kernel<TJ, 4, LAYOUT, SHIFT>, blocks, threads);
     if (n % 2 == 0 && rb.align >= 2)
-      return go(fl_slogdet_tiled_kernel<2, LAYOUT, SHIFT>, blocks, threads);
-    return go(fl_slogdet_tiled_kernel<1, LAYOUT, SHIFT>, blocks, threads);
+      return go(fl_slogdet_tiled_kernel<TJ, 2, LAYOUT, SHIFT>, blocks, threads);
+    return go(fl_slogdet_tiled_kernel<TJ, 1, LAYOUT, SHIFT>, blocks, threads);
   }
   if (body != kStaged || n > kStagedMaxN || pr.G * n > kStagedMaxThreads)
     return (int)cudaErrorInvalidValue;
-  // float2 rows where every staged row starts at an even float: n even (then
-  // so is every stage stride) and, in the square layouts, the pointers 8-byte
-  // aligned (then so is every shift)
+  // two elements a load where every staged row starts at an even element: n
+  // even (then so is every stage stride) and, in the square layouts, the
+  // pointers aligned to two elements (then so is every shift)
   const bool even = n % 2 == 0 && (LAYOUT == kFlat || rb.align >= 2);
   const int blocks = B * (pr.D / pr.G);
-#define FL_STAGED_CASE(N, R)                                                                 \
-  if (n <= N) {                                                                              \
-    const int threads = (pr.G * staged_lanes(n, R) + 31) / 32 * 32;                          \
-    return even ? go(fl_slogdet_staged_kernel<N, R, 2, LAYOUT, SHIFT>, blocks, threads)      \
-                : go(fl_slogdet_staged_kernel<N, R, 1, LAYOUT, SHIFT>, blocks, threads);     \
+#define FL_STAGED_CASE(N, R)                                                                  \
+  if (n <= N) {                                                                               \
+    const int threads = (pr.G * staged_lanes(n, R) + 31) / 32 * 32;                           \
+    return even ? go(fl_slogdet_staged_kernel<TJ, N, R, 2, LAYOUT, SHIFT>, blocks, threads)   \
+                : go(fl_slogdet_staged_kernel<TJ, N, R, 1, LAYOUT, SHIFT>, blocks, threads);  \
   }
   FL_STAGED_CASE(10, 3)  // H2O's 10 electrons: no padded columns
   FL_STAGED_CASE(16, 3)
@@ -760,27 +821,63 @@ int launch_body(const Params& pr, int B, int body, long smem, cudaStream_t strea
   return (int)cudaErrorInvalidValue;
 }
 
-template <int LAYOUT>
+template <typename TJ, int LAYOUT>
 int launch(const Params& pr, int B, int body, cudaStream_t stream) {
+  constexpr int V = kVec<TJ>;
   const RowBlocks& rb = pr.rb;
   const int n = pr.nu + pr.nd;
+  const auto pow2_to_v = [](long x) { return x >= 1 && x <= V && (x & (x - 1)) == 0; };
   if (n < 1 || n > 64 || pr.nu < 0 || pr.nd < 0 || pr.K < 1 || pr.G < 1 || pr.D % pr.G ||
-      pr.S < 2 || pr.S > 32 || rb.stage < 1 || !(rb.vw == 1 || rb.vw == 2 || rb.vw == 4) ||
-      !(rb.align == 1 || rb.align == 2 || rb.align == 4) ||
-      (rb.shift && (LAYOUT == kFlat || rb.up_bk % 4 || rb.dn_bk % 4)))
+      pr.S < 2 || pr.S > 32 || rb.stage < 1 || !pow2_to_v(rb.vw) || !pow2_to_v(rb.align) ||
+      (rb.shift && (LAYOUT == kFlat || rb.up_bk % V || rb.dn_bk % V)))
     return (int)cudaErrorInvalidValue;
-  const StageRows sr = stage_rows(LAYOUT, pr.nu, pr.nd, pr.G, rb.shift);
+  const StageRows sr = stage_rows(LAYOUT, pr.nu, pr.nd, pr.G, rb.shift, V);
   if (rb.s_up_d != sr.s_up_d || rb.s_dn != sr.s_dn || rb.s_dn_d != sr.s_dn_d ||
       rb.s_row != sr.s_row || rb.stage != sr.stage)
     return (int)cudaErrorInvalidValue;
-  const long smem = smem_bytes(body, n, pr.G, pr.S, sr.stage);
+  const long smem = smem_bytes(body, n, pr.G, pr.S, sr.stage, (int)sizeof(TJ));
   if constexpr (LAYOUT != kFlat)
-    if (rb.shift) return launch_body<LAYOUT, true>(pr, B, body, smem, stream);
-  return launch_body<LAYOUT, false>(pr, B, body, smem, stream);
+    if (rb.shift) return launch_body<TJ, LAYOUT, true>(pr, B, body, smem, stream);
+  return launch_body<TJ, LAYOUT, false>(pr, B, body, smem, stream);
 }
 
 int body_of(int layout, int n) {
   return n > (layout == kFlat ? kFlatMaxN : kSquareMaxN) ? kTiled : kStaged;
+}
+
+}  // namespace
+
+// The source is compiled twice, by two nvcc processes at once (ops/_cuda.py):
+// FL_SLOGDET_PART 1 instantiates the bf16 kernels behind one internal entry,
+// part 0 the float ones and the library's entries.
+#ifndef FL_SLOGDET_PART
+#define FL_SLOGDET_PART 0
+#endif
+
+extern "C" int fl_slogdet_bf16_launch(int layout, const void* params, int B, int body,
+                                      void* stream);
+
+#if FL_SLOGDET_PART == 1
+
+extern "C" int fl_slogdet_bf16_launch(int layout, const void* params, int B, int body,
+                                      void* stream) {
+  const Params& pr = *static_cast<const Params*>(params);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (layout == kFlat) return launch<__nv_bfloat16, kFlat>(pr, B, body, st);
+  if (layout == kSquare) return launch<__nv_bfloat16, kSquare>(pr, B, body, st);
+  return launch<__nv_bfloat16, kSquareSplit>(pr, B, body, st);
+}
+
+#else
+
+namespace {
+
+// jdtype: the Jacobian's element type, 0 float, 1 bf16
+template <int LAYOUT>
+int launch_typed(const Params& pr, int B, int body, int jdtype, cudaStream_t stream) {
+  if (jdtype == 0) return launch<float, LAYOUT>(pr, B, body, stream);
+  if (jdtype == 1) return fl_slogdet_bf16_launch(LAYOUT, &pr, B, body, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -791,42 +888,47 @@ extern "C" {
 int fl_slogdet_body(int layout, int n) { return body_of(layout, n); }
 
 // Shared-memory bytes of a block of `body` with G determinants, S stages of
-// `stage` floats.
-long fl_slogdet_smem_bytes(int body, int n, int G, int S, long stage) {
-  return smem_bytes(body, n, G, S, (int)stage);
+// `stage` Jacobian elements of `jbytes` bytes.
+long fl_slogdet_smem_bytes(int body, int n, int G, int S, long stage, int jbytes) {
+  return smem_bytes(body, n, G, S, (int)stage, jbytes);
 }
 
 // Each entry: body < 0 takes the body by n; G divides D (1 for the tiled
-// body), 2 <= S <= 32; `rows` points at the layout record (RowBlocks) of a
-// block of G determinants.
+// body), 2 <= S <= 32; jdtype the Jacobian's element type (0 float, 1 bf16);
+// `rows` points at the layout record (RowBlocks) of a block of G determinants,
+// in elements of that type.
 //
 // Kernel 2: flat row blocks; trq = sum_k tr(m_k^2).
-int fl_slogdet_traces_launch(const float* inv, const float* ju, const float* jd, float* jout,
+int fl_slogdet_traces_launch(const float* inv, const void* ju, const void* jd, float* jout,
                              float* trq, int B, int D, int K, int nu, int nd, int body, int G,
-                             int S, const void* rows, void* stream) {
+                             int S, int jdtype, const void* rows, void* stream) {
   const Params pr{inv, ju, jd, nullptr, jout, trq, D, K, nu, nd, G, S,
                   *static_cast<const RowBlocks*>(rows)};
-  return launch<kFlat>(pr, B, body < 0 ? body_of(kFlat, nu + nd) : body, (cudaStream_t)stream);
+  return launch_typed<kFlat>(pr, B, body < 0 ? body_of(kFlat, nu + nd) : body, jdtype,
+                             (cudaStream_t)stream);
 }
 
 // Kernel 3: the square Jacobian [B, K, D, n, n] whole; lout with tr(A^-1 L).
-int fl_slogdet_square_launch(const float* inv, const float* ja, const float* la, float* jout,
+int fl_slogdet_square_launch(const float* inv, const void* ja, const float* la, float* jout,
                              float* lout, int B, int D, int K, int n, int body, int G, int S,
-                             const void* rows, void* stream) {
+                             int jdtype, const void* rows, void* stream) {
   const Params pr{inv, ja, ja, la, jout, lout, D, K, n, 0, G, S,
                   *static_cast<const RowBlocks*>(rows)};
-  return launch<kSquare>(pr, B, body < 0 ? body_of(kSquare, n) : body, (cudaStream_t)stream);
+  return launch_typed<kSquare>(pr, B, body < 0 ? body_of(kSquare, n) : body, jdtype,
+                               (cudaStream_t)stream);
 }
 
 // Kernel 4: the square Jacobian in row blocks [B, K, D, nu, n], [B, K, D, nd, n].
-int fl_slogdet_square_split_launch(const float* inv, const float* ju, const float* jd,
+int fl_slogdet_square_split_launch(const float* inv, const void* ju, const void* jd,
                                    const float* la, float* jout, float* lout, int B, int D,
-                                   int K, int nu, int nd, int body, int G, int S,
+                                   int K, int nu, int nd, int body, int G, int S, int jdtype,
                                    const void* rows, void* stream) {
   const Params pr{inv, ju, jd, la, jout, lout, D, K, nu, nd, G, S,
                   *static_cast<const RowBlocks*>(rows)};
-  return launch<kSquareSplit>(pr, B, body < 0 ? body_of(kSquareSplit, nu + nd) : body,
-                              (cudaStream_t)stream);
+  return launch_typed<kSquareSplit>(pr, B, body < 0 ? body_of(kSquareSplit, nu + nd) : body,
+                                    jdtype, (cudaStream_t)stream);
 }
 
 }  // extern "C"
+
+#endif  // FL_SLOGDET_PART

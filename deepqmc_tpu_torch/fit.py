@@ -66,6 +66,7 @@ from .utils import (
     ConstantSchedule,
     InverseSchedule,
     resolve_device,
+    sampling_precision_ctx,
     set_true_fp32,
     split_dict,
     tree_map,
@@ -123,7 +124,8 @@ def eval_step(gen, hamil, wf, sampler, state, mol_idxs, ewm, std_ewm, update_ewm
     """One evaluation step; returns (state, ewm, std_ewm, E_loc ``[m, 1, B]``,
     stats), the molecules' walkers in one pass of the local energy (``R`` per
     walker).  ``eloc_walker_chunk`` as in :func:`.loss.compute_local_energy`."""
-    state, phys_conf, smpl_stats = sampler.sample(gen, state, mol_idxs)
+    with sampling_precision_ctx():
+        state, phys_conf, smpl_stats = sampler.sample(gen, state, mol_idxs)
     m = len(mol_idxs)
     E_loc, hamil_stats = compute_local_energy(hamil, wf, phys_conf.state(0),
                                               walker_chunk=eloc_walker_chunk)
@@ -161,14 +163,16 @@ def train_step(gen, sampler, opt, train_state: TrainState, mol_idxs, ewm, std_ew
     """One training step on the sampler's ``[m, S, B]`` grid; returns
     (train_state, ewm, std_ewm, E_loc ``[m, S, B]``, psi_ratio ``[m, S, S, B]``
     (None for one state), stats)."""
-    with torch.no_grad():
+    with torch.no_grad(), sampling_precision_ctx():
         smpl_state, phys_conf, smpl_stats = sampler.sample(gen, train_state.sampler, mol_idxs)
     idxs = mol_idxs.tolist()
     data = {'energy_ewm': _rows(ewm.mean, idxs), 'std_ewm': _rows(std_ewm.mean, idxs)}
     opt_state, E_loc, psi_ratio, stats = opt.step(train_state.opt, phys_conf,
                                                   walker_weights(smpl_state, mol_idxs), data)
     if not isinstance(opt, NoOptimizer):
-        with torch.no_grad():  # the parameters changed: refresh the cached psi
+        # the parameters changed: refresh the cached psi, at the sampling
+        # precision so the acceptance ratios stay unbiased
+        with torch.no_grad(), sampling_precision_ctx():
             smpl_state = sampler.update(smpl_state)
     ewm, std_ewm, stats = _energy_stats(
         E_loc, {**stats, **smpl_stats}, mol_idxs, ewm, std_ewm, update_ewm

@@ -59,7 +59,7 @@ import torch
 
 from . import fwdlap as fl
 from .physics import coulomb_force
-from .utils import chunk_size
+from .utils import chunk_size, matmul_precision
 
 __all__ = [
     'Q', 'evaluate_hf_force_ac_zv', 'evaluate_hf_force_ac_zvq', 'evaluate_hf_force_ac_zvzb',
@@ -107,9 +107,10 @@ def log_psi_tangents(wf, phys_conf, direction_chunk=None):
     pc = _cloned(phys_conf)
 
     def log_psi_fl(R):
-        with fl.use_plain_cores():
+        # the Jacobian levers and the 'highest' pin of fwdlap.forward_laplacian
+        with fl.use_plain_cores(), fl.jac_levers(), matmul_precision('highest'):
             out = wf(pc.replace(R=R, r=fl.FL.seed(pc.r))).log
-        return out.x, out.jac, out.lap
+            return out.x, out.jac, out.lap
 
     def tangents(e):
         (_, jac, _), tangent = torch.func.jvp(log_psi_fl, (pc.R,), (e,))

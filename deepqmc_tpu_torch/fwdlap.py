@@ -26,17 +26,88 @@ PsiFormer block) launch the hand-written kernels on the card.  Inside
 device: the forward-mode tangent pass of the force estimators (``force.py``)
 asks for that explicitly, since a ``ctypes`` kernel carries no tangent and its
 wrapper raises on one.
+
+Two precision levers of the JAX package act on the Jacobians (read from the
+environment once a pass, as :func:`jac_levers` says): ``DEEPQMC_TPU_JAC_DTYPE=
+bf16`` stores every Jacobian in bfloat16 between ops (each op's arithmetic
+still runs in the primal's dtype: an op reads :attr:`FL.jac` upcast, and the
+kernel-backed rules read :attr:`FL.stored_jac` as stored), and
+``DEEPQMC_TPU_JAC_MATMUL=bf16`` (by default on with a bf16 store) contracts
+the Jacobian side of a product with both operands in bfloat16 and float32
+accumulation.  The primal and the Laplacian never drop precision.  The port's
+default is neither, on the CPU and on the card.
 """
 
 import contextlib
 import contextvars
+import os
 from collections.abc import Sequence
+from typing import NamedTuple, Optional
 
 import torch
 
-__all__ = ['FL', 'is_fl', 'use_plain_cores']
+from .utils import matmul_precision
+
+__all__ = ['FL', 'Levers', 'is_fl', 'jac_levers', 'use_plain_cores']
 
 _PLAIN_CORES = contextvars.ContextVar('plain_cores', default=False)
+
+
+class Levers(NamedTuple):
+    """The Jacobian levers of a pass: the store dtype (None: the primal's) and
+    whether Jacobian contractions run in bfloat16."""
+
+    store: Optional[torch.dtype] = None
+    bf16_matmul: bool = False
+
+
+_LEVERS = contextvars.ContextVar('jac_levers', default=Levers())
+
+
+def jac_store_dtype() -> Optional[torch.dtype]:
+    """``DEEPQMC_TPU_JAC_DTYPE``: bf16 (or bfloat16) stores the Jacobians in
+    bfloat16; f32, float32, native, off, highest or unset keep the primal's
+    dtype (``deepqmc_tpu/fwdlap.py`` ``_jac_store_dtype``, whose accelerator
+    default is bf16; the port's is the compute dtype everywhere)."""
+    name = os.environ.get('DEEPQMC_TPU_JAC_DTYPE', '').lower()
+    return torch.bfloat16 if name in ('bf16', 'bfloat16') else None
+
+
+def jac_matmul_bf16() -> bool:
+    """``DEEPQMC_TPU_JAC_MATMUL``: bf16 (or bfloat16) on, f32, float32,
+    native, off or highest off; unset follows the store
+    (``deepqmc_tpu/fwdlap.py`` ``_jac_matmul_bf16``)."""
+    name = os.environ.get('DEEPQMC_TPU_JAC_MATMUL', '').lower()
+    if name in ('bf16', 'bfloat16'):
+        return True
+    if name in ('f32', 'float32', 'native', 'off', 'highest'):
+        return False
+    return jac_store_dtype() is not None
+
+
+@contextlib.contextmanager
+def jac_levers(levers: Optional[Levers] = None):
+    """Within the block, FL values take ``levers`` (by default as the
+    environment says); :func:`forward_laplacian` enters it for each pass."""
+    if levers is None:
+        levers = Levers(jac_store_dtype(), jac_matmul_bf16())
+    token = _LEVERS.set(levers)
+    try:
+        yield
+    finally:
+        _LEVERS.reset(token)
+
+
+def levers() -> Levers:
+    """The Jacobian levers in force here."""
+    return _LEVERS.get()
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (nearest even) and back to its dtype: a bf16
+    operand in the arithmetic of ``t``'s dtype, whose products are exact in
+    float32."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
 
 @contextlib.contextmanager
@@ -74,13 +145,29 @@ def _for_jac(c, xdim: int):
     return c.unsqueeze(1)
 
 
+def bf16_jac_contraction(v: 'FL') -> bool:
+    """Whether a contraction of ``v``'s Jacobian runs with bfloat16 operands:
+    the contraction lever is on and the Jacobian is stored in bfloat16, as
+    ``deepqmc_tpu/fwdlap.py`` ``_dot_general_rule`` decides."""
+    return _LEVERS.get().bf16_matmul and v.stored_jac.dtype == torch.bfloat16
+
+
 class FL:
     """A value with its Jacobian ``[B, K, *s]`` and Laplacian ``[B, *s]``."""
 
-    __slots__ = ('x', 'jac', 'lap')
+    __slots__ = ('x', 'stored_jac', 'lap')
 
     def __init__(self, x: torch.Tensor, jac: torch.Tensor, lap: torch.Tensor):
-        self.x, self.jac, self.lap = x, jac, lap
+        store = _LEVERS.get().store
+        if store is not None and jac.dtype != store and jac.is_floating_point():
+            jac = jac.to(store)
+        self.x, self.stored_jac, self.lap = x, jac, lap
+
+    @property
+    def jac(self) -> torch.Tensor:
+        """The Jacobian in the primal's dtype (upcast where it is stored lower)."""
+        jac = self.stored_jac
+        return jac if jac.dtype == self.x.dtype else jac.to(self.x.dtype)
 
     @classmethod
     def seed(cls, x: torch.Tensor) -> 'FL':
@@ -109,10 +196,10 @@ class FL:
 
     def _full(self, shape):
         """The triple broadcast to the primal ``shape`` (views, no copies)."""
-        B, K = self.jac.shape[:2]
+        B, K = self.stored_jac.shape[:2]
         return FL(
             self.x.expand(shape),
-            self.jac.expand(B, K, *shape[1:]),
+            self.stored_jac.expand(B, K, *shape[1:]),
             self.lap.expand(shape),
         )
 
@@ -144,10 +231,17 @@ class FL:
         return pow(self, p)
 
     def __matmul__(self, w: torch.Tensor):
-        """Right product with a constant matrix (a dense layer's weight)."""
+        """Right product with a constant matrix (a dense layer's weight); the
+        Jacobian side in bfloat16 where :func:`bf16_jac_contraction` says."""
         if is_fl(w) or w.dim() != 2:
             raise ValueError('FL @ w takes a constant 2-D w')
-        return FL(self.x @ w, self.jac @ w, self.lap @ w)
+        if bf16_jac_contraction(self):
+            # one bf16 GEMM with float32 accumulation; torch rounds its output
+            # to bfloat16, as the store would round JAX's float32 one
+            jac = self.stored_jac @ w.to(torch.bfloat16)
+        else:
+            jac = self.jac @ w
+        return FL(self.x @ w, jac, self.lap @ w)
 
     # --- structure ------------------------------------------------------------
 
@@ -159,7 +253,7 @@ class FL:
             idx = (idx,)
         if idx[0] is not Ellipsis:
             raise IndexError('FL indexing must start with ... (feature axes only)')
-        return FL(self.x[idx], self.jac[idx], self.lap[idx])
+        return FL(self.x[idx], self.stored_jac[idx], self.lap[idx])
 
     def sum(self, dim: int, keepdim: bool = False) -> 'FL':
         dim = _neg(dim)
@@ -175,21 +269,22 @@ class FL:
 
     def squeeze(self, dim: int) -> 'FL':
         dim = _neg(dim)
-        return FL(self.x.squeeze(dim), self.jac.squeeze(dim), self.lap.squeeze(dim))
+        return FL(self.x.squeeze(dim), self.stored_jac.squeeze(dim), self.lap.squeeze(dim))
 
     def transpose(self, dim0: int, dim1: int) -> 'FL':
         d0, d1 = _neg(dim0), _neg(dim1)
-        return FL(self.x.transpose(d0, d1), self.jac.transpose(d0, d1), self.lap.transpose(d0, d1))
+        return FL(self.x.transpose(d0, d1), self.stored_jac.transpose(d0, d1),
+                  self.lap.transpose(d0, d1))
 
     def flatten(self, start_dim: int, end_dim: int = -1) -> 'FL':
         s, e = _neg(start_dim), _neg(end_dim)
-        return FL(self.x.flatten(s, e), self.jac.flatten(s, e), self.lap.flatten(s, e))
+        return FL(self.x.flatten(s, e), self.stored_jac.flatten(s, e), self.lap.flatten(s, e))
 
     def unflatten(self, dim: int, sizes: Sequence[int]) -> 'FL':
         dim = _neg(dim)
         return FL(
             self.x.unflatten(dim, sizes),
-            self.jac.unflatten(dim, sizes),
+            self.stored_jac.unflatten(dim, sizes),
             self.lap.unflatten(dim, sizes),
         )
 
@@ -198,7 +293,7 @@ class FL:
 
 
 def neg(v):
-    return FL(-v.x, -v.jac, -v.lap) if is_fl(v) else -v
+    return FL(-v.x, -v.stored_jac, -v.lap) if is_fl(v) else -v
 
 
 def add(a, b):
@@ -212,7 +307,7 @@ def add(a, b):
         return FL(y, full.jac, full.lap)
     _same_rank(a, b)
     y = a.x + b.x
-    B, K = a.jac.shape[:2]
+    B, K = a.stored_jac.shape[:2]
     return FL(y, (a.jac + b.jac).expand(B, K, *y.shape[1:]), (a.lap + b.lap).expand(y.shape))
 
 
@@ -311,8 +406,9 @@ def amin(v, dim: int):
         return v.amin(dim)
     dim = _neg(dim)
     idx = v.x.argmin(dim, keepdim=True)
-    jdx = idx.unsqueeze(1).expand(idx.shape[0], v.jac.shape[1], *idx.shape[1:])
-    return FL(v.x.gather(dim, idx), v.jac.gather(dim, jdx), v.lap.gather(dim, idx)).squeeze(dim)
+    jdx = idx.unsqueeze(1).expand(idx.shape[0], v.stored_jac.shape[1], *idx.shape[1:])
+    return FL(v.x.gather(dim, idx), v.stored_jac.gather(dim, jdx),
+              v.lap.gather(dim, idx)).squeeze(dim)
 
 
 def log(v):
@@ -367,7 +463,7 @@ def cat(values: Sequence, dim: int):
     fls = [v for v in values if is_fl(v)]
     if not fls:
         return torch.cat([batched(v) for v in values], dim)
-    K = fls[0].jac.shape[1]
+    K = fls[0].stored_jac.shape[1]
 
     def full(v):
         if is_fl(v):
@@ -394,7 +490,22 @@ def tile(v, dim: int, n: int):
         shape[dim] = n
         return t.expand(shape)
 
-    return FL(expand(v.x), expand(v.jac), expand(v.lap)) if is_fl(v) else expand(v)
+    return FL(expand(v.x), expand(v.stored_jac), expand(v.lap)) if is_fl(v) else expand(v)
+
+
+def dot(v, w: torch.Tensor, dim: int = -1):
+    """The contraction ``(v * w).sum(dim)`` of ``v`` with a constant ``w``
+    (broadcast against the primal), a ``jnp.einsum`` in the JAX package: on
+    the Jacobian side ``w`` is rounded to bfloat16 where
+    :func:`bf16_jac_contraction` says (the products of two bf16 values are
+    exact in the primal's dtype, which accumulates them)."""
+    if not is_fl(v):
+        return (v * w).sum(dim)
+    dim = _neg(dim)
+    wj = _for_jac(w, v.ndim)
+    if bf16_jac_contraction(v):
+        wj = round_bf16(wj)
+    return FL((v.x * w).sum(dim), (v.jac * wj).sum(dim), (v.lap * w).sum(dim))
 
 
 def primal(v) -> torch.Tensor:
@@ -424,26 +535,35 @@ def mha_core(q2, k2, v2, num_heads: int, core=None, mask=None):
             logits = torch.where(mask, logits, -1e30)
         att = torch.einsum('bhij,bjhd->bihd', torch.softmax(logits, -1), v)
         return att.flatten(-2)
-    if mask is not None:
-        from functools import partial
+    if not all(is_fl(v) for v in (q2, k2, v2)):
+        raise ValueError('mha_core: q, k and v must all be FL or all be tensors')
+    from functools import partial
 
+    if mask is not None:
+        # the JAX package's masked branch is per primitive: its products
+        # follow the contraction rule of ``_dot_general_rule``
         from .ops.fl_attention import mha_core_fl_plain
 
+        low = bf16_jac_contraction(q2)
         core = partial(mha_core_fl_plain, mask=mask)
     elif core is None:
         from .ops.fl_attention import mha_core_fl, mha_core_fl_plain
 
+        # the kernel's bf16 Jacobian contractions (``_jac_bmm_low``)
+        low = _LEVERS.get().bf16_matmul and q2.dtype == torch.float32
         core = mha_core_fl_plain if uses_plain_cores() else mha_core_fl
-
-    if not all(is_fl(v) for v in (q2, k2, v2)):
-        raise ValueError('mha_core: q, k and v must all be FL or all be tensors')
+    else:
+        low = False
+    if low:  # the core's low mode; a core is called as before without it
+        core = partial(core, low=True)
 
     def heads(t):
         return t.unflatten(-1, (num_heads, -1))
 
     qkv = (q2, k2, v2)
     t, jt, lt = core(
-        *(heads(v.x) for v in qkv), *(heads(v.jac) for v in qkv), *(heads(v.lap) for v in qkv)
+        *(heads(v.x) for v in qkv), *(heads(v.stored_jac) for v in qkv),
+        *(heads(v.lap) for v in qkv),
     )
     return FL(t.flatten(-2), jt.flatten(-2), lt.flatten(-2))
 
@@ -465,8 +585,8 @@ def slogdet_flat_rows(up, down, n_det: int):
         raise ValueError('slogdet_flat_rows: both row blocks must be FL')
     sign, logdet, jout, lout = slogdet_fl_flat_split(
         torch.cat([up.x, down.x], dim=-2),
-        up.jac.contiguous(),
-        down.jac.contiguous(),
+        up.stored_jac.contiguous(),
+        down.stored_jac.contiguous(),
         torch.cat([up.lap, down.lap], dim=-2),
         n_det,
         plain=uses_plain_cores(),
@@ -488,7 +608,8 @@ def slogdet_flat(v, n_det: int):
         return slogdet_flat_op(v, n_det)
     nu = (v.shape[-2] + 1) // 2
     sign, logdet, jout, lout = slogdet_fl_flat_split(
-        v.x, v.jac[..., :nu, :].contiguous(), v.jac[..., nu:, :].contiguous(), v.lap, n_det,
+        v.x, v.stored_jac[..., :nu, :].contiguous(), v.stored_jac[..., nu:, :].contiguous(),
+        v.lap, n_det,
         plain=uses_plain_cores(),
     )
     return sign, FL(logdet, jout, lout)
@@ -524,7 +645,7 @@ def slogdet(v):
     if not is_fl(v):
         return slogdet_op(v)
     (v,), added = _square_blocks(v)
-    out = slogdet_fl_square(v.x, v.jac.contiguous(), v.lap.contiguous())
+    out = slogdet_fl_square(v.x, v.stored_jac.contiguous(), v.lap.contiguous())
     return _logdet_fl(*out, added)
 
 
@@ -546,8 +667,8 @@ def slogdet_rows(up, down):
     (up, down), added = _square_blocks(up, down)
     out = slogdet_fl_square_split(
         torch.cat([up.x, down.x], dim=-2),
-        up.jac.contiguous(),
-        down.jac.contiguous(),
+        up.stored_jac.contiguous(),
+        down.stored_jac.contiguous(),
         torch.cat([up.lap, down.lap], dim=-2),
     )
     return _logdet_fl(*out, added)
@@ -555,10 +676,16 @@ def slogdet_rows(up, down):
 
 def forward_laplacian(f):
     """LaplacianFactory: ``f`` maps electrons ``[B, n, 3]`` to ``log psi`` ``[B]``;
-    returns ``r -> (lap f(r) [B], grad f(r) [B, 3n])`` in one forward pass."""
+    returns ``r -> (lap f(r) [B], grad f(r) [B, 3n])`` in one forward pass.
+
+    The pass takes the Jacobian levers of the environment (:func:`jac_levers`)
+    and runs its float32 products at 'highest' whatever the context (the
+    sampling and gradient contexts never reach the local energy); the
+    gradient comes back in the primal's dtype."""
 
     def lap(r: torch.Tensor):
-        out = f(FL.seed(r))
-        return out.lap, out.jac
+        with jac_levers(), matmul_precision('highest'):
+            out = f(FL.seed(r))
+            return out.lap, out.jac
 
     return lap

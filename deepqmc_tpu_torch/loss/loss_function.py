@@ -51,7 +51,7 @@ import torch
 from ..nn import dense_layer_paths, instrumented
 from ..parallel import all_device_mean, get_process_count, sum_over_ranks
 from ..types import PhysicalConfiguration
-from ..utils import chunk_size, tree_map
+from ..utils import chunk_size, grad_precision_ctx, tree_map
 from ..wf.base import wf_states
 from .clip import clip_local_energy, clip_psi_ratio
 from .energy import (
@@ -250,10 +250,13 @@ class VMCLoss:
         cot = self.cotangent(weight, terms, data)
         _, confs = self._confs(phys_conf)
         grads, state_taps = [], []
-        for wf, paths, pc, c in zip(self.states, self.dense_paths, confs, cot.unbind(1)):
-            g, t = self._pull_back(wf, paths, pc, c.reshape(-1), taps)
-            grads.append(g)
-            state_taps.append(t)
+        # each state's forward and backward and the taps' backward, at the
+        # gradient's matmul precision (deepqmc_tpu/loss/loss_function.py)
+        with grad_precision_ctx():
+            for wf, paths, pc, c in zip(self.states, self.dense_paths, confs, cot.unbind(1)):
+                g, t = self._pull_back(wf, paths, pc, c.reshape(-1), taps)
+                grads.append(g)
+                state_taps.append(t)
         grads, state_taps = sum_over_ranks((grads, state_taps))
         if self.multi:
             return grads, state_taps if taps else None

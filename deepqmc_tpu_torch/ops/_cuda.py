@@ -1,7 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 The sources have a plain C interface and include no PyTorch header.  Each
-source is compiled by its own ``nvcc`` process, all started together, and the
+unit (a source, or a part of one: ``fl_slogdet.cu`` is built in two, its
+float and its bf16 kernels) is compiled by its own ``nvcc`` process, all
+started together, and the
 objects are linked into one shared library named after a hash of the sources
 and flags, under ``deepqmc_tpu_torch/_build/`` (listed in ``.gitignore``), so a
 stale library is never loaded.  The library is loaded with ``ctypes``; every
@@ -33,6 +35,13 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / '_build'
 SOURCES = ('fl_attention.cu', 'fl_slogdet.cu', 'fl_block.cu')
+# (source, its own nvcc flags): one compile each, all in parallel
+UNITS = (
+    ('fl_attention.cu', ()),
+    ('fl_slogdet.cu', ('-DFL_SLOGDET_PART=0',)),
+    ('fl_slogdet.cu', ('-DFL_SLOGDET_PART=1',)),
+    ('fl_block.cu', ()),
+)
 FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-Xcompiler', '-fPIC',
@@ -41,13 +50,13 @@ BUILD_TIMEOUT_S = 300
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURES = {
-    'fl_attention_launch': ([_P] * 12 + [_I] * 6 + [_P], _I),
-    'fl_attention_smem_bytes': ([_I] * 3, _L),
-    'fl_slogdet_traces_launch': ([_P] * 5 + [_I] * 8 + [_P] * 2, _I),
-    'fl_slogdet_square_launch': ([_P] * 5 + [_I] * 7 + [_P] * 2, _I),
-    'fl_slogdet_square_split_launch': ([_P] * 6 + [_I] * 8 + [_P] * 2, _I),
+    'fl_attention_launch': ([_P] * 12 + [_I] * 8 + [_P], _I),
+    'fl_attention_smem_bytes': ([_I] * 4, _L),
+    'fl_slogdet_traces_launch': ([_P] * 5 + [_I] * 9 + [_P] * 2, _I),
+    'fl_slogdet_square_launch': ([_P] * 5 + [_I] * 8 + [_P] * 2, _I),
+    'fl_slogdet_square_split_launch': ([_P] * 6 + [_I] * 9 + [_P] * 2, _I),
     'fl_slogdet_body': ([_I] * 2, _I),
-    'fl_slogdet_smem_bytes': ([_I] * 4 + [_L], _L),
+    'fl_slogdet_smem_bytes': ([_I] * 4 + [_L, _I], _L),
     'fl_block_launch': ([_P] * 15 + [_I] * 6 + [_P], _I),
     'fl_block_smem_bytes': ([_I] * 4, _L),
 }
@@ -75,6 +84,7 @@ def find_nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(' '.join(FLAGS).encode())
+    h.update(repr(UNITS).encode())
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -108,9 +118,9 @@ def _compile_and_link(nvcc: str, out: Path, verbose: bool):
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, procs = [], []
         extra = ('-Xptxas', '-v') if verbose else ()
-        for name in SOURCES:
-            obj = Path(tmp) / (Path(name).stem + '.o')
-            cmd = [nvcc, *FLAGS, *extra, '-c', str(CSRC / name), '-o', str(obj)]
+        for i, (name, unit_flags) in enumerate(UNITS):
+            obj = Path(tmp) / f'{Path(name).stem}_{i}.o'
+            cmd = [nvcc, *FLAGS, *unit_flags, *extra, '-c', str(CSRC / name), '-o', str(obj)]
             procs.append((name, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )))

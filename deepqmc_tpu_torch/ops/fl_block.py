@@ -50,11 +50,15 @@ def takes(x) -> bool:
 
 def psiformer_block_fl_plain(x, J, L, wq, wk, wv, wo, w1, b1, w2, b2, num_heads: int):
     """Plain PyTorch version of the kernel: the port's FL rules composed with
-    :func:`~.fl_attention.mha_core_fl_plain`.  The CPU path and the kernel's oracle."""
-    h = fl.FL(x, J, L)
-    att = h + fl.mha_core(h @ wq, h @ wk, h @ wv, num_heads, core=mha_core_fl_plain) @ wo
-    y = att + fl.tanh(fl.tanh(att @ w1 + b1) @ w2 + b2)
-    return y.x, y.jac, y.lap
+    :func:`~.fl_attention.mha_core_fl_plain`.  The CPU path and the kernel's oracle.
+    Like the kernel, it keeps its Jacobians in the primal's dtype whatever the
+    Jacobian levers say (the JAX package's block rule upcasts its operands and
+    stores only its output); the caller's FL stores that output."""
+    with fl.jac_levers(fl.Levers()):
+        h = fl.FL(x, J.to(x.dtype), L)
+        att = h + fl.mha_core(h @ wq, h @ wk, h @ wv, num_heads, core=mha_core_fl_plain) @ wo
+        y = att + fl.tanh(fl.tanh(att @ w1 + b1) @ w2 + b2)
+        return y.x, y.jac, y.lap
 
 
 def validate(x, J, L, wq, wk, wv, wo, w1, b1, w2, b2, num_heads: int):

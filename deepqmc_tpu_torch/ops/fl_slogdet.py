@@ -24,6 +24,11 @@ tensor, or raises:
 The square kernels return the Laplacian with its linear term tr(A_d^-1 L_d),
 as the TPU kernels do; the flat one returns sum_k tr(m_k^2) only.
 
+The Jacobian operands may be stored in bfloat16 (``DEEPQMC_TPU_JAC_DTYPE=
+bf16``): the kernels read them so (the stages hold bf16, half the bytes) and
+widen each value as they load it; the plain versions upcast them.  The
+inverse, the Laplacian and the outputs stay float32.
+
 All three launch one of two bodies of the library, picked by n
 (``fl_slogdet_body``): the staged body (a block per walker and group of G
 determinants) at small n, the tiled body (a block per walker and
@@ -60,7 +65,9 @@ MAX_N = 64  # electrons per determinant the kernels take (16 x 16 tiles in the t
 
 
 def _traces(inv, j):
-    """(tr(A^-1 J_k) [B, K, D], sum_k tr((A^-1 J_k)^2) [B, D]) on the square layout."""
+    """(tr(A^-1 J_k) [B, K, D], sum_k tr((A^-1 J_k)^2) [B, D]) on the square layout;
+    ``j`` in a lower dtype than ``inv`` is upcast."""
+    j = j.to(inv.dtype)
     jout = torch.einsum('bdij,bkdji->bkd', inv, j)
     m = torch.einsum('bdij,bkdjl->bkdil', inv, j)
     trq = torch.einsum('bkdij,bkdji->bd', m, m)
@@ -68,7 +75,8 @@ def _traces(inv, j):
 
 
 def slogdet_traces_plain(inv, ju, jd):
-    """(jout [B, K, D], trq [B, D]) from the inverse [B, D, n, n] and flat row blocks."""
+    """(jout [B, K, D], trq [B, D]) from the inverse [B, D, n, n] and flat row blocks
+    (upcast where they are stored lower)."""
     j = torch.cat([ju, jd], dim=-2)
     return _traces(inv, j.unflatten(-1, (inv.shape[1], -1)).movedim(-2, -3))
 
@@ -88,15 +96,23 @@ def square_split_traces_plain(inv, ju, jd, la):
 # --- input checks -------------------------------------------------------------
 
 
+JDTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the library's Jacobian element types
+
+
 def _check(inv, *named):
-    """Raise unless ``inv`` is [B, D, n, n] with n <= MAX_N and every operand is
-    float32 on its device, contiguous and of its shape."""
+    """Raise unless ``inv`` is [B, D, n, n] with n <= MAX_N, every operand is on
+    its device, contiguous and of its shape, and float32, but for the Jacobian
+    operands (named j*), which may all be bfloat16 instead."""
     B, D, n, _ = inv.shape
     if n > MAX_N:
         raise ValueError(f'fl_slogdet: n={n} > {MAX_N} electrons per determinant')
+    jdtype = named[0][1].dtype
+    if jdtype not in JDTYPES:
+        raise TypeError(f'fl_slogdet: the Jacobian must be float32 or bfloat16, got {jdtype}')
     for name, x, shape in (('inv', inv, (B, D, n, n)), *named):
-        if x.device != inv.device or x.dtype != torch.float32:
-            raise TypeError(f'fl_slogdet: {name} must be float32 on {inv.device}')
+        dtype = jdtype if name.startswith('j') else torch.float32
+        if x.device != inv.device or x.dtype != dtype:
+            raise TypeError(f'fl_slogdet: {name} must be {dtype} on {inv.device}')
         if tuple(x.shape) != shape:
             raise ValueError(f'fl_slogdet: {name} has shape {tuple(x.shape)}, want {shape}')
         if not x.is_contiguous():
@@ -147,7 +163,9 @@ Plan = collections.namedtuple('Plan', 'body G S')
 
 
 class RowBlocks(ctypes.Structure):
-    """The layout record of ``csrc/fl_slogdet.cu`` (``RowBlocks``), in floats.
+    """The layout record of ``csrc/fl_slogdet.cu`` (``RowBlocks``), in elements
+    of the Jacobian (floats, or bf16 values of a bf16 Jacobian: "4 floats"
+    below are then 8 of them, 16 bytes).
 
     In memory, determinant d's up row r of (walker b, direction k) lies at
     ``ju + (b K + k) up_bk + d up_d + r row``, its down rows likewise in
@@ -169,12 +187,13 @@ class RowBlocks(ctypes.Structure):
         'runs', 'vw', 'align', 'shift')]
 
 
-def _up4(x):
-    return -(-x // 4) * 4
+def _up(x, v):
+    return -(-x // v) * v
 
 
-def row_blocks(layout, D, nu, nd, G, align=16):
-    """The layout record of a block of G determinants; ``align``, the bytes
+def row_blocks(layout, D, nu, nd, G, align=16, esize=4):
+    """The layout record of a block of G determinants whose Jacobian has
+    elements of ``esize`` bytes (4 float32, 2 bfloat16); ``align``, the bytes
     both Jacobian pointers are aligned to (a power of 2), sets how wide a copy
     may be.  The flat stage keeps the group's G n columns of each row (rows
     padded to 4 floats); the square stages hold the group's runs as they lie
@@ -182,27 +201,28 @@ def row_blocks(layout, D, nu, nd, G, align=16):
     run from the first 4-float boundary after the up run.  (The kernels derive the
     stage half from the layout too, ``stage_rows``, and refuse a launch whose
     record disagrees.)"""
-    n = nu + nd
+    n, V = nu + nd, 16 // esize  # V: elements in 16 bytes
     if layout == FLAT:
-        Dn, ldr = D * n, _up4(G * n)
+        Dn, ldr = D * n, _up(G * n, V)
         rb = RowBlocks(nu * Dn, n, nd * Dn, n, Dn, n, nu * ldr, n, ldr, n * ldr,
-                       int(G == D and ldr == Dn), 1, align // 4, 0)
+                       int(G == D and ldr == Dn), 1, max(1, align // esize), 0)
     else:  # SQUARE is SQUARE_SPLIT with nu = n, nd = 0
         up_d, dn_d = nu * n, nd * n
-        rb = RowBlocks(D * up_d, up_d, D * dn_d, dn_d, n, up_d, 0, dn_d, n, 0, 1, 1, align // 4,
-                       0)
+        rb = RowBlocks(D * up_d, up_d, D * dn_d, dn_d, n, up_d, 0, dn_d, n, 0, 1, 1,
+                       max(1, align // esize), 0)
     # every start, in memory and in the stage, and every length a multiple of vw
     counts = [rb.up_bk, G * rb.up_d, G * n * nu if rb.runs else G * n]
     if not rb.runs:
         counts += [rb.row, rb.s_row]
     if nd:
         counts += [rb.dn_bk, G * rb.dn_d, rb.s_dn] + ([G * n * nd] if rb.runs else [])
-    rb.vw = next(v for v in (4, 2, 1) if 4 * v <= align and all(c % v == 0 for c in counts))
+    widths = [V >> i for i in range(V.bit_length())]  # V, V / 2, .., 1
+    rb.vw = next(v for v in widths if esize * v <= align and all(c % v == 0 for c in counts))
     if layout != FLAT:
-        rb.shift = int(rb.vw < 4 and rb.up_bk % 4 == 0 and rb.dn_bk % 4 == 0)
-        room = 3 if rb.shift else 0
-        rb.s_dn = _up4(G * nu * n + room)
-        rb.stage = rb.s_dn + (_up4(G * nd * n + room) if nd else 0)
+        rb.shift = int(rb.vw < V and rb.up_bk % V == 0 and rb.dn_bk % V == 0)
+        room = V - 1 if rb.shift else 0
+        rb.s_dn = _up(G * nu * n + room, V)
+        rb.stage = rb.s_dn + (_up(G * nd * n + room, V) if nd else 0)
     return rb
 
 
@@ -249,14 +269,16 @@ def tiled_stages(B, D, n, sms, limit, smem_bytes, sm_bytes=SM_SHARED_BYTES):
         min(want, sm_bytes // (smem_bytes(S) + BLOCK_RESERVED_BYTES)), S))
 
 
-def plan(layout, body, B, D, nu, nd, sms, limit, smem_bytes, sm_bytes=SM_SHARED_BYTES):
-    """The launch plan (body, G, S) of ``body`` for ``layout``; ``smem_bytes(body,
-    n, G, S, stage)`` is a block's shared memory (the library's
-    ``fl_slogdet_smem_bytes``)."""
+def plan(layout, body, B, D, nu, nd, sms, limit, smem_bytes, sm_bytes=SM_SHARED_BYTES,
+         esize=4):
+    """The launch plan (body, G, S) of ``body`` for ``layout`` with Jacobian
+    elements of ``esize`` bytes; ``smem_bytes(body, n, G, S, stage)`` is a
+    block's shared memory with stages of ``stage`` such elements (the
+    library's ``fl_slogdet_smem_bytes``)."""
     n = nu + nd
 
     def smem(G, S):
-        return smem_bytes(body, n, G, S, row_blocks(layout, D, nu, nd, G).stage)
+        return smem_bytes(body, n, G, S, row_blocks(layout, D, nu, nd, G, esize=esize).stage)
 
     if body == STAGED:
         if n > STAGED_MAX_N:
@@ -267,26 +289,26 @@ def plan(layout, body, B, D, nu, nd, sms, limit, smem_bytes, sm_bytes=SM_SHARED_
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_on(layout, B, D, nu, nd, device, body):
+def _plan_on(layout, B, D, nu, nd, device, body, esize):
     lib = _cuda.library()
     if body is None:
         body = lib.fl_slogdet_body(layout, nu + nd)
     props = torch.cuda.get_device_properties(device)
     return plan(layout, body, B, D, nu, nd, props.multi_processor_count, _cuda.smem_limit(),
-                lib.fl_slogdet_smem_bytes,
-                getattr(props, 'shared_memory_per_multiprocessor', SM_SHARED_BYTES))
+                lambda *args: lib.fl_slogdet_smem_bytes(*args, esize),
+                getattr(props, 'shared_memory_per_multiprocessor', SM_SHARED_BYTES), esize)
 
 
 _row_blocks_on = functools.lru_cache(maxsize=None)(row_blocks)  # one record per shape: host time
 
 
 def _align(*tensors):
-    """The largest of 16, 8, 4 bytes that every non-empty tensor's pointer is aligned to."""
+    """The largest of 16, 8, 4, 2 bytes that every non-empty tensor's pointer is aligned to."""
     bits = 0
     for t in tensors:
         if t.numel():
             bits |= t.data_ptr()
-    return 16 if bits % 16 == 0 else 8 if bits % 8 == 0 else 4
+    return next(a for a in (16, 8, 4, 2) if bits % a == 0)
 
 
 def _launch(counter, layout, entry, inv, jacobians, la, K, nu, nd, body):
@@ -294,19 +316,22 @@ def _launch(counter, layout, entry, inv, jacobians, la, K, nu, nd, body):
     (jout, out).  ``body`` None takes the body by n, as the library says."""
     _cuda.refuse_tangents(entry, inv, *jacobians, la)
     B, D, n, _ = inv.shape
+    jdtype, esize = jacobians[0].dtype, jacobians[0].element_size()
     jout = torch.empty((B, K, D), dtype=inv.dtype, device=inv.device)
     out = torch.empty((B, D), dtype=inv.dtype, device=inv.device)
     sizes = (nu, nd) if layout != SQUARE else (n,)
     with torch.cuda.device(inv.device):
-        p = _plan_on(layout, B, D, nu, nd, inv.device.index, body)
-        rows = _row_blocks_on(layout, D, nu, nd, p.G, _align(*jacobians))
+        p = _plan_on(layout, B, D, nu, nd, inv.device.index, body, esize)
+        rows = _row_blocks_on(layout, D, nu, nd, p.G, _align(*jacobians), esize)
         code = getattr(_cuda.library(), entry)(
             inv.data_ptr(), *(x.data_ptr() for x in jacobians),
             *((la.data_ptr(),) if la is not None else ()), jout.data_ptr(), out.data_ptr(),
-            B, D, K, *sizes, p.body, p.G, p.S, ctypes.addressof(rows), _cuda.stream(),
+            B, D, K, *sizes, p.body, p.G, p.S, JDTYPES[jdtype], ctypes.addressof(rows),
+            _cuda.stream(),
         )
     _cuda.check(code, entry)
     counter.launches += 1
+    counter.by_dtype[jdtype] += 1
     counter.last_plan = p
     return jout, out
 
@@ -343,9 +368,9 @@ def square_split_traces(inv, ju, jd, la, *, body=None):
                    (ju, jd), la, ju.shape[1], ju.shape[3], jd.shape[3], body)
 
 
-slogdet_traces.launches, slogdet_traces.last_plan = 0, None
-square_traces.launches, square_traces.last_plan = 0, None
-square_split_traces.launches, square_split_traces.last_plan = 0, None
+# launches, their split by Jacobian dtype, and the last launch's plan
+for _counter in (slogdet_traces, square_traces, square_split_traces):
+    _counter.launches, _counter.by_dtype, _counter.last_plan = 0, collections.Counter(), None
 
 
 # --- the FL log-determinant ---------------------------------------------------

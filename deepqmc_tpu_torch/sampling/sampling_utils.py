@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..physics import pairwise_diffs
+from ..utils import sampling_precision_ctx
 from ..wf.base import wf_states
 from .combined_samplers import (
     IdleNucleiSampler,
@@ -111,7 +112,7 @@ def equilibrate(
     psi_series: list[float] = []
     for step in steps:
         mol_idxs = molecule_idx_sampler.sample()
-        with torch.no_grad():
+        with torch.no_grad(), sampling_precision_ctx():
             state, phys_conf, stats = sampler.sample(gen, state, mol_idxs)
         yield step, state, mol_idxs, stats
         if allow_early_stopping:

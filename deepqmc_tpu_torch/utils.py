@@ -5,15 +5,20 @@ learning-rate schedules; the masked and weighted means over the global walker
 axis are in :mod:`.loss`), with the two tree helpers of the sampler states
 (dicts of tensors and ``Psi`` tuples)."""
 
+import contextlib
+import logging
 import os
 
 import torch
 
 __all__ = [
-    'ConstantSchedule', 'InverseSchedule', 'cuda_median_ms', 'flatten_dict', 'log_squeeze',
-    'multinomial_resampling', 'resolve_device', 'set_rows', 'split_dict', 'tree_map',
-    'tree_norm', 'tree_stack', 'triu_flat',
+    'ConstantSchedule', 'InverseSchedule', 'active_levers', 'cuda_median_ms', 'flatten_dict',
+    'grad_precision_ctx', 'log_squeeze', 'matmul_precision', 'multinomial_resampling',
+    'resolve_device', 'sampling_precision_ctx', 'set_rows', 'set_true_fp32', 'split_dict',
+    'tree_map', 'tree_norm', 'tree_stack', 'triu_flat',
 ]
+
+log = logging.getLogger(__name__)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -30,10 +35,100 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+# --- matmul precision: the JAX package's labels on PyTorch's settings ---------
+#
+# 'highest' is true float32, 'high' TF32 (10 mantissa bits; the TPU's 'high' is
+# 3-pass bf16, about 16), 'default' one bf16 pass (torch's 'medium').  The
+# port's default for every switch is 'highest'; the JAX package's accelerator
+# defaults were promoted by a LiH convergence A/B on a TPU, which does not
+# carry over to this card (``ab_lih_convergence.py`` is the gate for it).
+TORCH_PRECISION = {'highest': 'highest', 'high': 'high', 'default': 'medium'}
+
+
+def _torch_precision(label: str, switch: str) -> str:
+    if label not in TORCH_PRECISION:
+        raise ValueError(
+            f'{switch}={label!r}: want one of {sorted(TORCH_PRECISION)} or inherit'
+        )
+    return TORCH_PRECISION[label]
+
+
+@contextlib.contextmanager
+def matmul_precision(label: str, switch: str = 'matmul precision'):
+    """Float32 products at the JAX label ``label`` inside the block; saves and
+    restores ``torch.get_float32_matmul_precision()`` and
+    ``torch.backends.cuda.matmul.allow_tf32``, also on an exception.  Only the
+    precision API is written (torch raises once it and ``allow_tf32`` disagree)."""
+    saved, tf32 = torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
+    torch.set_float32_matmul_precision(_torch_precision(label, switch))
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved)
+        if torch.backends.cuda.matmul.allow_tf32 != tf32:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _precision_ctx(switch: str):
+    label = os.environ.get(switch, 'highest')
+    if label == 'inherit':
+        return contextlib.nullcontext()
+    _torch_precision(label, switch)  # an unknown label raises here, not on entry
+    return matmul_precision(label, switch)
+
+
+def sampling_precision_ctx():
+    """Matmul precision of the Metropolis and Langevin forwards, the psi refresh
+    after a step and equilibration (``deepqmc_tpu/utils.py``
+    ``sampling_precision_ctx``): ``DEEPQMC_TPU_SAMPLING_PRECISION`` =
+    highest (the port's default), high, default or inherit (the global pin
+    untouched).  The forward Laplacian pins 'highest' inside it."""
+    return _precision_ctx('DEEPQMC_TPU_SAMPLING_PRECISION')
+
+
+def grad_precision_ctx():
+    """Matmul precision of the pullback of log|psi| and of the KFAC taps
+    (``deepqmc_tpu/utils.py`` ``grad_precision_ctx``):
+    ``DEEPQMC_TPU_GRAD_PRECISION``, labels as :func:`sampling_precision_ctx`."""
+    return _precision_ctx('DEEPQMC_TPU_GRAD_PRECISION')
+
+
+def active_levers() -> dict:
+    """The precision switches set below true float32, by name (the Jacobian
+    contractions also where they follow a bf16 store by default)."""
+    env = os.environ
+    levers = {
+        name: env[name]
+        for name in ('DEEPQMC_TPU_MATMUL_PRECISION', 'DEEPQMC_TPU_SAMPLING_PRECISION',
+                     'DEEPQMC_TPU_GRAD_PRECISION')
+        if env.get(name, 'highest') not in ('highest', 'inherit')
+    }
+    from .fwdlap import jac_matmul_bf16, jac_store_dtype
+
+    if jac_store_dtype() is not None:
+        levers['DEEPQMC_TPU_JAC_DTYPE'] = 'bf16'
+    if jac_matmul_bf16():
+        levers['DEEPQMC_TPU_JAC_MATMUL'] = 'bf16'
+    return levers
+
+
 def set_true_fp32():
-    """Full-precision float32 products on the card: TF32 off for matmul and cuDNN."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """The global pin: float32 products at ``DEEPQMC_TPU_MATMUL_PRECISION``
+    (default highest, true float32; the JAX package's pin of the same name),
+    cuDNN's TF32 off.  Logs once which precision levers are on, if any."""
+    label = os.environ.get('DEEPQMC_TPU_MATMUL_PRECISION', 'highest')
+    torch.set_float32_matmul_precision(_torch_precision(label, 'DEEPQMC_TPU_MATMUL_PRECISION'))
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products (the Jacobian contraction lever) accumulate in float32
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    levers = active_levers()
+    if levers and not set_true_fp32.logged:
+        set_true_fp32.logged = True
+        log.info('precision levers below true float32: %s',
+                 ', '.join(f'{k}={v}' for k, v in levers.items()))
+
+
+set_true_fp32.logged = False
 
 
 def cuda_median_ms(fn, runs=20, warmup=3):

@@ -69,9 +69,9 @@ class ExponentialEnvelopes(nn.Module):
                 d = d[..., None, :]  # [B, n_s, 1, n_env]
             exponent = fl.softplus(zeta) * d if self.softplus_zeta else fl.abs(zeta * d)
         else:
-            # |zeta_e d|, zeta [(n_orb,) n_env, 3, 3]
+            # |zeta_e d|, zeta [(n_orb,) n_env, 3, 3]: an einsum in the JAX package
             dd = d[..., None, :, None, :] if self.per_orbital_exponent else d[..., :, None, :]
-            exponent = norm_safe((dd * zeta).sum(-1))
+            exponent = norm_safe(fl.dot(dd, zeta))
         if not self.per_orbital_exponent:
             exponent = exponent[..., None, :]  # [B, n_s, 1, n_env]
         return (pi * fl.exp(-exponent)).sum(-1)
