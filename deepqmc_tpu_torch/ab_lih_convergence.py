@@ -7,9 +7,14 @@ fixed step budget, then an evaluation from its last checkpoint.  It reports
 the evaluation's mean energy with its error (the spread of the step means)
 and the 10-MAD robust estimate, read as the JAX script reads them, and
 appends one JSON line per variant to ``runs/ab_lih_convergence.jsonl``.  A
-lever becomes a default of the port only once its variant lands within the
-errors of ``baseline`` (true float32 everywhere) at a matched budget on the
-card.
+variant with a lever on is evaluated a second time with every lever off
+(``LEVERS_OFF``, the ``*_levers_off`` keys): the levers also act on the
+evaluation's local energy, so its energy mixes the trained wavefunction's
+quality with the estimator's bias, and only the second one compares training
+with ``baseline``.  A lever becomes a default of the port only once its
+variant lands within the errors of ``baseline`` (true float32 everywhere) at
+a matched budget on the card.  ``samp_bf16`` runs on the CPU only: the card
+refuses the 'default' label (cuBLAS runs it as TF32).
 
     python -m deepqmc_tpu_torch.ab_lih_convergence [--steps N] [--variants a,b]
         [--seed S] [--device cpu]
@@ -31,7 +36,8 @@ import numpy as np
 
 from .utils import flatten_dict
 
-__all__ = ['VARIANTS', 'SampleLogger', 'final_energy', 'robust_energy']
+__all__ = ['LEVERS_OFF', 'VARIANTS', 'SampleLogger', 'final_energy', 'levers_on',
+           'robust_energy']
 
 # every pre-round-4 variant of the JAX script pins the round-4 levers off, so
 # the names keep their meaning (the same switches, whatever the defaults)
@@ -100,6 +106,10 @@ VARIANTS = {
 }
 
 REFERENCE = -8.07000  # LiH, the reference's tutorial (as the JAX script)
+# every switch at true float32: the second evaluation of a variant with a lever on
+LEVERS_OFF = {'DEEPQMC_TPU_SAMPLING_PRECISION': 'highest',
+              'DEEPQMC_TPU_GRAD_PRECISION': 'highest', 'DEEPQMC_TPU_JAC_DTYPE': 'f32',
+              'DEEPQMC_TPU_JAC_MATMUL': 'f32'}
 SINKS_OFF = ['task.metric_logger_constructor=null']
 SAMPLE_SINK = ['+task.h5_logger_constructor._target_='
                'deepqmc_tpu_torch.ab_lih_convergence.SampleLogger',
@@ -163,9 +173,16 @@ def run(cmd, env_extra, timeout):
         raise RuntimeError(f'{cmd[2]} exited with {proc.returncode}')
 
 
+def levers_on(env) -> bool:
+    """Whether the switches ``env`` put any product or store below true
+    float32 (unset switches are at the port's defaults, all true float32)."""
+    return any(v not in ('highest', 'inherit', 'f32') for v in env.values())
+
+
 def commands(wd, steps, eval_steps, pretrain_steps, inv_period, seed=None, device=None,
-             extra=()):
-    """(the training run's command line, the evaluation's) of one variant."""
+             extra=(), eval_suffix='_eval'):
+    """(the training run's command line, the evaluation's) of one variant;
+    the evaluation's workdir is ``wd`` with ``eval_suffix``."""
     base = [sys.executable, '-m', 'deepqmc_tpu_torch',
             *([f'--device={device}'] if device else [])]
     train = [*base, 'hamil/mol=LiH', 'task.electron_batch_size=1024', f'task.steps={steps}',
@@ -175,7 +192,7 @@ def commands(wd, steps, eval_steps, pretrain_steps, inv_period, seed=None, devic
              *SINKS_OFF, 'task.h5_logger_constructor=null', *extra, f'--workdir={wd}']
     evaluate = [*base, 'task=evaluate', f'task.restdir={wd}/training', f'+task.steps={eval_steps}',
                 '+task.fit_block_size=10', '+task.metric_logger_constructor=null',
-                *SAMPLE_SINK, f'--workdir={wd}_eval']
+                *SAMPLE_SINK, f'--workdir={wd}{eval_suffix}']
     return train, evaluate
 
 
@@ -193,6 +210,11 @@ def main(argv=None):
     p.add_argument('extra', nargs='*', help='further overrides of the training run')
     args = p.parse_args(argv)
     names = args.variants.split(',') if args.variants else list(VARIANTS)
+    if args.device != 'cpu':
+        refused = [n for n in names if 'default' in VARIANTS[n]['env'].values()]
+        if refused:
+            raise SystemExit(f'{", ".join(refused)}: the card refuses the precision label '
+                             "'default' (cuBLAS runs it as TF32); run it with --device cpu")
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     for name in names:
@@ -207,10 +229,20 @@ def main(argv=None):
         run(evaluate, spec['env'], timeout=3600)
         energy, err = final_energy(f'{wd}_eval')
         energy_rob, err_rob = robust_energy(f'{wd}_eval')
+        off = (energy, err, energy_rob, err_rob)
+        if levers_on(spec['env']):
+            _, evaluate_off = commands(wd, args.steps, args.eval_steps, args.pretrain_steps,
+                                       spec['inv_period'], args.seed, args.device, args.extra,
+                                       eval_suffix='_eval_off')
+            run(evaluate_off, LEVERS_OFF, timeout=3600)
+            off = (*final_energy(f'{wd}_eval_off'), *robust_energy(f'{wd}_eval_off'))
         row = {
             'variant': label, 'energy': energy, 'err': err,
             'dev_mha': (energy - REFERENCE) * 1e3,
             'energy_robust': energy_rob, 'err_robust': err_rob,
+            'energy_levers_off': off[0], 'err_levers_off': off[1],
+            'dev_mha_levers_off': (off[0] - REFERENCE) * 1e3,
+            'energy_robust_levers_off': off[2], 'err_robust_levers_off': off[3],
             'steps': args.steps, 'eval_steps': args.eval_steps,
             'pretrain_steps': args.pretrain_steps, 'train_seconds': round(train_s),
             'env': spec['env'], 'inv_period': spec['inv_period'],

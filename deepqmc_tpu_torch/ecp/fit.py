@@ -81,13 +81,18 @@ def _jacobian(fun, x, f0, diff_step):
 def least_squares(fun, x0, diff_step=1e-3, ftol=1e-12, xtol=1e-10, max_nfev=None, **_):
     """Minimise 0.5 |fun(x)|^2 by Levenberg-Marquardt on the forward-difference
     Jacobian, the variables scaled by its column norms (scipy's ``x_scale=
-    'jac'``); stops when a step lowers the cost by less than ``ftol`` of it or
-    moves x by less than ``xtol`` of |x|.  Returns ``.x``, ``.fun``, ``.nfev``."""
+    'jac'``); stops, as scipy's ``check_termination`` does, when an accepted
+    step lowers the cost by less than ``ftol`` of it, or when a step, taken or
+    refused, moves x by less than ``xtol`` of |x|: the residuals come from
+    self-consistent solves stopped at their own tolerance, so near the minimum
+    no step lowers the cost and the damping grows until the step vanishes.
+    Returns ``.x``, ``.fun``, ``.nfev``."""
     x = np.asarray(x0, dtype=float).copy()
     f = np.asarray(fun(x), dtype=float)
     nfev, lam = 1, 1e-3
     max_nfev = max_nfev or 100 * len(x)
-    while nfev < max_nfev:
+    done = False
+    while nfev < max_nfev and not done:
         jac = _jacobian(fun, x, f, diff_step)
         nfev += len(x)
         scale = np.maximum(np.linalg.norm(jac, axis=0), 1e-12)
@@ -97,19 +102,18 @@ def least_squares(fun, x0, diff_step=1e-3, ftol=1e-12, xtol=1e-10, max_nfev=None
         while nfev < max_nfev:
             ds = np.linalg.solve(jtj + lam * np.diag(np.diag(jtj) + 1e-12), -grad)
             dx = ds / scale
+            done = np.linalg.norm(dx) <= xtol * (xtol + np.linalg.norm(x))
             f_new = np.asarray(fun(x + dx), dtype=float)
             nfev += 1
             cost_new = 0.5 * f_new @ f_new
             if cost_new < cost:
                 lam = max(lam / 3.0, 1e-12)
+                x, f = x + dx, f_new
+                done = done or cost - cost_new <= ftol * cost
                 break
             lam *= 4.0
-        else:
-            break
-        small_step = np.linalg.norm(dx) <= xtol * (xtol + np.linalg.norm(x))
-        x, f = x + dx, f_new
-        if cost - cost_new <= ftol * cost or small_step:
-            break
+            if done:
+                break
     return SimpleNamespace(x=x, fun=f, nfev=nfev)
 
 

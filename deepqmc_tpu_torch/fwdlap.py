@@ -103,13 +103,6 @@ def levers() -> Levers:
     return _LEVERS.get()
 
 
-def round_bf16(t: torch.Tensor) -> torch.Tensor:
-    """``t`` rounded to bfloat16 (nearest even) and back to its dtype: a bf16
-    operand in the arithmetic of ``t``'s dtype, whose products are exact in
-    float32."""
-    return t.to(torch.bfloat16).to(t.dtype)
-
-
 @contextlib.contextmanager
 def use_plain_cores():
     """Within the block, every fused rule runs its kernel's plain PyTorch
@@ -504,6 +497,8 @@ def dot(v, w: torch.Tensor, dim: int = -1):
     dim = _neg(dim)
     wj = _for_jac(w, v.ndim)
     if bf16_jac_contraction(v):
+        from .ops.fl_attention import round_bf16
+
         wj = round_bf16(wj)
     return FL((v.x * w).sum(dim), (v.jac * wj).sum(dim), (v.lap * w).sum(dim))
 

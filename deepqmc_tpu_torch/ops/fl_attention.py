@@ -24,9 +24,15 @@ import functools
 import torch
 
 from . import _cuda
-from ..fwdlap import round_bf16
 
-__all__ = ['mha_core_fl', 'mha_core_fl_plain']
+__all__ = ['mha_core_fl', 'mha_core_fl_plain', 'round_bf16']
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (nearest even) and back to its dtype: a bf16
+    operand in the arithmetic of ``t``'s dtype, whose products are exact in
+    float32."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
 
 def _softmax_fl(z, Jz, Lz):

@@ -38,7 +38,8 @@ def resolve_device(device=None) -> torch.device:
 # --- matmul precision: the JAX package's labels on PyTorch's settings ---------
 #
 # 'highest' is true float32, 'high' TF32 (10 mantissa bits; the TPU's 'high' is
-# 3-pass bf16, about 16), 'default' one bf16 pass (torch's 'medium').  The
+# 3-pass bf16, about 16), 'default' one bf16 pass (torch's 'medium'; refused
+# where CUDA is present, as cuBLAS runs it as TF32).  The
 # port's default for every switch is 'highest'; the JAX package's accelerator
 # defaults were promoted by a LiH convergence A/B on a TPU, which does not
 # carry over to this card (``ab_lih_convergence.py`` is the gate for it).
@@ -49,6 +50,14 @@ def _torch_precision(label: str, switch: str) -> str:
     if label not in TORCH_PRECISION:
         raise ValueError(
             f'{switch}={label!r}: want one of {sorted(TORCH_PRECISION)} or inherit'
+        )
+    if label == 'default' and torch.cuda.is_available():
+        # measured on the H100 (chip_smoke.py, precision_path): a float32
+        # product under 'medium' has TF32's error, not bf16's
+        raise ValueError(
+            f"{switch}='default': cuBLAS runs float32 products under torch's 'medium' "
+            "as TF32, not in one bf16 pass, so the label would name a precision the "
+            "card does not run; use 'high' (TF32) or 'highest'"
         )
     return TORCH_PRECISION[label]
 
@@ -81,8 +90,9 @@ def sampling_precision_ctx():
     """Matmul precision of the Metropolis and Langevin forwards, the psi refresh
     after a step and equilibration (``deepqmc_tpu/utils.py``
     ``sampling_precision_ctx``): ``DEEPQMC_TPU_SAMPLING_PRECISION`` =
-    highest (the port's default), high, default or inherit (the global pin
-    untouched).  The forward Laplacian pins 'highest' inside it."""
+    highest (the port's default), high, default (refused where CUDA is
+    present) or inherit (the global pin untouched).  The forward Laplacian
+    pins 'highest' inside it."""
     return _precision_ctx('DEEPQMC_TPU_SAMPLING_PRECISION')
 
 

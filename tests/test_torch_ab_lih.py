@@ -81,3 +81,30 @@ def test_readers_parse_a_tiny_run(tiny_run, script):
                                rtol=1e-12)
     np.testing.assert_allclose(gate.robust_energy(run_dir), script.robust_energy(h5_dir),
                                rtol=1e-12)
+
+
+def test_a_variant_with_levers_is_evaluated_again_with_every_lever_off(monkeypatch, tmp_path):
+    calls = []
+    monkeypatch.setattr(gate, 'run', lambda cmd, env, timeout: calls.append((cmd, env)))
+    monkeypatch.setattr(gate, 'final_energy',
+                        lambda wd: (-8.0 if str(wd).endswith('_off') else -8.1, 1e-3))
+    monkeypatch.setattr(gate, 'robust_energy', lambda wd: (-8.05, 2e-4))
+    out = tmp_path / 'rows.jsonl'
+    gate.main(['--variants', 'r4_all,baseline', '--device', 'cpu', '--workdir', str(tmp_path),
+               '--out', str(out)])
+    (_, r4_env), (r4_eval, _), (r4_off, off_env), (_, _), (base_eval, _) = calls
+    assert r4_env == gate.VARIANTS['r4_all']['env'] and off_env == gate.LEVERS_OFF
+    assert r4_off[:-1] == r4_eval[:-1]  # the same evaluation of the same checkpoint
+    assert r4_off[-1] == f'--workdir={tmp_path / "r4_all"}_eval_off'
+    r4, base = (json.loads(line) for line in out.read_text().splitlines())
+    assert (r4['energy'], r4['energy_levers_off']) == (-8.1, -8.0)
+    # baseline has no lever on: its evaluation is the lever-off one
+    assert (base['energy'], base['energy_levers_off']) == (-8.1, -8.1)
+    assert [gate.levers_on(v['env']) for v in gate.VARIANTS.values()] == \
+        [False, False, True, True, True, True, True, True]
+
+
+def test_the_card_refuses_samp_bf16(tmp_path):
+    with pytest.raises(SystemExit, match="samp_bf16.*'default'"):
+        gate.main(['--variants', 'baseline,samp_bf16', '--workdir', str(tmp_path)])
+    assert not list(tmp_path.iterdir())  # refused before any run

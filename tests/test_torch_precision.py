@@ -82,6 +82,23 @@ def test_context_restores_after_an_exception_and_rejects_unknown_labels(monkeypa
         utils.grad_precision_ctx()
 
 
+@pytest.mark.parametrize('switch', ['DEEPQMC_TPU_SAMPLING_PRECISION',
+                                    'DEEPQMC_TPU_GRAD_PRECISION',
+                                    'DEEPQMC_TPU_MATMUL_PRECISION'])
+def test_default_label_is_refused_where_cuda_is_present(monkeypatch, switch):
+    """cuBLAS runs torch's 'medium' as TF32, so 'default' (one bf16 pass in
+    JAX) would run 'high' under another name on the card."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    monkeypatch.setenv(switch, 'default')
+    torch.set_float32_matmul_precision('highest')
+    call = {'DEEPQMC_TPU_SAMPLING_PRECISION': utils.sampling_precision_ctx,
+            'DEEPQMC_TPU_GRAD_PRECISION': utils.grad_precision_ctx,
+            'DEEPQMC_TPU_MATMUL_PRECISION': utils.set_true_fp32}[switch]
+    with pytest.raises(ValueError, match=f"{switch}='default'.*TF32"):
+        call()
+    assert torch.get_float32_matmul_precision() == 'highest'
+
+
 def test_global_pin_reads_the_matmul_precision_switch(monkeypatch):
     monkeypatch.setenv('DEEPQMC_TPU_MATMUL_PRECISION', 'high')
     utils.set_true_fp32()

@@ -13,7 +13,9 @@ import scipy, so ``fit_ecp_params`` takes the least-squares solver as an
 argument (a numpy Levenberg-Marquardt by default); held to the JAX fit at
 1e-10 it is given scipy's, as JAX's calls it, both cut to the same number of
 evaluations (scipy counts the Jacobian's apart).  The port's own solver is
-held to lower the fit's cost.
+held to lower the fit's cost, and run to its end against the JAX fit run to
+scipy's: the two stop at different points of the minimum's floor, which the
+self-consistent solves blur, so they agree to that blur, not to 1e-10.
 """
 
 import copy
@@ -33,6 +35,15 @@ from deepqmc_tpu_torch.ecp.data import get_ecp_params
 RTOL = 1e-10
 GRID = {'rmin': 1e-5, 'rmax': 40.0, 'n_grid': 160}
 FIT_GRID = {'rmin': 1e-5, 'rmax': 40.0, 'n_grid': 100}  # a fit solves the atom some 20 times
+# The fit's residuals (Ha) come from self-consistent solves stopped at |dE| <
+# 1e-9 and warm-started from the last converged density, so the same theta
+# gives residuals that differ by up to about 5e-7 Ha between two evaluations
+# (the carbon problem below, read near its minimum): two solvers stopped at
+# that floor agree to a few times it.  The flattest direction of the
+# objective is held only by the tether (0.03 of each theta's move), so their
+# theta agree to the residuals' bar over 0.03.
+FIT_RES_ATOL = 2e-6
+FIT_THETA_ATOL = FIT_RES_ATOL / 0.03
 
 
 @pytest.fixture(autouse=True)
@@ -146,3 +157,15 @@ def test_port_solver_lowers_the_cost(fit_problem):
         probe = radial_atom.solve_atom(6, occs_after, ecp_params=params, **FIT_GRID)
         res0.append(probe.e_total - start.e_total - d_ae)
     assert np.all(np.isfinite(res)) and np.sum(np.square(res)) < np.sum(np.square(res0))
+
+
+def test_port_solver_converges_to_the_jax_fit(fit_problem):
+    """The port's own solver and the JAX fit's scipy ``least_squares``, each
+    run to its stopping criteria, reach the same parameters and residuals."""
+    want, res_j = jax_fit.fit_ecp_params(6, *fit_problem, grid_kwargs=FIT_GRID)
+    got, res = fit.fit_ecp_params(6, *fit_problem, grid_kwargs=FIT_GRID)
+    theta, theta_j = (fit.pack_params(p[1], p[2]) for p in (got, want))
+    start = fit.pack_params(fit_problem[0][1], fit_problem[0][2])
+    assert np.abs(theta_j - start).max() > 100 * FIT_THETA_ATOL  # the fit moved theta
+    np.testing.assert_allclose(theta, theta_j, rtol=0, atol=FIT_THETA_ATOL)
+    np.testing.assert_allclose(res, res_j, rtol=0, atol=FIT_RES_ATOL)
