@@ -5,6 +5,9 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+or, for the device, build and trace phases alone,
+``python3 chip_smoke.py --only trace_path``.
+
 Phases, each with a start and an end line and its own time budget:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and CUDA;
@@ -287,7 +290,32 @@ Phases, each with a start and an end line and its own time budget:
    'highest') and one gradient under ``GRAD_PRECISION=high`` (against
    'highest', relative L2), the matmul precision 'highest' inside each local
    energy and after each context.  Then, printed and not gated, an
-   evaluation and a training step with every lever off and on.
+   evaluation step with every lever off and on and a training step with
+   every lever on (the trace path times the levers-off training steps).
+
+20. trace path: the port's spans (``deepqmc_tpu_torch.tracing``) against
+   ``torch.profiler``'s device trace.  The host clock: 20 launches into an
+   idle device over 1 s, each between two host times, must each find its
+   launch call in the trace between them.  The device's intervals may lie
+   earlier than their launches, by a lag that may grow (the card's timer
+   converted); ``qmcbench/program_spans.py`` estimates it from every launch
+   in the trace.  Moved later by it, a
+   ``torch.cuda._sleep`` kernel of about 10 ms launched in a span that then
+   synchronises must lie inside the span, and a device-idle gap must cover
+   at least 95 % of a span around a host-only ``time.sleep(0.02)`` between
+   two short kernels, starting within 50 us of the span's start and ending
+   no earlier than the span's end and the next launch call (the host's time
+   from the span's end to that call is printed, not bounded: it is the
+   profiler's and Python's overhead, 41-75 us).  Sync counting: 5
+   ``.item()`` calls in a span read ``syncs`` 5, a span of queued launches
+   alone 0.  Then 3 KFAC steps of the main path's model (fresh seed-0
+   weights, 2048 walkers, decorr 10) through ``fit.train`` with tracing on:
+   each step's span tree holds the sampling (10 moves), the local energy,
+   the gradient, KFAC (its inverses on step 0 only, period 5) and the psi
+   refresh, and its ``step`` span the launches of one local energy (4
+   attention, 1 flat slogdet).  It prints the clock offsets, the syncs of
+   each span, ``tracing.summary()`` and the three steps' times (the
+   precision path's levers-off training timing, taken here).
 
 The kernels phase also takes kernel 2 (and the square kernels) at the
 deeperwin path's shape, B = 2048, K = 30, D = 32, n = 10 split 5/5, and
@@ -318,7 +346,7 @@ PHASE_BUDGET_S = {
     'square_path': 120, 'train_path': 240, 'sampling_path': 240, 'run_path': 300,
     'zoo_path': 300, 'excited_path': 240, 'cli_path': 240, 'force_path': 240, 'ecp_path': 240,
     'benzene_path': 240, 'deeperwin_path': 180, 'mol_batch_path': 150, 'dp_path': 150,
-    'precision_path': 60,
+    'precision_path': 60, 'trace_path': 120,
 }
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
@@ -3024,10 +3052,11 @@ def precision_path(dq, hamil, R, r_main, smi, counters, zero_counts):
     torch.cuda.empty_cache()
 
     # times, printed and not gated: an evaluation and a training step with
-    # every lever off and on (the gate's r4_all, the JAX accelerator defaults)
+    # every lever off and on (the gate's r4_all, the JAX accelerator defaults);
+    # the trace path times the training run with the levers off
     for label, env in (('off', LEVERS_OFF), ('on', VARIANTS['r4_all']['env'])):
         with mock.patch.dict(os.environ, env):
-            for mode in ('evaluation', 'training'):
+            for mode in ('evaluation',) if label == 'off' else ('evaluation', 'training'):
                 wf_t = dq.psiformer_ansatz(hamil, seed=0).cuda()
                 run = (dq.evaluate(hamil, wf_t, n_walkers=2048, steps=3, decorr=10, seed=0)
                        if mode == 'evaluation' else
@@ -3045,6 +3074,157 @@ def precision_path(dq, hamil, R, r_main, smi, counters, zero_counts):
                 del wf_t, run
     torch.cuda.empty_cache()
     return list(records.values())
+
+
+TRACE_SLEEP_MS = 10.0  # the clock check's kernel
+TRACE_LAUNCHES, TRACE_LAUNCH_GAP_S = 20, 0.05  # launches into an idle device over 1 s
+TRACE_IDLE_S, TRACE_IDLE_COVER, TRACE_PLACE_NS = 0.02, 0.95, 50_000
+TRACE_ITEMS = 5
+
+
+def trace_path(dq, smi, per_op_step):
+    """The spans' clock, idle placement and sync counter on the card, then
+    the span tree of 3 KFAC steps; returns the launches of those steps.
+
+    The spans' host clock must be the profiler's for its host events: each
+    timed launch call lies between the host times taken around it.  The
+    device's intervals may lie earlier than their launches, by a lag that
+    may grow (the card's timer converted): moved later by the benchmark's
+    estimate of it (``qmcbench/program_spans.py``), each kernel must lie
+    inside its span and each idle gap must start at its span's start and
+    last until its end."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepqmc_tpu_torch import tracing
+    from deepqmc_tpu_torch.ab_lih_convergence import LEVERS_OFF
+    from qmcbench.program_spans import aligned, device_ops, skew_line
+
+    print(smi, flush=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(10**6)
+    end.record()
+    torch.cuda.synchronize()
+    cycles = int(1e6 * TRACE_SLEEP_MS / start.elapsed_time(end))
+    x = torch.ones(4, device='cuda')
+    torch.cuda.synchronize()
+    marks = []
+    tracing.reset()
+    tracing.enable()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)  # the profiler's first launch
+        torch.cuda.synchronize()
+        for _ in range(TRACE_LAUNCHES):
+            a = time.time_ns()
+            torch.cuda._sleep(1000)
+            marks.append((a, time.time_ns()))
+            torch.cuda.synchronize()
+            time.sleep(TRACE_LAUNCH_GAP_S)
+        with tracing.span('clock'):
+            torch.cuda._sleep(cycles)
+            torch.cuda.synchronize()
+        torch.cuda._sleep(cycles // 20)
+        torch.cuda.synchronize()
+        with tracing.span('idle'):
+            time.sleep(TRACE_IDLE_S)
+        torch.cuda._sleep(cycles // 20)
+        torch.cuda.synchronize()
+        with tracing.span('items'):
+            for _ in range(TRACE_ITEMS):
+                x.sum().item()
+        with tracing.span('queued'):
+            for _ in range(10):
+                x = x + 1
+        torch.cuda.synchronize()
+    tracing.disable()
+    spans = {r['name']: r for r in tracing.records()}
+    ops, calls = device_ops(prof)
+    prog = {'device': ops, 'launch_ns': {c: t[0] for c, t in calls.items()}}
+    host = dict(zip(ops, aligned(prog)))  # each operation on the host's clock
+    t0, lead0, slope = skew_line(ops, prog['launch_ns'])
+    timed = [(m, calls[k[3]], k) for m in marks for k in ops
+             if k[3] in calls and m[0] <= calls[k[3]][0] <= m[1]]
+    wholly = sum(c[1] <= m[1] for m, c, _ in timed)
+    lead = [c[0] - k[0] for _, c, k in timed]
+    print(f'trace path: host clock: {len(timed)} of {TRACE_LAUNCHES} timed launch calls (over '
+          f'{1e-9 * (marks[-1][0] - marks[0][0]):.2f} s) found between their host times, '
+          f'{wholly} wholly; launch call start - host time before it, median '
+          f'{1e-3 * sorted(c[0] - m[0] for m, c, _ in timed)[len(timed) // 2]:.1f} us; their '
+          f'launch call start - device start (raw) first {1e-3 * lead[0]:.1f} us, last '
+          f'{1e-3 * lead[-1]:.1f} us, largest {1e-3 * max(lead):.1f} us; the device\'s lag '
+          f'estimated over the trace {1e-3 * lead0:.1f} us + {1e6 * slope:.1f} ppm', flush=True)
+    if len(timed) != TRACE_LAUNCHES or wholly != TRACE_LAUNCHES:
+        raise SystemExit('the spans\' clock is not the profiler\'s host clock')
+    clock = spans['clock']
+    k = max(ops, key=lambda o: o[1] - o[0])
+    (k0, k1, *_), c0 = host[k], calls[k[3]][0]
+    print(f'trace path: clock: kernel of {1e-6 * (k[1] - k[0]):.3f} ms on the device; its '
+          f'launch call {1e-3 * (c0 - clock["start_ns"]):.1f} us after the span start; kernel '
+          f'start - span start {1e-3 * (k[0] - clock["start_ns"]):.1f} us raw, '
+          f'{1e-3 * (k0 - clock["start_ns"]):.1f} us moved; span end - kernel end '
+          f'{1e-3 * (clock["end_ns"] - k[1]):.1f} us raw, {1e-3 * (clock["end_ns"] - k1):.1f} us '
+          f'moved', flush=True)
+    if not clock['start_ns'] <= min(c0, k0) < k1 <= clock['end_ns']:
+        raise SystemExit('the kernel does not lie inside its span')
+    idle = spans['idle']
+    a, b = idle['start_ns'], idle['end_ns']
+    moved = sorted(host.values())
+    before = max(e for _, e, *_ in moved if e <= (a + b) // 2)
+    after, _, _, nxt = min(o for o in moved if o[0] >= (a + b) // 2)
+    launch = calls[nxt][0]
+    cover = (min(after, b) - max(before, a)) / (b - a)
+    print(f'trace path: idle: span {1e-6 * (b - a):.3f} ms, device-idle gap '
+          f'{1e-6 * (after - before):.3f} ms covering {100 * cover:.2f} % of it; gap start - '
+          f'span start {1e-3 * (before - a):.1f} us; gap end - span end {1e-3 * (after - b):.1f} '
+          f'us; the next launch call - span end {1e-3 * (launch - b):.1f} us (not bounded: the '
+          f'host\'s time to its next launch), gap end - that call {1e-3 * (after - launch):.1f} '
+          f'us (moved)', flush=True)
+    if (cover < TRACE_IDLE_COVER or abs(before - a) > TRACE_PLACE_NS or after < max(b, launch)):
+        raise SystemExit('the device-idle gap is not where its span is')
+    syncs = {k: r['counts']['syncs'] for k, r in spans.items()}
+    print(f'trace path: syncs by span {syncs} ({TRACE_ITEMS} .item() calls in items)',
+          flush=True)
+    if syncs['items'] != TRACE_ITEMS or syncs['queued'] != 0:
+        raise SystemExit('the sync counter is wrong')
+
+    hamil = dq.MolecularHamiltonian(mol=dq.Molecule.from_name('H2O'))
+    wf = dq.psiformer_ansatz(hamil, seed=0)
+    tracing.reset()
+    tracing.enable()
+    times, t0 = [], time.monotonic()
+    with mock.patch.dict(os.environ, LEVERS_OFF):
+        for _ in dq.fit.train(hamil, wf, n_walkers=2048, steps=3, decorr=10, seed=0,
+                              optimizer='kfac'):
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.monotonic() - t0))
+            t0 = time.monotonic()
+    tracing.disable()
+    print(f'{smi} | training step, 2048 walkers, levers off (tracing on): steps '
+          f'{", ".join(f"{t:.1f}" for t in times)} ms', flush=True)
+    recs = tracing.records()
+    print(tracing.summary(), flush=True)
+    launches = dict.fromkeys(per_op_step, 0)
+    for n in range(3):
+        mine = [r for r in recs if r['step'] == n]
+        names = [r['name'] for r in mine]
+        want = {'step', 'sampling.sample', 'sampling.move', 'local_energy', 'grad',
+                'grad.backward', 'grad.taps', 'kfac.update', 'kfac.factors',
+                'kfac.precondition', 'sampling.update', 'fit.stats'}
+        if n == 0:
+            want.add('kfac.inverses')
+        step = mine[0]
+        print(f'trace path: step {n}: {len(mine)} spans, launches {step["launches"]}, syncs '
+              f'{sum(r["counts"]["syncs"] for r in mine)}', flush=True)
+        if (set(names) != want or names.count('sampling.move') != 10
+                or step['launches'] != per_op_step):
+            raise SystemExit(f'step {n}: the span tree or its launches are wrong: {names}')
+        for k, v in step['launches'].items():
+            launches[k] += v
+    del wf
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -3102,6 +3282,18 @@ def main() -> int:
         build_s = time.monotonic() - t0
         _cuda.library()
         print(f'built {lib_path.name} in {build_s:.2f} s', flush=True)
+
+    if sys.argv[1:] == ['--only', 'trace_path']:
+        with Phase('trace_path'):
+            step = dict.fromkeys(dq.ops.launch_counts(), 0) | {'fl_attention': 4,
+                                                              'fl_slogdet_traces': 1}
+            print(f'launches during the trace path: {trace_path(dq, smi, step)}', flush=True)
+        faulthandler.cancel_dump_traceback_later()
+        print(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+            'count': torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
 
     kernels = []
     with Phase('kernels'):
@@ -3739,6 +3931,10 @@ def main() -> int:
 
     with Phase('precision_path'):
         kernels.extend(precision_path(dq, hamil, R, main_last['r'], smi, counters, zero_counts))
+
+    with Phase('trace_path'):
+        trace_launches = trace_path(dq, smi, per_op_step)
+        print(f'launches during the trace path: {trace_launches}', flush=True)
 
     print(json.dumps({'kernels': kernels}), flush=True)
     print(f'{smi} | whole run {time.monotonic() - _T0:.1f} s', flush=True)

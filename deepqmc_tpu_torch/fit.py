@@ -38,6 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import tracing
 from .ewm import init_multi_mol_multi_state_ewm
 from .loss import create_loss_fn, median_log_squeeze_and_mask
 from .loss.energy import compute_local_energy
@@ -140,22 +141,23 @@ def _energy_stats(E_loc, stats, mol_idxs, ewm, std_ewm, update_ewm):
     """The ``local_energy/*`` statistics over the global walker axis and the
     EWMs of the energy and its spread, each ``[m, S]`` (molecule, state), the
     EWMs updated at ``mol_idxs``."""
-    E = E_loc.view(len(mol_idxs), -1, E_loc.shape[-1])
-    stats = {
-        **stats,
-        'local_energy/mean': all_device_mean(E, -1),
-        'local_energy/std': all_device_std(E, -1),
-        'local_energy/min': all_device_min(E, -1),
-        'local_energy/max': all_device_max(E, -1),
-    }
-    ewm = update_ewm(stats['local_energy/mean'], ewm, mol_idxs)
-    std_ewm = update_ewm(stats['local_energy/std'], std_ewm, mol_idxs)
-    idxs = mol_idxs.tolist()
-    stats |= {
-        'energy/ewm': _rows(ewm.mean, idxs),
-        'energy/ewm_error': torch.sqrt(_rows(ewm.sqerr, idxs)),
-        'energy/std_ewm': _rows(std_ewm.mean, idxs),
-    }
+    with tracing.span('fit.stats'):
+        E = E_loc.view(len(mol_idxs), -1, E_loc.shape[-1])
+        stats = {
+            **stats,
+            'local_energy/mean': all_device_mean(E, -1),
+            'local_energy/std': all_device_std(E, -1),
+            'local_energy/min': all_device_min(E, -1),
+            'local_energy/max': all_device_max(E, -1),
+        }
+        ewm = update_ewm(stats['local_energy/mean'], ewm, mol_idxs)
+        std_ewm = update_ewm(stats['local_energy/std'], std_ewm, mol_idxs)
+        idxs = mol_idxs.tolist()
+        stats |= {
+            'energy/ewm': _rows(ewm.mean, idxs),
+            'energy/ewm_error': torch.sqrt(_rows(ewm.sqerr, idxs)),
+            'energy/std_ewm': _rows(std_ewm.mean, idxs),
+        }
     return ewm, std_ewm, stats
 
 
@@ -297,7 +299,7 @@ def evaluate(
     ewm, update_ewm = init_multi_mol_multi_state_ewm((idx_sampler.n_mols, 1), device=device)
     std_ewm = ewm
     for step in range(steps):
-        with grad_mode():
+        with tracing.step(step), grad_mode():
             state, ewm, std_ewm, E_loc, stats = eval_step(
                 gen, hamil, wf, sampler, state, idx_sampler.sample(), ewm, std_ewm, update_ewm,
                 eloc_walker_chunk,
@@ -372,7 +374,7 @@ def _fit_steps(gen, sampler, opt, train_state: TrainState, molecule_idx_sampler,
     def run(train_state, ewm, std_ewm):
         for step in steps:
             mol_idxs = molecule_idx_sampler.sample()
-            with grad_mode() if grad_mode else contextlib.nullcontext():
+            with tracing.step(step), grad_mode() if grad_mode else contextlib.nullcontext():
                 train_state, ewm, std_ewm, E_loc, psi_ratio, stats = train_step(
                     gen, sampler, opt, train_state, mol_idxs, ewm, std_ewm, update_ewm)
             yield step, train_state, mol_idxs, E_loc, psi_ratio, stats
@@ -452,7 +454,8 @@ def fit_wf(
             }))
         if not block:
             return
-        host = _to_host(dict(enumerate(out for *_, out in outputs))).values()
+        with tracing.span('fit.host_read'):
+            host = _to_host(dict(enumerate(out for *_, out in outputs))).values()
         step_time = (time.perf_counter() - start) / len(block)
         for b, (step, (mol_idxs, E_loc, psi, psi_ratio, _), out) in enumerate(
                 zip(block, outputs, host)):
@@ -460,12 +463,14 @@ def fit_wf(
                      'perf/walker_steps_per_sec': n_walkers / step_time}
             samples = {'local_energy/samples': out['E_loc'],
                        'psi/samples': {'sign': out['psi_sign'], 'log': out['psi_log']}}
-            if b == len(block) - 1:
-                for monitor in observable_monitors:
-                    extra = monitor(step, train_state.params,
-                                    _state_conf(train_state.sampler, mol_idxs), psi, E_loc,
-                                    psi_ratio)
-                    extra_samples, extra_stats = split_dict(extra, lambda key: 'samples' in key)
-                    stats |= _to_host(extra_stats)
-                    samples |= _to_host(extra_samples)
+            if b == len(block) - 1 and observable_monitors:
+                with tracing.span('fit.monitors'):
+                    for monitor in observable_monitors:
+                        extra = monitor(step, train_state.params,
+                                        _state_conf(train_state.sampler, mol_idxs), psi, E_loc,
+                                        psi_ratio)
+                        extra_samples, extra_stats = split_dict(extra,
+                                                                lambda key: 'samples' in key)
+                        stats |= _to_host(extra_stats)
+                        samples |= _to_host(extra_samples)
             yield step, train_state, mol_idxs.numpy(), stats, samples

@@ -40,6 +40,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from ..nn import instrumented
 from ..utils import ConstantSchedule
 
@@ -140,48 +141,54 @@ class KFAC:
         """The curvature and parameter half of a step from the loss's gradient
         and factor sums (:meth:`~..loss.VMCLoss.value_grad_and_taps`) over ``n_batch``
         walkers a state (over the molecules and ranks)."""
-        step = opt_state['step']
-        lr = self.lr_schedule(step)
-        damping = max(self.damping_schedule(step), self.MIN_DAMPING)
-        ema = self.CURVATURE_EMA
-        ema_weight = ema * opt_state['ema_weight'] + (1 - ema)
-        grads, sums = self._per_state(grads), self._per_state(sums)
-        factors = []
-        for old, state_sums in zip(self._per_state(opt_state['factors']), sums):
-            factors.append({})
-            for m in self.metas:
-                A, G = state_sums[m.path]
-                total = n_batch * sum(r for r in m.repeats if r > 0)
-                A_old, G_old = old[m.path]
-                factors[-1][m.path] = (ema * A_old + (1 - ema) * (A / total),
-                                       ema * G_old + (1 - ema) * (G / total))
-        if step % self.inverse_update_period == 0:
-            inverses = self._inverses(factors, ema_weight, damping)
-        else:
-            inverses = self._per_state(opt_state['inverses'])
+        with tracing.span('kfac.update'):
+            step = opt_state['step']
+            lr = self.lr_schedule(step)
+            damping = max(self.damping_schedule(step), self.MIN_DAMPING)
+            ema = self.CURVATURE_EMA
+            ema_weight = ema * opt_state['ema_weight'] + (1 - ema)
+            grads, sums = self._per_state(grads), self._per_state(sums)
+            with tracing.span('kfac.factors'):
+                factors = []
+                for old, state_sums in zip(self._per_state(opt_state['factors']), sums):
+                    factors.append({})
+                    for m in self.metas:
+                        A, G = state_sums[m.path]
+                        total = n_batch * sum(r for r in m.repeats if r > 0)
+                        A_old, G_old = old[m.path]
+                        factors[-1][m.path] = (ema * A_old + (1 - ema) * (A / total),
+                                               ema * G_old + (1 - ema) * (G / total))
+            if step % self.inverse_update_period == 0:
+                with tracing.span('kfac.inverses'):
+                    inverses = self._inverses(factors, ema_weight, damping)
+            else:
+                inverses = self._per_state(opt_state['inverses'])
 
-        updates = [self._precondition(g, inv, damping) for g, inv in zip(grads, inverses)]
-        # one trust region over all states: v.g summed over every state
-        v_dot_g = torch.clamp(sum((u[k] * g).sum() for u, gs in zip(updates, grads)
-                                  for k, g in gs.items()), min=1e-20)
-        coeff = torch.clamp(torch.sqrt(self.norm_constraint / (lr**2 * v_dot_g)), max=1.0)
-        params = [dict(s.named_parameters()) for s in self.loss.states]
-        stats = {
-            'opt/lr': lr * coeff,
-            'opt/damping': torch.tensor(damping, dtype=v_dot_g.dtype, device=v_dot_g.device),
-            'opt/norm_scale': coeff,
-            'opt/v_dot_g': v_dot_g,
-            'opt/param_norm': _tree_norm(p.detach() for ps in params for p in ps.values()),
-            'opt/grad_norm': _tree_norm(g for gs in grads for g in gs.values()),
-            'opt/update_norm': _tree_norm(v for u in updates for v in u.values()) * lr * coeff,
-        }
-        with torch.no_grad():
-            for ps, u in zip(params, updates):
-                for k, p in ps.items():
-                    p.sub_(lr * coeff * u[k])
-        new_state = {'step': step + 1, 'ema_weight': ema_weight,
-                     'factors': self._public(factors), 'inverses': self._public(inverses)}
-        return new_state, stats
+            with tracing.span('kfac.precondition'):
+                updates = [self._precondition(g, inv, damping) for g, inv in zip(grads, inverses)]
+                # one trust region over all states: v.g summed over every state
+                v_dot_g = torch.clamp(sum((u[k] * g).sum() for u, gs in zip(updates, grads)
+                                          for k, g in gs.items()), min=1e-20)
+                coeff = torch.clamp(torch.sqrt(self.norm_constraint / (lr**2 * v_dot_g)), max=1.0)
+                params = [dict(s.named_parameters()) for s in self.loss.states]
+                stats = {
+                    'opt/lr': lr * coeff,
+                    'opt/damping': torch.tensor(damping, dtype=v_dot_g.dtype,
+                                                device=v_dot_g.device),
+                    'opt/norm_scale': coeff,
+                    'opt/v_dot_g': v_dot_g,
+                    'opt/param_norm': _tree_norm(p.detach() for ps in params for p in ps.values()),
+                    'opt/grad_norm': _tree_norm(g for gs in grads for g in gs.values()),
+                    'opt/update_norm': (_tree_norm(v for u in updates for v in u.values())
+                                        * lr * coeff),
+                }
+                with torch.no_grad():
+                    for ps, u in zip(params, updates):
+                        for k, p in ps.items():
+                            p.sub_(lr * coeff * u[k])
+            new_state = {'step': step + 1, 'ema_weight': ema_weight,
+                         'factors': self._public(factors), 'inverses': self._public(inverses)}
+            return new_state, stats
 
     def _precondition(self, grads, inverses, damping):
         """One state's update: ``A^-1 [W; b] G^-1 / R`` for a dense layer, the

@@ -11,6 +11,7 @@ backward pass of ``log|psi|`` pulls back to the parameters.
 
 import torch
 
+from .. import tracing
 from ..parallel import all_device_mean, all_device_sum
 from ..utils import chunk_size
 
@@ -33,7 +34,7 @@ def compute_local_energy(hamil, wf, phys_conf, *, walker_chunk=None):
     """
     B = phys_conf.r.shape[0]
     size = chunk_size(B, walker_chunk, 'DEEPQMC_TPU_ELOC_WALKER_CHUNK')
-    with torch.no_grad():
+    with tracing.span('local_energy'), torch.no_grad():
         phi = hamil.nl_rotations(phys_conf)
         parts = [
             hamil.local_energy(

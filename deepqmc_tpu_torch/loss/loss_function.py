@@ -48,6 +48,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import tracing
 from ..nn import dense_layer_paths, instrumented
 from ..parallel import all_device_mean, get_process_count, sum_over_ranks
 from ..types import PhysicalConfiguration
@@ -247,17 +248,19 @@ class VMCLoss:
         """The gradient half: clip, form the per-walker cotangent, pull it back
         through each state's forward (with ``taps``, the factor sums as in
         :meth:`value_grad_and_taps`), summed over the ranks."""
-        cot = self.cotangent(weight, terms, data)
-        _, confs = self._confs(phys_conf)
-        grads, state_taps = [], []
-        # each state's forward and backward and the taps' backward, at the
-        # gradient's matmul precision (deepqmc_tpu/loss/loss_function.py)
-        with grad_precision_ctx():
-            for wf, paths, pc, c in zip(self.states, self.dense_paths, confs, cot.unbind(1)):
-                g, t = self._pull_back(wf, paths, pc, c.reshape(-1), taps)
-                grads.append(g)
-                state_taps.append(t)
-        grads, state_taps = sum_over_ranks((grads, state_taps))
+        with tracing.span('grad'):
+            cot = self.cotangent(weight, terms, data)
+            _, confs = self._confs(phys_conf)
+            grads, state_taps = [], []
+            # each state's forward and backward and the taps' backward, at the
+            # gradient's matmul precision (deepqmc_tpu/loss/loss_function.py)
+            with grad_precision_ctx():
+                for wf, paths, pc, c in zip(self.states, self.dense_paths, confs,
+                                            cot.unbind(1)):
+                    g, t = self._pull_back(wf, paths, pc, c.reshape(-1), taps)
+                    grads.append(g)
+                    state_taps.append(t)
+            grads, state_taps = sum_over_ranks((grads, state_taps))
         if self.multi:
             return grads, state_taps if taps else None
         return grads[0], state_taps[0]
@@ -284,18 +287,22 @@ class VMCLoss:
             with instrumented(wf) as rec:
                 log_psi = wf(phys_conf).log
             grads = self._grads(params, log_psi, cotangent, retain_graph=True)
+        with tracing.span('grad.taps'):
             calls = [(m, x, out) for m, xs in rec.calls.items() for x, out in xs]
-            sens = torch.autograd.grad(
-                log_psi, [out for _, _, out in calls], torch.ones_like(log_psi), allow_unused=True
-            )
-        return grads, factor_sums(dense_paths, calls, sens)
+            with torch.enable_grad():
+                sens = torch.autograd.grad(
+                    log_psi, [out for _, _, out in calls], torch.ones_like(log_psi),
+                    allow_unused=True
+                )
+            return grads, factor_sums(dense_paths, calls, sens)
 
     @staticmethod
     def _grads(params, log_psi, cotangent, retain_graph):
-        grads = torch.autograd.grad(
-            log_psi, list(params.values()), cotangent, retain_graph=retain_graph,
-            allow_unused=True,
-        )
+        with tracing.span('grad.backward'):
+            grads = torch.autograd.grad(
+                log_psi, list(params.values()), cotangent, retain_graph=retain_graph,
+                allow_unused=True,
+            )
         return {
             k: torch.zeros_like(p) if g is None else g
             for (k, p), g in zip(params.items(), grads)

@@ -13,6 +13,7 @@ of a :class:`~..wf.StateStack`, and its own walkers.
 
 import torch
 
+from .. import tracing
 from ..types import PhysicalConfiguration
 from ..utils import set_rows, tree_map, tree_stack
 
@@ -125,6 +126,8 @@ class MultiNuclearGeometrySampler:
         self.warp_elec_fn = warp_elec_fn
         self.update_nuc_period = update_nuc_period
         self.elec_equilibration_steps = elec_equilibration_steps
+        # electron moves a molecule per sample call (a nuclear move's adds none)
+        self.moves = getattr(elec_sampler.sampler, 'length', 1) * elec_sampler.n_state
 
     def init(self, gen, n: int, R) -> dict:
         """Walkers for each geometry of ``R`` ``[n_mol, n_nuc, 3]``."""
@@ -143,27 +146,31 @@ class MultiNuclearGeometrySampler:
         return {**part, 'nuc': nuc, 'elec': elec}
 
     def sample(self, gen, state: dict, mol_idxs: torch.Tensor):
-        state = dict(state)
-        counter = state.pop('update_nuc_counter')
-        idxs = mol_idxs.tolist()
-        parts = [_take(state, i) for i in idxs]
-        if self.update_nuc_period is not None:
-            due = counter[mol_idxs] == self.update_nuc_period - 1
-            parts = [self._advance_nuclei(gen, p) if d else p for p, d in zip(parts, due.tolist())]
-            counter = counter.index_copy(0, mol_idxs, torch.where(due, 0, counter[mol_idxs] + 1))
-        outs = [self.elec.sample(gen, p['elec'], p['nuc']['R']) for p in parts]
-        parts = [{**p, 'elec': elec} for p, (elec, _, _) in zip(parts, outs)]
-        state = tree_map(lambda full, *part: set_rows(full, idxs, part), state, *parts)
-        state['update_nuc_counter'] = counter
-        phys_conf = PhysicalConfiguration(
-            torch.stack([p['nuc']['R'] for p in parts]),
-            torch.stack([pc.r for _, pc, _ in outs]),
-            torch.stack([torch.full_like(pc.mol_idx, i) for i, (_, pc, _) in zip(idxs, outs)]),
-        )
-        return state, phys_conf, tree_stack([stats for _, _, stats in outs])
+        with tracing.span('sampling.sample', moves=self.moves * len(mol_idxs)):
+            state = dict(state)
+            counter = state.pop('update_nuc_counter')
+            idxs = mol_idxs.tolist()
+            parts = [_take(state, i) for i in idxs]
+            if self.update_nuc_period is not None:
+                due = counter[mol_idxs] == self.update_nuc_period - 1
+                parts = [self._advance_nuclei(gen, p) if d else p
+                         for p, d in zip(parts, due.tolist())]
+                counter = counter.index_copy(0, mol_idxs,
+                                             torch.where(due, 0, counter[mol_idxs] + 1))
+            outs = [self.elec.sample(gen, p['elec'], p['nuc']['R']) for p in parts]
+            parts = [{**p, 'elec': elec} for p, (elec, _, _) in zip(parts, outs)]
+            state = tree_map(lambda full, *part: set_rows(full, idxs, part), state, *parts)
+            state['update_nuc_counter'] = counter
+            phys_conf = PhysicalConfiguration(
+                torch.stack([p['nuc']['R'] for p in parts]),
+                torch.stack([pc.r for _, pc, _ in outs]),
+                torch.stack([torch.full_like(pc.mol_idx, i) for i, (_, pc, _) in zip(idxs, outs)]),
+            )
+            return state, phys_conf, tree_stack([stats for _, _, stats in outs])
 
     def update(self, state: dict) -> dict:
         """Refresh psi (and what the electron sampler keeps with it) for every molecule."""
-        R = state['nuc']['R']
-        elec = [self.elec.update(_take(state['elec'], i), R[i]) for i in range(len(R))]
-        return {**state, 'elec': tree_stack(elec)}
+        with tracing.span('sampling.update'):
+            R = state['nuc']['R']
+            elec = [self.elec.update(_take(state['elec'], i), R[i]) for i in range(len(R))]
+            return {**state, 'elec': tree_stack(elec)}

@@ -22,6 +22,7 @@ walkers from its own shard in proportion to the weights.
 
 import torch
 
+from .. import tracing
 from ..parallel import (
     all_device_max,
     all_device_mean,
@@ -130,7 +131,8 @@ class MetropolisSampler:
 
     def sample(self, gen: torch.Generator, state: dict, R):
         r = state['r']
-        return self.step(state, R, normal(gen, r), uniform(gen, r.shape[0], r))
+        with tracing.span('sampling.move'):
+            return self.step(state, R, normal(gen, r), uniform(gen, r.shape[0], r))
 
     @staticmethod
     def _stats(state) -> dict:
